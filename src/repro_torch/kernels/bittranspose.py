@@ -1,0 +1,61 @@
+"""32x32 bit transpose: horizontal values -> BitWeaving-V planes.
+
+Port of the Pallas `repro.kernels.bittranspose.bit_transpose_kernel`.
+`bit_transpose` launches ``csrc/bittranspose.cu`` (one warp vote per
+plane word) for a CUDA tensor and runs the plain version,
+`kernels.ref.bit_transpose`, for a CPU tensor. Only the ``n_bits``
+requested planes are computed — the same function as the reference's
+32-plane transpose sliced to ``n_bits``.
+
+Convention (LSB-first): out[w, g] bit i == bit w of values[g*32 + i].
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels.ref import bit_transpose as bit_transpose_plain
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("bittranspose")
+    if lib.bit_transpose_launch.argtypes is None:
+        lib.bit_transpose_launch.restype = ctypes.c_int
+        lib.bit_transpose_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]
+    return lib
+
+
+def bit_transpose(values: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """values: (n,) int32 words, n % 32 == 0 -> planes (n_bits, n // 32)."""
+    if values.device.type == "cpu":
+        return bit_transpose_plain(values, n_bits)
+    if values.device.type != "cuda":
+        raise ValueError(f"bit_transpose runs on cuda or cpu, not "
+                         f"{values.device}")
+    if values.dtype != torch.int32 or values.dim() != 1:
+        raise ValueError(f"values must be (n,) int32, got "
+                         f"{tuple(values.shape)} {values.dtype}")
+    n = values.shape[0]
+    if n % 32:
+        raise ValueError(f"bit_transpose needs a multiple of 32 values, "
+                         f"got {n}")
+    if not 0 <= n_bits <= 32:
+        raise ValueError(f"n_bits must be in 0..32, got {n_bits}")
+    groups = n // 32
+    out = torch.empty((n_bits, groups), dtype=torch.int32,
+                      device=values.device)
+    if groups == 0 or n_bits == 0:
+        return out
+    values = values.contiguous()
+    lib = _lib()
+    with torch.cuda.device(values.device):
+        rc = lib.bit_transpose_launch(_build.ptr(values), groups, n_bits,
+                                      _build.ptr(out),
+                                      _build.stream_of(values))
+    _build.check(lib, rc, "bit_transpose_launch")
+    LAUNCHES["bit_transpose"] += 1
+    return out
