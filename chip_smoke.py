@@ -13,18 +13,34 @@ Phases; the first failure exits non-zero:
    tree, ``sum(col + col2)``, range scan, ``col < K & male``) at batch 1
    and 16, a word count that is not a multiple of the column block,
    popcount with a shared and with per-batch masks, materialize, fault
-   masks; the bit transpose on 2**24 values and on a ragged count.
-3. slice   — serve the §8 multi-tenant workload at full width (2**24-bit
+   masks; the bit transpose on 2**24 values and on a ragged count; the
+   nine bitwise ops flat (ragged, aligned and misaligned word runs) and
+   banked (1, 3 and 8 banks over a ragged width); popcount at ragged,
+   misaligned and all-ones inputs; the BitWeaving scan at 1, 7, 12 and 32
+   bits with extra planes, ``lo > hi`` and ``hi >= 2**n_bits``.
+3. slice   — (a) serve the §8 multi-tenant workload at full width (2**24-bit
    vectors) through ``build_service -> query_stream -> query_batch``, plus
    a batch of materialize queries. Every result must equal the unbatched
    micro-op interpreter (no VM, no kernel) on the card, and sum(col) and a
-   weekly-OR count must equal numpy on the raw seeded data. Every kernel
-   must have been launched while the slice ran.
+   weekly-OR count must equal numpy on the raw seeded data.
+   (b) the paper's direct bulk-bitwise path at its sizes, data drawn on
+   the card from a seeded `torch.Generator`: Fig. 9's nine ops through
+   ``repro_torch.ops`` on 32 MiB operands at 1 and 8 banks, each output
+   counted with ``kernels.ops.popcount``; §8.1's weekly-active query over
+   2**24 users and 4 weeks, also through the query service; §8.2's scan
+   over 2**25 - 7 values at 12 and 32 bits; §8.3's union, intersection
+   and difference of 15 sets of 1,024 elements over 2**19 at 1 and 8
+   banks and through the service; ``engine.execute(n_banks=8)`` against
+   one bank. Every result must equal numpy on the raw data. Each of (a)
+   and (b) starts with every launch count at 0 and must launch each of
+   its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments,
    hold each to its plain version again (bit for bit, at the main path's
    shapes), time both with CUDA events, and print each kernel's total
    beside its bound (bytes over 3.35 TB/s or int32 operations over the
-   card's integer rate, whichever is larger).
+   card's integer rate, whichever is larger) and, for the bitwise
+   launches whose op is one PyTorch call (and, or, xor, not), that call's
+   time on the same operands.
 
 Output: the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as the last line ``{"ok": true, "device": {...}}``. ``--out DIR``
@@ -49,12 +65,23 @@ INT32_LANES_PER_SM = 64
 
 KERNELS = {
     "vm_popcount": ("src/repro_torch/csrc/vm.cu",
-                    "src/repro/kernels/vm.py:164"),
+                    "src/repro/kernels/vm.py:166"),
     "vm_materialize": ("src/repro_torch/csrc/vm.cu",
-                       "src/repro/kernels/vm.py:164"),
+                       "src/repro/kernels/vm.py:166"),
     "bit_transpose": ("src/repro_torch/csrc/bittranspose.cu",
                       "src/repro/kernels/bittranspose.py:54"),
+    "bitwise": ("src/repro_torch/csrc/bitwise.cu",
+                "src/repro/kernels/bitwise.py:82"),
+    "bitwise_banked": ("src/repro_torch/csrc/bitwise.cu",
+                       "src/repro/kernels/bitwise.py:51"),
+    "popcount": ("src/repro_torch/csrc/popcount.cu",
+                 "src/repro/kernels/popcount.py:33"),
+    "bitweaving_scan": ("src/repro_torch/csrc/bitweaving.cu",
+                        "src/repro/kernels/bitweaving.py:47"),
 }
+#: the kernels each main-path run of phase 3 must launch
+SERVICE_KERNELS = ("vm_popcount", "vm_materialize", "bit_transpose")
+DIRECT_KERNELS = ("bitwise", "bitwise_banked", "popcount", "bitweaving_scan")
 
 
 class SmokeFailure(RuntimeError):
@@ -184,10 +211,75 @@ def phase_kernels(torch, svc, spec) -> int:
                  bit_transpose(values, n_bits),
                  ref.bit_transpose(values, n_bits), errs)
         n_cases += 1
+    n_cases += _direct_kernel_cases(torch, svc.device, errs)
     torch.cuda.synchronize()
     print(f"[kernels] {n_cases} cases bit-identical to the plain versions "
           f"({words} words per row, {cols}-column blocks)")
     return max(errs)
+
+
+def _draw_words(torch, gen, *shape):
+    """Uniform 32-bit words (int32 bit patterns) drawn on the card."""
+    x = torch.randint(0, 1 << 32, shape, dtype=torch.int64, generator=gen,
+                      device=gen.device)
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def _direct_kernel_cases(torch, device, errs) -> int:
+    """The direct path's kernels against their plain versions at ragged
+    sizes: word runs that are not a multiple of 4 (word-at-a-time), runs
+    4 bytes off a 16-byte boundary, bank counts that pad, extra planes
+    and bounds past ``2**n_bits``."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitweaving import bitweaving_scan_kernel
+    from repro_torch.kernels.bitwise import bitwise_kernel
+    from repro_torch.kernels.popcount import popcount_kernel
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    n_cases = 0
+    for op, arity in ref.ARITY.items():
+        for shape in ((3, 1001), (8, 1 << 16), "misaligned"):
+            if shape == "misaligned":
+                args = [_draw_words(torch, gen, 4097)[1:].reshape(1, -1)
+                        for _ in range(arity)]
+                check(args[0].data_ptr() % 16 == 4, "slice is 16B-aligned")
+            else:
+                args = [_draw_words(torch, gen, *shape)
+                        for _ in range(arity)]
+            _compare(f"bitwise {op} {shape}", bitwise_kernel(op, *args),
+                     ref.bitwise(op, *args), errs)
+            n_cases += 1
+        for banks in (1, 3, 8):
+            args = [_draw_words(torch, gen, 2, 1001) for _ in range(arity)]
+            _compare(f"bitwise_banked {op} banks={banks}",
+                     kops.bitwise_banked(op, *args, n_banks=banks),
+                     ref.bitwise(op, *args), errs)
+            n_cases += 1
+    for shape in ((1, 1), (3, 1001), (64, 1 << 16), "misaligned", "ones"):
+        if shape == "misaligned":
+            words = _draw_words(torch, gen, 4099)[1:].reshape(1, -1)
+        elif shape == "ones":
+            words = torch.full((1, 1 << 22), -1, dtype=torch.int32,
+                               device=device)
+        else:
+            words = _draw_words(torch, gen, *shape)
+        _compare(f"popcount {shape}", popcount_kernel(words),
+                 ref.popcount(words), errs)
+        n_cases += 1
+    for n_bits in (1, 7, 12, 32):
+        top = 1 << n_bits
+        for case, lo, hi, extra in (("inside", top // 5, 3 * top // 4, 0),
+                                    ("lo > hi", top - 1, 0, 0),
+                                    ("hi >= 2**n_bits", top // 3, top + 5,
+                                     0),
+                                    ("b > n_bits", top // 7, top // 2, 3)):
+            planes = _draw_words(torch, gen, n_bits + extra, 1001)
+            _compare(f"bitweaving_scan n_bits={n_bits} {case}",
+                     bitweaving_scan_kernel(planes, lo, hi, n_bits),
+                     ref.bitweaving_scan(planes, lo, hi, n_bits), errs)
+            n_cases += 1
+    return n_cases
 
 
 # ---------------------------------------------------------------------------
@@ -198,29 +290,57 @@ def phase_kernels(torch, svc, spec) -> int:
 class Recorder:
     """Wraps the kernel wrappers the main path calls and keeps each call's
     arguments, so phase 4 can replay exactly the slice's launches. The
-    wrappers themselves (and their launch counters) are untouched."""
+    wrappers themselves (and their launch counters) are untouched. Calls
+    are kept only while ``stage`` names a stage of a main-path run (not
+    None), so the checks after each run record nothing."""
 
     def __init__(self):
         import repro_torch.kernels.bittranspose as bt
         import repro_torch.kernels.vm as vm
 
         self.calls = []
-        self.stage = ""
+        self.stage = None
         self._restore = [(vm, "vm_megakernel", vm.vm_megakernel),
                          (bt, "bit_transpose", bt.bit_transpose)]
         orig_vm, orig_bt = vm.vm_megakernel, bt.bit_transpose
 
         def vm_rec(table, plane, out_idx, **kw):
-            self.calls.append(("vm", (table, plane, tuple(out_idx)), kw,
-                               self.stage))
+            self._keep("vm", (table, plane, tuple(out_idx)), kw)
             return orig_vm(table, plane, out_idx, **kw)
 
         def bt_rec(values, n_bits):
-            self.calls.append(("bt", (values, n_bits), {}, self.stage))
+            self._keep("bt", (values, n_bits), {})
             return orig_bt(values, n_bits)
 
         vm.vm_megakernel = vm_rec
         bt.bit_transpose = bt_rec
+        import repro_torch.kernels.bitwise as bitwise
+        import repro_torch.kernels.bitweaving as bitweaving
+        import repro_torch.kernels.popcount as popcount
+
+        for mod, fn, name in ((bitwise, "bitwise_kernel", "bitwise"),
+                              (bitwise, "banked_bitwise_kernel",
+                               "bitwise_banked"),
+                              (popcount, "popcount_kernel", "popcount"),
+                              (bitweaving, "bitweaving_scan_kernel",
+                               "bitweaving_scan")):
+            self._wrap(mod, fn, name)
+
+    def _wrap(self, mod, fn: str, name: str) -> None:
+        """Record every call of ``mod.fn`` (positional arguments only) as
+        a launch of kernel ``name``."""
+        orig = getattr(mod, fn)
+
+        def rec(*args):
+            self._keep(name, args, {})
+            return orig(*args)
+
+        self._restore.append((mod, fn, orig))
+        setattr(mod, fn, rec)
+
+    def _keep(self, kind: str, args, kw) -> None:
+        if self.stage is not None:
+            self.calls.append((kind, args, kw, self.stage))
 
     def held_bytes(self) -> int:
         """Device bytes the recorded arguments keep alive."""
@@ -253,45 +373,42 @@ def _raw_tenant0(spec):
     return days, col, col2
 
 
-def phase_slice(torch, spec):
+def phase_slice(torch, spec, rec):
     from repro_torch.apps.bitmap_index import week_or
     from repro_torch.kernels import LAUNCHES
     from repro_torch.service import (AGGREGATE, MATERIALIZE, Query,
                                      build_service, query_stream,
                                      run_queries_unbatched)
 
-    rec = Recorder()
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        LAUNCHES.clear()
-        rec.stage = "ingest"
-        t0 = time.perf_counter()
-        svc = build_service(spec, device="cuda")
-        torch.cuda.synchronize()
-        t_build = time.perf_counter() - t0
-        queries = query_stream(spec, svc)
-        mat = [Query(week_or(1, prefix="t1/"), MATERIALIZE, tenant="t1"),
-               Query("t2/col + t2/col2", MATERIALIZE, tenant="t2"),
-               Query(svc.range_scan_query("t3/col", 10, 200), MATERIALIZE,
-                     tenant="t3"),
-               Query("t0/s1 & ~t0/s2", MATERIALIZE, tenant="t0")]
-        rec.stage = "batch"
-        t0 = time.perf_counter()
-        report = svc.query_batch(queries)
-        torch.cuda.synchronize()
-        t_batch = time.perf_counter() - t0
-        # the same stream again, every plan cached
-        rec.stage = "warm batch"
-        t0 = time.perf_counter()
-        warm = svc.query_batch(queries)
-        torch.cuda.synchronize()
-        t_warm = time.perf_counter() - t0
-        rec.stage = "materialize batch"
-        report_mat = svc.query_batch(mat)
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-    finally:
-        rec.close()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    rec.stage = "ingest"
+    t0 = time.perf_counter()
+    svc = build_service(spec, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    queries = query_stream(spec, svc)
+    mat = [Query(week_or(1, prefix="t1/"), MATERIALIZE, tenant="t1"),
+           Query("t2/col + t2/col2", MATERIALIZE, tenant="t2"),
+           Query(svc.range_scan_query("t3/col", 10, 200), MATERIALIZE,
+                 tenant="t3"),
+           Query("t0/s1 & ~t0/s2", MATERIALIZE, tenant="t0")]
+    rec.stage = "batch"
+    t0 = time.perf_counter()
+    report = svc.query_batch(queries)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    # the same stream again, every plan cached
+    rec.stage = "warm batch"
+    t0 = time.perf_counter()
+    warm = svc.query_batch(queries)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    rec.stage = "materialize batch"
+    report_mat = svc.query_batch(mat)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    rec.stage = None
     peak = torch.cuda.max_memory_allocated()
     held = rec.held_bytes()
     print(f"[slice] domain {spec.domain_bits} bits, {len(svc.catalog)} "
@@ -302,7 +419,7 @@ def phase_slice(torch, spec):
           f"{peak / 2**30:.2f} GiB, of which the launch recorder holds "
           f"{held / 2**30:.2f} GiB of replay inputs")
     print(f"[slice] launches while the slice ran: {launches}")
-    for name in KERNELS:
+    for name in SERVICE_KERNELS:
         check(launches.get(name, 0) > 0,
               f"kernel {name} was never launched on the main path")
 
@@ -336,13 +453,187 @@ def phase_slice(torch, spec):
           f"results equal the unbatched interpreter; sum(t0/col)="
           f"{got_sum}, sum(t0/col+t0/col2)={got_add}, weekly-OR "
           f"count={got_week} equal numpy")
-    return rec.calls, launches, {"batch_wall_s": t_batch,
+    return launches, {"batch_wall_s": t_batch,
                                  "warm_batch_wall_s": t_warm,
                                  "build_service_s": t_build,
                                  "peak_device_bytes": peak,
                                  "recorder_held_bytes": held,
                                  "n_plan_groups": report.n_plan_groups,
                                  "n_cse_planes": report.n_cse_planes}
+
+
+_POPCOUNT_TABLE = np.array([bin(i).count("1") for i in range(256)],
+                           dtype=np.uint8)
+
+
+def _np_popcount(x: np.ndarray) -> int:
+    """Set bits of a numpy uint32 array, by byte lookup."""
+    return int(_POPCOUNT_TABLE[np.ascontiguousarray(x).view(np.uint8)]
+               .sum(dtype=np.int64))
+
+
+def _np_bitwise(op: str, *a: np.ndarray) -> np.ndarray:
+    """The nine ops in numpy on uint32 words (the independent oracle)."""
+    if op == "not":
+        return ~a[0]
+    if op == "maj3":
+        x, y, z = a
+        return (x & y) | (y & z) | (z & x)
+    x, y = a
+    return {"and": x & y, "or": x | y, "xor": x ^ y, "nand": ~(x & y),
+            "nor": ~(x | y), "xnor": ~(x ^ y), "andnot": x & ~y}[op]
+
+
+def _packed(sel: np.ndarray) -> np.ndarray:
+    """bool (n,) -> LSB-first uint32 words, the port's packing."""
+    n_w = (sel.shape[0] + 31) // 32
+    out = np.zeros(n_w * 4, dtype=np.uint8)
+    b = np.packbits(sel, bitorder="little")
+    out[:b.shape[0]] = b
+    return out.view("<u4")
+
+
+#: Fig. 9's operand: 32 MiB of words
+FIG9_WORDS = 8_388_608
+#: §8.1: the paper's 16 M users over 4 weeks
+M_USERS, N_WEEKS = 1 << 24, 4
+#: §8.2: Fig. 11's largest column, cut to a ragged count (sentinel + tail)
+SCAN_VALUES = (1 << 25) - 7
+SCANS = ((12, 500, 2500), (32, 1 << 30, 3 << 30))
+#: §8.3: k sets of m elements over the paper's 2**19 domain
+K_SETS, SET_SIZE, SET_DOMAIN = 15, 1024, 1 << 19
+
+
+def phase_direct(torch, rec):
+    """The paper's direct bulk-bitwise path (Fig. 9, §8.1-§8.3, the banked
+    engine) through its public entry points on the card, every result
+    against numpy on the raw data."""
+    import functools
+
+    from repro_torch import ops
+    from repro_torch.apps import bitmap_index, bitset, bitweaving
+    from repro_torch.core import compiler, engine
+    from repro_torch.core.bitplane import to_uint32
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.ref import ARITY
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2016)
+    fig9 = [_draw_words(torch, gen, FIG9_WORDS) for _ in range(3)]
+    fig9_host = [to_uint32(t) for t in fig9]
+    fns = {"and": ops.bitwise_and, "or": ops.bitwise_or,
+           "xor": ops.bitwise_xor, "nand": ops.bitwise_nand,
+           "nor": ops.bitwise_nor, "xnor": ops.bitwise_xnor,
+           "andnot": ops.andnot, "not": ops.bitwise_not,
+           "maj3": ops.majority3}
+    torch.cuda.synchronize()
+
+    LAUNCHES.clear()
+    t_start = time.perf_counter()
+    fig9_out = {}
+    for banks in (1, 8):
+        rec.stage = f"fig9 banks={banks}"
+        for op, k in ARITY.items():
+            out = fns[op](*fig9[:k], banks=banks)
+            fig9_out[(op, banks)] = (out, kops.popcount(out))
+    rec.stage = "§8.1 bitmap index"
+    db = bitmap_index.UserDatabase.synthetic(M_USERS, N_WEEKS, generator=gen,
+                                             device=dev)
+    n_every, male_counts, op_counts = bitmap_index.weekly_active_query(db)
+    s_every, s_male, _ = bitmap_index.weekly_active_query_service(db)
+    rec.stage = "§8.2 bitweaving"
+    scans = []
+    for n_bits, c1, c2 in SCANS:
+        if n_bits == 32:
+            values = _draw_words(torch, gen, SCAN_VALUES)
+        else:
+            values = torch.randint(0, 1 << n_bits, (SCAN_VALUES,),
+                                   dtype=torch.int32, generator=gen,
+                                   device=dev)
+        count, bv = bitweaving.scan_query(values, n_bits, c1, c2)
+        scans.append((n_bits, c1, c2, values, count, bv))
+    rec.stage = "§8.3 bitset"
+    elems = [torch.randint(0, SET_DOMAIN, (SET_SIZE,), generator=gen,
+                           device=dev) for _ in range(K_SETS)]
+    sets = [ops.BitSet.from_elements(e, SET_DOMAIN) for e in elems]
+    merged = {(op, banks): getattr(sets[0], op)(*sets[1:], banks=banks)
+              for op in ("union", "intersection", "difference")
+              for banks in (1, 8)}
+    served = {op: bitset.setop_via_service(elems, SET_DOMAIN, op)
+              for op in ("union", "intersection", "difference")}
+    rec.stage = "engine n_banks=8"
+    E = compiler.Expr
+    d = [E.of(f"D{i}") for i in range(6)]
+    prog = compiler.compile_expr_fused(
+        E("maj3", (d[0] ^ d[1], d[2] & ~d[3], d[4] | d[5])) ^ (d[1] & d[4]),
+        "OUT").program
+    rows = {f"D{i}": _draw_words(torch, gen, 1 << 20) for i in range(6)}
+    one = engine.execute(prog, rows, outputs=["OUT"])["OUT"]
+    eight = engine.execute(prog, rows, outputs=["OUT"], n_banks=8)["OUT"]
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t_start
+    launches = dict(LAUNCHES)
+    rec.stage = None
+    print(f"[direct] launches while the direct path ran: {launches}")
+    for name in DIRECT_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was never launched on the direct path")
+
+    # Fig. 9 against numpy
+    for (op, banks), (out, count) in fig9_out.items():
+        want = _np_bitwise(op, *fig9_host[:ARITY[op]])
+        check(np.array_equal(to_uint32(out), want),
+              f"fig9 {op} banks={banks} differs from numpy")
+        check(int(count) == _np_popcount(want),
+              f"fig9 {op} banks={banks}: popcount {int(count)} != numpy")
+    # §8.1 against numpy on the packed words, and against the service
+    daily, male = to_uint32(db.daily), to_uint32(db.male)
+    weekly = np.bitwise_or.reduce(daily, axis=1)
+    want_every = _np_popcount(np.bitwise_and.reduce(weekly, axis=0))
+    want_male = [_np_popcount(weekly[w] & male) for w in range(N_WEEKS)]
+    check(int(n_every) == want_every == s_every,
+          f"§8.1 every-week actives {int(n_every)} / service {s_every} "
+          f"!= numpy {want_every}")
+    check(male_counts.tolist() == want_male == s_male.tolist(),
+          f"§8.1 male actives {male_counts.tolist()} / service "
+          f"{s_male.tolist()} != numpy {want_male}")
+    check(op_counts == {"or": 6 * N_WEEKS, "and": 2 * N_WEEKS - 1,
+                        "bitcount": N_WEEKS + 1}, f"§8.1 ops {op_counts}")
+    # §8.2 against numpy
+    scan_counts = []
+    for n_bits, c1, c2, values, count, bv in scans:
+        v = to_uint32(values)
+        sel = (v >= c1) & (v <= c2)
+        check(int(count) == int(sel.sum()),
+              f"§8.2 scan n_bits={n_bits}: {int(count)} != numpy "
+              f"{int(sel.sum())}")
+        check(np.array_equal(to_uint32(bv.words), _packed(sel)),
+              f"§8.2 scan n_bits={n_bits}: result words differ from numpy")
+        scan_counts.append(int(count))
+    # §8.3 against numpy's set routines
+    host = [e.cpu().numpy() for e in elems]
+    want = {"union": functools.reduce(np.union1d, host),
+            "intersection": functools.reduce(np.intersect1d, host),
+            "difference": functools.reduce(np.setdiff1d, host)}
+    for (op, banks), s in merged.items():
+        check(np.array_equal(s.to_elements().cpu().numpy(), want[op]),
+              f"§8.3 {op} banks={banks} differs from numpy")
+    for op, (res, r, ref_set) in served.items():
+        check(np.array_equal(res.to_elements().cpu().numpy(), want[op])
+              and torch.equal(res.bits.words, ref_set.bits.words)
+              and r.scalar == len(want[op]),
+              f"§8.3 {op} through the service differs from numpy")
+    check(torch.equal(one, eight), "engine n_banks=8 != n_banks=1")
+    print(f"[direct] {len(fig9_out)} Fig. 9 ops on {FIG9_WORDS}-word "
+          f"operands, §8.1 ({M_USERS} users x {N_WEEKS} weeks: "
+          f"{want_every} active every week, male per week {want_male}), "
+          f"§8.2 counts {scan_counts} over {SCAN_VALUES} values, §8.3 "
+          f"|union|={len(want['union'])} |intersection|="
+          f"{len(want['intersection'])} |difference|="
+          f"{len(want['difference'])}, and the banked engine all equal "
+          f"numpy; the path took {t_path:.2f} s wall")
+    return launches, {"direct_wall_s": t_path}
 
 
 # ---------------------------------------------------------------------------
@@ -403,42 +694,109 @@ def _vm_bound(args, kw, int_rate: float):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / int_rate * 1e3
 
 
-def phase_numbers(torch, calls, launches, max_err, int_rate, clock_hz):
-    from repro_torch.kernels import LAUNCHES, ref, vm
+def _library_call(torch, op):
+    """The one PyTorch call computing ``op``, or None for a composite op
+    (nand, nor, xnor, andnot, maj3 have none)."""
+    return {"and": torch.bitwise_and, "or": torch.bitwise_or,
+            "xor": torch.bitwise_xor, "not": torch.bitwise_not}.get(op)
+
+
+def _replay(torch, kind, args, kw, int_rate, clock_hz):
+    """Time one recorded launch and its plain version on the same inputs.
+
+    Returns (kernel name, kernel result, plain result, kernel ms, call ms,
+    plain ms, bytes ms, ops ms, shape dict, library ms or None, library
+    result or None)."""
+    from repro_torch.kernels import bitweaving, bitwise, popcount, ref, vm
     from repro_torch.kernels.bittranspose import bit_transpose
+
+    lib_ms = lib_out = None
+    if kind == "vm":
+        name = "vm_materialize" if kw.get("reduce") is None \
+            else "vm_popcount"
+        table, plane, out_idx = args
+        got, k_ms, c_ms = _time_ms(torch, lambda: vm.vm_megakernel(
+            table, plane, out_idx, **kw), 10, clock_hz)
+        want, p_ms, _ = _time_ms(torch, lambda: vm.vm_plain(
+            table, plane, out_idx, **kw), 2, clock_hz)
+        b_ms, o_ms = _vm_bound(args, kw, int_rate)
+        shape = {"batch": plane.shape[0], "rows_in": plane.shape[1],
+                 "n_rows": kw["n_rows"], "n_cmds": int(table.shape[0]),
+                 "n_out": len(out_idx), "words": plane.shape[2]}
+    elif kind == "bt":
+        name = "bit_transpose"
+        values, n_bits = args
+        got, k_ms, c_ms = _time_ms(
+            torch, lambda: bit_transpose(values, n_bits), 10, clock_hz)
+        want, p_ms, _ = _time_ms(
+            torch, lambda: ref.bit_transpose(values, n_bits), 2, clock_hz)
+        n = values.numel()
+        b_ms = 4 * (n + n_bits * (n // 32)) / HBM_BYTES_PER_S * 1e3
+        o_ms = n * n_bits / int_rate * 1e3    # one bit test per plane
+        shape = {"values": n, "n_bits": n_bits}
+    elif kind in ("bitwise", "bitwise_banked"):
+        name = kind
+        op, operands = args[0], args[1:]
+        fn = bitwise.bitwise_kernel if kind == "bitwise" \
+            else bitwise.banked_bitwise_kernel
+        got, k_ms, c_ms = _time_ms(torch, lambda: fn(op, *operands), 10,
+                                   clock_hz)
+        want, p_ms, _ = _time_ms(
+            torch, lambda: ref.bitwise(op, *operands), 2, clock_hz)
+        lib = _library_call(torch, op)
+        if lib is not None:
+            lib_out, lib_ms, _ = _time_ms(torch, lambda: lib(*operands), 10,
+                                          clock_hz)
+        words = operands[0].numel()
+        # each operand read once, the result written once; one LOP3 a word
+        b_ms = 4 * (len(operands) + 1) * words / HBM_BYTES_PER_S * 1e3
+        o_ms = words / int_rate * 1e3
+        shape = {"op": op, "shape": list(operands[0].shape), "words": words}
+    elif kind == "popcount":
+        name = kind
+        (words,) = args
+        got, k_ms, c_ms = _time_ms(
+            torch, lambda: popcount.popcount_kernel(words), 10, clock_hz)
+        want, p_ms, _ = _time_ms(torch, lambda: ref.popcount(words), 2,
+                                 clock_hz)
+        n = words.numel()
+        b_ms = (4 * n + 8) / HBM_BYTES_PER_S * 1e3
+        o_ms = 2 * n / int_rate * 1e3          # a POPC and an add a word
+        shape = {"shape": list(words.shape), "words": n}
+    else:
+        name = "bitweaving_scan"
+        planes, c1, c2, n_bits = args
+        got, k_ms, c_ms = _time_ms(
+            torch, lambda: bitweaving.bitweaving_scan_kernel(
+                planes, c1, c2, n_bits), 10, clock_hz)
+        want, p_ms, _ = _time_ms(
+            torch, lambda: ref.bitweaving_scan(planes, c1, c2, n_bits), 2,
+            clock_hz)
+        g = planes.shape[1]
+        # n_bits planes read once, one result word per 32 values written;
+        # four logic ops per plane word (two per bound)
+        b_ms = 4 * (n_bits + 1) * g / HBM_BYTES_PER_S * 1e3
+        o_ms = 4 * n_bits * g / int_rate * 1e3
+        shape = {"n_bits": n_bits, "planes": planes.shape[0], "words": g,
+                 "c1": c1, "c2": c2}
+    return (name, got, want, k_ms, c_ms, p_ms, b_ms, o_ms, shape, lib_ms,
+            lib_out)
+
+
+def phase_numbers(torch, calls, launches, max_err, int_rate, clock_hz):
+    from repro_torch.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
     per_kernel = {name: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0,
                          "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
-                         "calls": []}
+                         "library_ms": 0.0, "library_kernel_ms": 0.0,
+                         "library_launches": 0, "calls": []}
                   for name in KERNELS}
     stages = {}
     errs = [max_err]
     for kind, args, kw, stage in calls:
-        if kind == "vm":
-            name = "vm_materialize" if kw.get("reduce") is None \
-                else "vm_popcount"
-            table, plane, out_idx = args
-            got, k_ms, c_ms = _time_ms(torch, lambda: vm.vm_megakernel(
-                table, plane, out_idx, **kw), 10, clock_hz)
-            want, p_ms, _ = _time_ms(torch, lambda: vm.vm_plain(
-                table, plane, out_idx, **kw), 2, clock_hz)
-            b_ms, o_ms = _vm_bound(args, kw, int_rate)
-            shape = {"batch": plane.shape[0], "rows_in": plane.shape[1],
-                     "n_rows": kw["n_rows"], "n_cmds": int(table.shape[0]),
-                     "n_out": len(out_idx), "words": plane.shape[2]}
-        else:
-            name = "bit_transpose"
-            values, n_bits = args
-            got, k_ms, c_ms = _time_ms(
-                torch, lambda: bit_transpose(values, n_bits), 10, clock_hz)
-            want, p_ms, _ = _time_ms(
-                torch, lambda: ref.bit_transpose(values, n_bits), 2,
-                clock_hz)
-            n = values.numel()
-            b_ms = 4 * (n + n_bits * (n // 32)) / HBM_BYTES_PER_S * 1e3
-            o_ms = n * n_bits / int_rate * 1e3    # one bit test per plane
-            shape = {"values": n, "n_bits": n_bits}
+        (name, got, want, k_ms, c_ms, p_ms, b_ms, o_ms, shape, lib_ms,
+         lib_out) = _replay(torch, kind, args, kw, int_rate, clock_hz)
         _compare(f"{name} replay ({stage})", got, want, errs)
         row = per_kernel[name]
         row["ms"] += k_ms
@@ -447,11 +805,18 @@ def phase_numbers(torch, calls, launches, max_err, int_rate, clock_hz):
         row["bytes_ms"] += b_ms
         row["ops_ms"] += o_ms
         row["bound_ms"] += max(b_ms, o_ms)
+        if lib_ms is not None:
+            check(torch.equal(lib_out, got),
+                  f"{name} replay ({stage}): the library call differs")
+            row["library_ms"] += lib_ms
+            row["library_kernel_ms"] += k_ms
+            row["library_launches"] += 1
         stages[stage] = stages.get(stage, 0.0) + k_ms
         row["calls"].append({**shape, "stage": stage, "ms": k_ms,
                              "call_ms": c_ms,
                              "plain_ms": p_ms,
-                             "bytes_ms": b_ms, "ops_ms": o_ms})
+                             "bytes_ms": b_ms, "ops_ms": o_ms,
+                             "library_ms": lib_ms})
     check(dict(LAUNCHES) != before, "replays launched no kernel")
     print("[numbers] kernel device ms by stage of the slice: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
@@ -466,13 +831,19 @@ def phase_numbers(torch, calls, launches, max_err, int_rate, clock_hz):
             "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
             else "operations",
-            "library_ms": None})
+            "library_ms": r["library_ms"] if r["library_launches"]
+            else None})
+        lib = (f"; library (torch.bitwise_*) {r['library_ms']:.3f} ms over "
+               f"the {r['library_launches']} launches whose op is one "
+               f"PyTorch call (and, or, xor, not), where the kernel took "
+               f"{r['library_kernel_ms']:.3f} ms"
+               if r["library_launches"] else "")
         print(f"[numbers] {name}: {len(r['calls'])} launches of the slice "
               f"replayed: kernel {r['ms']:.3f} ms on the device "
               f"({r['call_ms']:.3f} ms timed with the wrapper's host "
               f"work), plain {r['plain_ms']:.3f} ms, bound "
               f"{r['bound_ms']:.3f} ms (bytes {r['bytes_ms']:.3f} ms, "
-              f"int32 ops {r['ops_ms']:.3f} ms)")
+              f"int32 ops {r['ops_ms']:.3f} ms){lib}")
     return rows, per_kernel, stages
 
 
@@ -513,9 +884,18 @@ def main() -> int:
                                 small)
         spec = WorkloadSpec(n_tenants=4, n_weeks=3, domain_bits=1 << 24,
                             n_queries=96)
-        calls, launches, slice_info = phase_slice(torch, spec)
+        rec = Recorder()
+        try:
+            launches, slice_info = phase_slice(torch, spec, rec)
+            direct, direct_info = phase_direct(torch, rec)
+        finally:
+            rec.close()
+        slice_info.update(direct_info)
+        # each kernel's launches over both main-path runs
+        for name, n in direct.items():
+            launches[name] = launches.get(name, 0) + n
         rows, per_kernel, stages = phase_numbers(
-            torch, calls, launches, max_err, int_rate, max_mhz * 1e6)
+            torch, rec.calls, launches, max_err, int_rate, max_mhz * 1e6)
     except SmokeFailure as e:
         print(f"[fail] {e}", file=sys.stderr)
         return 1

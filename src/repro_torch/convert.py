@@ -1,29 +1,54 @@
 """Carry state from the JAX package into the port, as numpy arrays.
 
-Both functions take the reference's objects by duck typing (this module
+Every function takes the reference's objects by duck typing (this module
 imports nothing of `repro`): anything with the same attributes works.
-Words cross as the same bits, uint32 -> int32 (`core.bitplane.as_words`).
+Words cross as the same bits, uint32 -> int32 (`core.bitplane.as_words`),
+onto ``device``: the card (``"cuda"``) unless the caller asks for the
+CPU; asking for the card where there is none raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
+from repro_torch.apps.bitmap_index import UserDatabase
+from repro_torch.core.bitplane import as_words
 from repro_torch.core.lowering import LoweredProgram
+from repro_torch.ops.predicate import VerticalColumn
 from repro_torch.service.catalog import Catalog
 
 
-def catalog_from_reference(ref, device="cpu") -> Catalog:
+def _words(x, device: torch.device) -> torch.Tensor:
+    return as_words(np.asarray(x, dtype=np.uint32), device)
+
+
+def catalog_from_reference(ref, device="cuda") -> Catalog:
     """A port `Catalog` holding the same entries, groups and columns as a
     reference `repro.service.catalog.Catalog`, in registration order (so
     the modeled DRAM placement is the same too)."""
-    cat = Catalog(device=torch.device(device))
+    cat = Catalog(device=resolve_device(device))
     for name in ref.names():
         entry = ref.get(name)
         cat.register(name, np.asarray(entry.words, dtype=np.uint32),
                      entry.n_bits, group=entry.group)
     cat.columns.update(ref.columns)
     return cat
+
+
+def user_database_from_reference(db, device="cuda") -> UserDatabase:
+    """A port `apps.bitmap_index.UserDatabase` with the same daily and
+    attribute bitmaps as a reference one."""
+    dev = resolve_device(device)
+    return UserDatabase(_words(db.daily, dev), _words(db.male, dev),
+                        int(db.m_users))
+
+
+def vertical_column_from_reference(col, device="cuda") -> VerticalColumn:
+    """A port `ops.predicate.VerticalColumn` with the same planes as a
+    reference one."""
+    return VerticalColumn(_words(col.planes, resolve_device(device)),
+                          int(col.n_bits), int(col.n_values))
 
 
 def lowered_from_reference(lp) -> LoweredProgram:

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch._device import operand_device
 from repro_torch.core import addressing
 from repro_torch.core.addressing import D_WL, resolve
 from repro_torch.core.bitplane import WORD_DTYPE, as_words
@@ -138,7 +139,7 @@ def _check_outputs(outputs: List[str], available, program: Program) -> None:
 def execute(program: Program, data: RowState, row_words: Optional[int] = None,
             outputs: Optional[List[str]] = None, n_banks: int = 1,
             n_chips: int = 1, lowered: bool = True,
-            backend: str = "cuda") -> RowState:
+            backend: str = "cuda", device=None) -> RowState:
     """One-shot helper: run `program` over `data` rows, return named rows.
 
     Rows referenced by the program but missing from `data` (e.g. destination
@@ -151,8 +152,13 @@ def execute(program: Program, data: RowState, row_words: Optional[int] = None,
     tensors on the card (`core.lowering.execute_lowered`).
     ``lowered=False`` runs the micro-op interpreter above (the oracle).
 
-    Bank- and chip-parallel execution (``n_banks > 1``, ``n_chips > 1``)
-    are not ported yet and raise `NotImplementedError`.
+    `n_banks > 1` partitions each operand row word-wise across that many
+    independent subarray states and runs the program on all of them in
+    one dispatch (`core.bankgroup.execute_banked`) — bit-identical
+    results, bank-parallel schedule. Chip-parallel execution
+    (``n_chips > 1``) is not ported yet and raises `NotImplementedError`.
+    Tensor rows keep their device; host arrays go to ``device`` (default
+    ``"cuda"``, see `repro_torch._device.operand_device`).
 
     Executions are wall-span-traced when a tracing `repro_torch.obs.Telemetry`
     is installed process-wide (`set_telemetry`; the scheduler does so per
@@ -164,22 +170,25 @@ def execute(program: Program, data: RowState, row_words: Optional[int] = None,
                              n_banks=n_banks, n_chips=n_chips,
                              backend=backend, lowered=lowered):
             return _execute(program, data, row_words, outputs, n_banks,
-                            n_chips, lowered, backend)
+                            n_chips, lowered, backend, device)
     return _execute(program, data, row_words, outputs, n_banks, n_chips,
-                    lowered, backend)
+                    lowered, backend, device)
 
 
 def _execute(program: Program, data: RowState, row_words: Optional[int],
              outputs: Optional[List[str]], n_banks: int, n_chips: int,
-             lowered: bool, backend: str) -> RowState:
+             lowered: bool, backend: str, device) -> RowState:
     if n_chips > 1:
         raise NotImplementedError(
             "n_chips > 1: the chip cluster (core/cluster.py) is not ported "
             "yet (ROADMAP queue A, multi-device)")
+    dev = operand_device(data.values(), device)
+    data = {k: as_words(v, dev) for k, v in data.items()}
     if n_banks > 1:
-        raise NotImplementedError(
-            "n_banks > 1: core/bankgroup.py is not ported yet (ROADMAP "
-            "queue A, bankgroup)")
+        from repro_torch.core import bankgroup
+
+        return bankgroup.execute_banked(program, data, n_banks, outputs,
+                                        lowered=lowered, backend=backend)
     if lowered:
         from repro_torch.core import lowering
 
@@ -188,7 +197,6 @@ def _execute(program: Program, data: RowState, row_words: Optional[int],
             _check_outputs(outputs, set(lp.row_names) | set(data), program)
         return lowering.execute_lowered(lp, data, row_words, outputs,
                                         backend=backend)
-    data = {k: as_words(v) for k, v in data.items()}
     sample = next(iter(data.values()))
     if row_words is None:
         row_words = sample.shape[-1]

@@ -1,14 +1,59 @@
 """Plain PyTorch oracles of the port's kernels.
 
-For now only the BitWeaving-V bit transpose (the reference's
-`repro.kernels.ref.bit_transpose`); the opcode-table VM's plain version
-lives beside its kernel in `kernels.vm`.
+The counterparts of the reference's `repro.kernels.ref`: the fused bulk
+bitwise ops, the total popcount, the BitWeaving-V bit transpose and the
+BitWeaving-V between-scan. Each CUDA wrapper runs these for CPU tensors,
+and `chip_smoke.py` holds the kernels to them on the card. The
+opcode-table VM's plain version lives beside its kernel in `kernels.vm`.
+Words are int32 bit patterns; no function here shifts a word right.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.core.bitplane import pack_lanes
+from repro_torch.ops.popcount import popcount_words
+
+# ---------------------------------------------------------------------------
+# fused bitwise ops
+# ---------------------------------------------------------------------------
+
+BITWISE_OPS = {
+    "and": lambda a, b: a & b,
+    "or": lambda a, b: a | b,
+    "xor": lambda a, b: a ^ b,
+    "nand": lambda a, b: ~(a & b),
+    "nor": lambda a, b: ~(a | b),
+    "xnor": lambda a, b: ~(a ^ b),
+    "andnot": lambda a, b: a & ~b,
+    "not": lambda a: ~a,
+    "maj3": lambda a, b, c: (a & b) | (b & c) | (c & a),
+}
+
+#: operands each op takes
+ARITY = {op: fn.__code__.co_argcount for op, fn in BITWISE_OPS.items()}
+
+
+def bitwise(op: str, *args: torch.Tensor) -> torch.Tensor:
+    """One of `BITWISE_OPS` over int32 word tensors of one shape."""
+    return BITWISE_OPS[op](*args)
+
+
+# ---------------------------------------------------------------------------
+# popcount
+# ---------------------------------------------------------------------------
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Total set bits of every word, as a 0-dim int64 tensor."""
+    return popcount_words(words)
+
+
+# ---------------------------------------------------------------------------
+# BitWeaving-V bit transpose: values -> vertical bit planes
+# ---------------------------------------------------------------------------
 
 
 def bit_transpose(values: torch.Tensor, n_bits: int) -> torch.Tensor:
@@ -27,3 +72,35 @@ def bit_transpose(values: torch.Tensor, n_bits: int) -> torch.Tensor:
         return torch.empty((0, n // 32), dtype=torch.int32,
                            device=values.device)
     return torch.stack(planes)
+
+
+# ---------------------------------------------------------------------------
+# BitWeaving-V predicate scan: c1 <= v <= c2 over vertical planes
+# ---------------------------------------------------------------------------
+
+
+def _cmp_planes(planes: torch.Tensor, c: int, n_bits: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bit-serial compare of every packed column value against constant c.
+
+    Returns (lt, eq) packed words. Scans MSB -> LSB (BitWeaving §4); bits
+    of ``c`` at or above ``n_bits`` are never read.
+    """
+    g = planes.shape[1]
+    ones = torch.full((g,), -1, dtype=torch.int32, device=planes.device)
+    zeros = torch.zeros((g,), dtype=torch.int32, device=planes.device)
+    lt, eq = zeros, ones
+    for j in range(n_bits - 1, -1, -1):
+        cj = ones if ((c >> j) & 1) else zeros
+        lt = lt | (eq & ~planes[j] & cj)
+        eq = eq & ~(planes[j] ^ cj)
+    return lt, eq
+
+
+def bitweaving_scan(planes: torch.Tensor, c1: int, c2: int, n_bits: int
+                    ) -> torch.Tensor:
+    """Result words of the predicate c1 <= v <= c2 (paper §8.2 query)
+    over (b, g) planes, b >= n_bits."""
+    lt1, _ = _cmp_planes(planes, c1, n_bits)
+    lt2, eq2 = _cmp_planes(planes, c2, n_bits)
+    return ~lt1 & (lt2 | eq2)

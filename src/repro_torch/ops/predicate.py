@@ -1,10 +1,11 @@
-"""BitWeaving-style integer columns (paper §8.2) and their range predicate.
+"""BitWeaving-style predicate evaluation over integer columns (paper §8.2).
 
 `VerticalColumn.encode` transposes a column into vertical bit planes
-(`ops.transpose.to_vertical`); `range_scan_expr` lowers ``lo <= v <= hi``
-to a fusable predicate DAG the service compiles into one AAP program.
-The direct between-scan (`between_scan`, `VerticalColumn.scan`) needs the
-BitWeaving kernel and is not ported yet.
+(`ops.transpose.to_vertical`); `scan(column, lo, hi)` evaluates
+``lo <= v <= hi`` for every value through the fused BitWeaving kernel and
+returns a packed result bitvector — the core of the paper's database-scan
+workload. `range_scan_expr` lowers the same predicate to a fusable DAG the
+service compiles into one AAP program.
 """
 from __future__ import annotations
 
@@ -13,8 +14,30 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.bitplane import as_words, i32
+from repro_torch._device import check_use_kernel, operand_device
+from repro_torch.core.bitplane import BitVector, as_words, i32
 from repro_torch.ops.transpose import to_vertical
+
+
+def between_scan(planes, lo: int, hi: int, n_bits: int,
+                 use_kernel: Optional[bool] = None,
+                 device=None) -> torch.Tensor:
+    """Packed result words of lo <= v <= hi over vertical bit planes.
+
+    The public seam over the fused between-scan (`kernels.ops.
+    bitweaving_scan`): one streaming pass that keeps all four comparison
+    states in registers. The planes' device picks the path — the CUDA
+    kernel on the card, its plain version (`kernels.ref.bitweaving_scan`)
+    on the CPU — with no size threshold (the reference's priced a TPU
+    launch). Host planes go to ``device`` (default ``"cuda"``);
+    ``use_kernel`` that disagrees with the device raises.
+    """
+    from repro_torch.kernels import ops as kops
+
+    dev = operand_device([planes], device)
+    check_use_kernel(use_kernel, dev)
+    return kops.bitweaving_scan(as_words(planes, dev), int(lo), int(hi),
+                                n_bits)
 
 
 @dataclasses.dataclass
@@ -28,13 +51,14 @@ class VerticalColumn:
     @classmethod
     def encode(cls, values, n_bits: int,
                device: Optional[torch.device] = None) -> "VerticalColumn":
-        """Transpose `values` (< 2**n_bits) into vertical bit planes on
-        ``device`` (the values' own device when None).
+        """Transpose `values` (< 2**n_bits) into vertical bit planes: a
+        tensor's on its own device, host values' on ``device`` (default
+        ``"cuda"``).
 
         Tail positions are padded with an out-of-range sentinel so range
         predicates never select them.
         """
-        values = as_words(values, device)
+        values = as_words(values, operand_device([values], device))
         n = values.shape[0]
         pad = (-n) % 32
         if pad:
@@ -43,6 +67,23 @@ class VerticalColumn:
                 (pad,), i32((1 << n_bits) - 1), dtype=torch.int32,
                 device=values.device)])
         return cls(to_vertical(values, n_bits), n_bits, n)
+
+    def scan(self, lo: int, hi: int, use_kernel: Optional[bool] = None
+             ) -> BitVector:
+        """Packed bitvector of lo <= v <= hi (tail padding masked off)."""
+        words = between_scan(self.planes, lo, hi, self.n_bits, use_kernel)
+        bv = BitVector(words, self.n_values)
+        return BitVector(words & bv._mask(), self.n_values)
+
+
+def scan_count(values, n_bits: int, lo: int, hi: int,
+               device=None) -> torch.Tensor:
+    """select count(*) from T where lo <= val <= hi (one-shot), as a 0-dim
+    int64 tensor on the column's device."""
+    from repro_torch.kernels import ops as kops
+
+    col = VerticalColumn.encode(values, n_bits, device=device)
+    return kops.popcount(col.scan(lo, hi).words)
 
 
 # ---------------------------------------------------------------------------

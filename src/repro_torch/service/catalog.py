@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Union
 
 import torch
 
+from repro_torch._device import DEFAULT_DEVICE, resolve_device
 from repro_torch.core.allocator import DramAllocator, RowHandle
 from repro_torch.core.bitplane import (BitVector, as_words, n_words,
                                        pack_bits, tail_mask)
@@ -70,14 +71,15 @@ class Catalog:
     All vectors in one catalog share a bit domain (`n_bits`) — queries
     combine arbitrary subsets of them, so mixed widths would be a silent
     correctness bug; the first registration pins the width. Every vector
-    lives on `device`.
+    lives on `device`, the card (``"cuda"``) unless the caller asks for
+    the CPU; asking for the card where there is none raises.
     """
 
     allocator: DramAllocator = dataclasses.field(default_factory=DramAllocator)
-    device: torch.device = torch.device("cpu")
+    device: Union[str, torch.device] = DEFAULT_DEVICE
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
         self._entries: Dict[str, CatalogEntry] = {}
         self.n_bits: Optional[int] = None
         # integer columns: name -> bit width; planes live as ordinary

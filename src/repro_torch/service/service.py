@@ -143,7 +143,7 @@ class QueryService:
         Registration also records the column's width, which is what lets
         the planner expand `sum(name)` / `name + other` / `name < K`.
         """
-        col = VerticalColumn.encode(values, n_bits, device=self.device)
+        col = VerticalColumn.encode(as_words(values, self.device), n_bits)
         if self.catalog.n_bits is not None \
                 and col.n_values != self.catalog.n_bits:
             raise ValueError(

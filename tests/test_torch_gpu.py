@@ -135,3 +135,180 @@ def test_unpinned_plans_and_direct_calls_launch_the_kernel(cuda):
     with pytest.raises(ValueError, match="plain VM"):
         tlow.execute_lowered(tlow.lower(prog), dev, outputs=["OUT"],
                              backend="torch")
+
+
+# ---------------------------------------------------------------------------
+# the direct bulk-bitwise path: bitwise, banked bitwise, popcount, scan
+# ---------------------------------------------------------------------------
+
+BITWISE_OPS = ["and", "or", "xor", "nand", "nor", "xnor", "andnot", "not",
+               "maj3"]
+
+
+def _card_words(cuda, rng, *shape):
+    return as_words(rng.integers(0, 1 << 32, shape, dtype=np.uint32), cuda)
+
+
+def _operands(cuda, op, shape, seed):
+    rng = np.random.default_rng(seed)
+    return [_card_words(cuda, rng, *shape) for _ in range(ref.ARITY[op])]
+
+
+@pytest.mark.parametrize("shape", [(3, 1001), (16, 4096), "misaligned"])
+@pytest.mark.parametrize("op", BITWISE_OPS)
+def test_bitwise_kernel_matches_plain(cuda, op, shape):
+    """Word counts that are not a multiple of 4 (the word-at-a-time path),
+    aligned runs (the 16-byte path), and operands 4 bytes off a 16-byte
+    boundary."""
+    from repro_torch.kernels.bitwise import bitwise_kernel
+
+    if shape == "misaligned":
+        args = [a.reshape(-1)[1:].reshape(1, -1)
+                for a in _operands(cuda, op, (1, 4097), 3)]
+        assert args[0].data_ptr() % 16 == 4
+    else:
+        args = _operands(cuda, op, shape, len(op))
+    before = LAUNCHES["bitwise"]
+    got = bitwise_kernel(op, *args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitwise"] == before + 1
+    assert torch.equal(got, ref.bitwise(op, *args))
+
+
+@pytest.mark.parametrize("banks", [1, 3, 8])
+@pytest.mark.parametrize("op", BITWISE_OPS)
+def test_banked_bitwise_kernel_matches_plain(cuda, op, banks):
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.bitwise import banked_bitwise_kernel
+
+    args = _operands(cuda, op, (2, 1001), banks)
+    before = LAUNCHES["bitwise_banked"]
+    got = kops.bitwise_banked(op, *args, n_banks=banks)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitwise_banked"] == before + 1
+    assert got.shape == (2, 1001)
+    # pad words (not / nand / nor / xnor turn them to ones) are stripped
+    assert torch.equal(got, ref.bitwise(op, *args))
+    sharded = _operands(cuda, op, (banks, 3, 77), banks + 1)
+    assert torch.equal(banked_bitwise_kernel(op, *sharded),
+                       ref.bitwise(op, *sharded))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 1001), (64, 65536),
+                                   "misaligned", "ones"])
+def test_popcount_kernel_matches_plain(cuda, shape):
+    from repro_torch.kernels.popcount import popcount_kernel
+
+    rng = np.random.default_rng(17)
+    if shape == "misaligned":
+        words = _card_words(cuda, rng, 4099).reshape(-1)[1:].reshape(1, -1)
+    elif shape == "ones":
+        words = torch.full((1, 1 << 22), -1, dtype=torch.int32, device=cuda)
+    else:
+        words = _card_words(cuda, rng, *shape)
+    before = LAUNCHES["popcount"]
+    got = popcount_kernel(words)
+    torch.cuda.synchronize()
+    assert LAUNCHES["popcount"] == before + 1
+    assert got.dtype == torch.int64 and got.device == words.device
+    assert int(got) == int(ref.popcount(words))
+    if shape == "ones":
+        assert int(got) == 1 << 27
+
+
+@pytest.mark.parametrize("case", ["inside", "lo_above_hi", "hi_past_range",
+                                  "extra_planes"])
+@pytest.mark.parametrize("n_bits", [1, 7, 12, 32])
+def test_bitweaving_scan_kernel_matches_plain(cuda, n_bits, case):
+    from repro_torch.kernels.bitweaving import bitweaving_scan_kernel
+
+    rng = np.random.default_rng(n_bits)
+    top = 1 << n_bits
+    lo, hi = {"inside": (top // 5, 3 * top // 4),
+              "lo_above_hi": (top - 1, 0),
+              "hi_past_range": (top // 3, top + 5),
+              "extra_planes": (top // 7, top // 2)}[case]
+    planes = _card_words(cuda, rng, n_bits + (3 if case == "extra_planes"
+                                              else 0), 1001)
+    before = LAUNCHES["bitweaving_scan"]
+    got = bitweaving_scan_kernel(planes, lo, hi, n_bits)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitweaving_scan"] == before + 1
+    assert torch.equal(got, ref.bitweaving_scan(planes, lo, hi, n_bits))
+
+
+def test_use_kernel_false_on_the_card_raises(cuda):
+    from repro_torch import ops
+
+    a = _card_words(cuda, np.random.default_rng(1), 64)
+    with pytest.raises(ValueError, match="use_kernel"):
+        ops.bitwise_and(a, a, use_kernel=False)
+    with pytest.raises(ValueError, match="use_kernel"):
+        ops.between_scan(a.reshape(2, 32), 1, 2, 2, use_kernel=False)
+    with pytest.raises(ValueError, match="different devices"):
+        ops.bitwise_and(a, a.cpu())
+
+
+def test_one_dimensional_ops_launch_the_kernel(cuda):
+    """The reference sends 1-D operands to plain jnp; on the card the
+    port's ops take the kernel for them too."""
+    from repro_torch import ops
+
+    rng = np.random.default_rng(2)
+    a = rng.integers(0, 1 << 32, 300, dtype=np.uint32)
+    b = rng.integers(0, 1 << 32, 300, dtype=np.uint32)
+    before = LAUNCHES["bitwise"]
+    got = ops.bitwise_and(a, b)           # host operands go to the card
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitwise"] == before + 1
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(to_uint32(got), a & b)
+
+
+def test_direct_path_on_the_card_matches_the_host(cuda):
+    """§8.1-§8.3 and the banked engine on card tensors equal the same
+    calls on the host, and go through every new kernel."""
+    from repro_torch.apps import bitmap_index, bitweaving
+    from repro_torch.core import engine
+    from repro_torch.ops import BitSet
+
+    LAUNCHES.clear()
+    db = bitmap_index.UserDatabase.synthetic(
+        (1 << 16) + 5, 2, generator=torch.Generator(device=cuda)
+        .manual_seed(1), device=cuda)
+    host = bitmap_index.UserDatabase(db.daily.cpu(), db.male.cpu(),
+                                     db.m_users)
+    got, want = (bitmap_index.weekly_active_query(d) for d in (db, host))
+    assert int(got[0]) == int(want[0])
+    assert got[1].cpu().tolist() == want[1].tolist()
+    assert bitmap_index.weekly_active_query_service(db)[0] == int(want[0])
+
+    rng = np.random.default_rng(3)
+    vals = rng.integers(0, 1 << 12, 100_003, dtype=np.uint32)
+    c_card, bv_card = bitweaving.scan_query(vals, 12, 500, 2500)
+    c_host, bv_host = bitweaving.scan_query(vals, 12, 500, 2500,
+                                            device="cpu")
+    assert int(c_card) == int(c_host) == int(((vals >= 500)
+                                              & (vals <= 2500)).sum())
+    assert torch.equal(bv_card.words.cpu(), bv_host.words)
+
+    elems = [rng.integers(0, 1 << 14, 500) for _ in range(4)]
+    card = [BitSet.from_elements(e, 1 << 14) for e in elems]
+    for op in ("union", "intersection", "difference"):
+        banked = getattr(card[0], op)(*card[1:], banks=8)
+        plain = getattr(card[0], op)(*card[1:])
+        assert torch.equal(banked.bits.words, plain.bits.words)
+
+    prog = _program(5)
+    data = {f"D{i}": _card_words(cuda, rng, 4099) for i in range(6)}
+    one = engine.execute(prog, data, outputs=["OUT"])["OUT"]
+    eight = engine.execute(prog, data, outputs=["OUT"], n_banks=8)["OUT"]
+    assert torch.equal(one, eight)
+    # host rows go to the card by default, banked or not
+    host = {k: v.cpu().numpy() for k, v in data.items()}
+    for banks in (1, 8):
+        out = engine.execute(prog, host, outputs=["OUT"], n_banks=banks)
+        assert out["OUT"].is_cuda and torch.equal(out["OUT"], one)
+    for name in ("bitwise", "bitwise_banked", "popcount", "bitweaving_scan",
+                 "bit_transpose", "vm_materialize"):
+        assert LAUNCHES[name] > 0, name

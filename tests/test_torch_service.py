@@ -108,7 +108,7 @@ def test_service_equals_its_unbatched_oracle(served):
 
 def test_converted_catalog_serves_reference_answers(served):
     rsvc, _, (rrep, _), _ = served
-    cat = catalog_from_reference(rsvc.catalog)
+    cat = catalog_from_reference(rsvc.catalog, device="cpu")
     assert cat.names() == rsvc.catalog.names()
     assert cat.columns == rsvc.catalog.columns
     queries = T.query_stream(T.WorkloadSpec(**SPEC),

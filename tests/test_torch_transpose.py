@@ -26,7 +26,7 @@ def test_to_vertical_matches_reference(n, n_bits):
     values = rng.integers(0, 1 << n_bits, n, dtype=np.uint64) \
         .astype(np.uint32)
     want = np.asarray(rref.bit_transpose(jnp.asarray(values), n_bits))
-    got = to_vertical(values, n_bits)
+    got = to_vertical(values, n_bits, device="cpu")
     assert got.shape == (n_bits, n // 32) and got.dtype == torch.int32
     np.testing.assert_array_equal(to_uint32(got), want)
     np.testing.assert_array_equal(
@@ -39,7 +39,7 @@ def test_vertical_column_encode_matches_reference(n, n_bits):
     rng = np.random.default_rng(n)
     values = rng.integers(0, 1 << n_bits, n, dtype=np.uint32)
     want = rpred.VerticalColumn.encode(jnp.asarray(values), n_bits)
-    got = tpred.VerticalColumn.encode(values, n_bits)
+    got = tpred.VerticalColumn.encode(values, n_bits, device="cpu")
     assert (got.n_bits, got.n_values) == (want.n_bits, want.n_values)
     np.testing.assert_array_equal(to_uint32(got.planes),
                                   np.asarray(want.planes))

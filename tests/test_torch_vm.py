@@ -88,11 +88,11 @@ def test_random_programs_match_reference_and_interpreter(seed):
                                   dtype=np.uint32)
             for i in range(int(rng.integers(1, N_ROWS + 1)))}
     want = reng.execute(rprog, data, lowered=True, backend="scan")
-    interp = teng.execute(tprog, data, lowered=False)
+    interp = teng.execute(tprog, data, lowered=False, device="cpu")
     _assert_rows_equal(want, interp)
     for backend in ("torch", "cuda"):
         _assert_rows_equal(want, teng.execute(tprog, data, lowered=True,
-                                              backend=backend))
+                                              backend=backend, device="cpu"))
 
 
 def _ref_counts(rows, outs, mask):
@@ -171,7 +171,7 @@ def test_passthrough_and_seeded_fixed_rows_match_reference():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
     # outputs=None returns exactly the rows the interpreter would
     _assert_rows_equal(reng.execute(r, data, lowered=False),
-                       teng.execute(t, data, lowered=True))
+                       teng.execute(t, data, lowered=True, device="cpu"))
 
 
 def test_matches_reference_pallas_megakernel_interpret_mode():
