@@ -17,7 +17,12 @@ Phases; the first failure exits non-zero:
    nine bitwise ops flat (ragged, aligned and misaligned word runs) and
    banked (1, 3 and 8 banks over a ragged width); popcount at ragged,
    misaligned and all-ones inputs; the BitWeaving scan at 1, 7, 12 and 32
-   bits with extra planes, ``lo > hi`` and ``hi >= 2**n_bits``.
+   bits with extra planes, ``lo > hi`` and ``hi >= 2**n_bits``; the
+   majority at k in {1, 2, 3, 4, 5, 7, 15, 31} with the default, custom
+   and edge (0, k + 1) thresholds over a ragged word count; bit-serial add,
+   sub and lt at 1, 7, 8 and 32 bits, one and three rows of a ragged
+   width; the bit untranspose with fewer than 32 planes, ragged group
+   counts and a round trip through the bit transpose.
 3. slice   — (a) serve the §8 multi-tenant workload at full width (2**24-bit
    vectors) through ``build_service -> query_stream -> query_batch``, plus
    a batch of materialize queries. Every result must equal the unbatched
@@ -31,10 +36,29 @@ Phases; the first failure exits non-zero:
    over 2**25 - 7 values at 12 and 32 bits; §8.3's union, intersection
    and difference of 15 sets of 1,024 elements over 2**19 at 1 and 8
    banks and through the service; ``engine.execute(n_banks=8)`` against
-   one bank. Every result must equal numpy on the raw data. Each of (a)
-   and (b) starts with every launch count at 0 and must launch each of
-   its kernels.
-4. numbers — replay every kernel launch of phase 3 with the same arguments,
+   one bank. Every result must equal numpy on the raw data.
+   (c) the §8 stream of (a), on (a)'s catalog vectors, under TRA
+   reliability with seeded faults injected in the VM: ``mode="vote"``
+   (k = 3) and ``mode="ecc"`` at a flip rate P chosen so that the
+   expected number of output bits wrong in two replicas at once is below
+   1e-3 (reckoned from the model's flip probabilities and the batches'
+   plan groups, and printed), and ``mode="ecc"`` at rate 0. Every result
+   must equal (a)'s bit for bit; faults must have landed (corrected bits
+   > 0, one injected group alone differs from the clean run), ECC at P
+   must break ties and ECC at 0 must not, every batch must run the parity
+   probe, and a corrupted catalog word must make the ECC service raise.
+   (d) bit-serial arithmetic on two columns of 2**25 - 7 values at 8 and
+   32 bits: ``to_vertical``, ``add_columns``, ``sub_columns``,
+   ``lt_columns``, ``lt_const``, ``sum_column`` and ``from_vertical`` of
+   the sums and differences, each against numpy on the raw values, and
+   at 8 bits the five in-DRAM twins at 1 and 8 banks against the fast
+   path. Each of (a)-(d) starts with every launch count at 0 and must
+   launch each of its kernels.
+4. numbers — replay every kernel launch of phase 3 with the same arguments
+   (of (c), every majority launch and two VM launches with fault masks:
+   the largest group and the first single-query one, their masks redrawn
+   from the recorded key and held to the draw's fingerprint; keeping every
+   launch's masks would take tens of GiB),
    hold each to its plain version again (bit for bit, at the main path's
    shapes), time both with CUDA events, and print each kernel's total
    beside its bound (bytes over 3.35 TB/s or int32 operations over the
@@ -78,10 +102,21 @@ KERNELS = {
                  "src/repro/kernels/popcount.py:33"),
     "bitweaving_scan": ("src/repro_torch/csrc/bitweaving.cu",
                         "src/repro/kernels/bitweaving.py:47"),
+    "majority": ("src/repro_torch/csrc/majority.cu",
+                 "src/repro/kernels/majority.py:62"),
+    "bitserial_add": ("src/repro_torch/csrc/arith.cu",
+                      "src/repro/kernels/arith.py:83"),
+    "bitserial_lt": ("src/repro_torch/csrc/arith.cu",
+                     "src/repro/kernels/arith.py:94"),
+    "bit_untranspose": ("src/repro_torch/csrc/bittranspose.cu",
+                        "src/repro/kernels/bittranspose.py:74"),
 }
 #: the kernels each main-path run of phase 3 must launch
 SERVICE_KERNELS = ("vm_popcount", "vm_materialize", "bit_transpose")
 DIRECT_KERNELS = ("bitwise", "bitwise_banked", "popcount", "bitweaving_scan")
+RELIABILITY_KERNELS = ("majority", "vm_materialize")
+ARITH_KERNELS = ("bitserial_add", "bitserial_lt", "bit_untranspose",
+                 "bit_transpose", "bitweaving_scan", "vm_materialize")
 
 
 class SmokeFailure(RuntimeError):
@@ -212,6 +247,7 @@ def phase_kernels(torch, svc, spec) -> int:
                  ref.bit_transpose(values, n_bits), errs)
         n_cases += 1
     n_cases += _direct_kernel_cases(torch, svc.device, errs)
+    n_cases += _vote_arith_kernel_cases(torch, svc.device, errs)
     torch.cuda.synchronize()
     print(f"[kernels] {n_cases} cases bit-identical to the plain versions "
           f"({words} words per row, {cols}-column blocks)")
@@ -282,9 +318,103 @@ def _direct_kernel_cases(torch, device, errs) -> int:
     return n_cases
 
 
+def _vote_arith_kernel_cases(torch, device, errs) -> int:
+    """The majority, bit-serial add / sub / lt and untranspose kernels
+    against their plain versions: every k the vote and its tests use,
+    thresholds past both edges, ragged word and group counts."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.arith import (bitserial_add_kernel,
+                                           bitserial_lt_kernel)
+    from repro_torch.kernels.bittranspose import bit_transpose
+    from repro_torch.kernels.majority import majority_kernel
+
+    gen = torch.Generator(device=device).manual_seed(2402)
+    n_cases = 0
+    for k in (1, 2, 3, 4, 5, 7, 15, 31):
+        for words in (1001, 1 << 16):
+            planes = _draw_words(torch, gen, k, 3, words)
+            for t in (None, 1, (k + 1) // 2, k, 0, k + 1):
+                _compare(f"majority k={k} threshold={t} words={words}",
+                         majority_kernel(planes, t),
+                         ref.majority_k(planes, t), errs)
+                n_cases += 1
+    for n_bits in (1, 7, 8, 32):
+        for rows, words in ((1, 1001), (3, 1001), (1, 1 << 18)):
+            a = _draw_words(torch, gen, n_bits, rows, words)
+            b = _draw_words(torch, gen, n_bits, rows, words)
+            b[..., :100] = a[..., :100]          # equal lanes for lt
+            for sub in (False, True):
+                _compare(f"bitserial_add n_bits={n_bits} sub={sub} "
+                         f"rows={rows} words={words}",
+                         bitserial_add_kernel(a, b, sub),
+                         ref.bitserial_add(a, b, sub), errs)
+                n_cases += 1
+            _compare(f"bitserial_lt n_bits={n_bits} rows={rows} "
+                     f"words={words}", bitserial_lt_kernel(a, b),
+                     ref.bitserial_lt(a, b), errs)
+            n_cases += 1
+    for n_bits in (1, 8, 13, 32):
+        for groups in (1, 1001, 1 << 18):
+            planes = _draw_words(torch, gen, n_bits, groups)
+            _compare(f"bit_untranspose n_bits={n_bits} groups={groups}",
+                     kops.bit_untranspose(planes, n_bits),
+                     ref.bit_untranspose(planes, n_bits), errs)
+            values = torch.randint(0, 1 << n_bits, (32 * groups,),
+                                   dtype=torch.int64, generator=gen,
+                                   device=device)
+            values = torch.where(values >= 1 << 31, values - (1 << 32),
+                                 values).to(torch.int32)
+            back = kops.bit_untranspose(bit_transpose(values, n_bits),
+                                        n_bits)
+            check(torch.equal(back, values),
+                  f"bit_untranspose round trip n_bits={n_bits} "
+                  f"groups={groups}")
+            # the first n_bits of 32 planes: the kernel reads no others
+            wide = _draw_words(torch, gen, 32, groups)
+            _compare(f"bit_untranspose n_bits={n_bits} of 32 planes "
+                     f"groups={groups}", kops.bit_untranspose(wide, n_bits),
+                     ref.bit_untranspose(wide, n_bits), errs)
+            n_cases += 3
+    return n_cases
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice at full width
 # ---------------------------------------------------------------------------
+
+
+class FaultDraw:
+    """The key and arguments of one `core.errors.error_planes` draw, to
+    redraw a VM launch's fault masks in phase 4 instead of keeping them,
+    with a fingerprint (sum and count of the nonzero mask words) that the
+    redraw must match."""
+
+    def __init__(self, key, table, batch, row_words, model, device, masks):
+        self.key, self.table, self.batch = key, table, batch
+        self.row_words, self.model, self.device = row_words, model, device
+        self.words = masks.numel()
+        self.fingerprint = self._fingerprint(masks)
+
+    @staticmethod
+    def _fingerprint(masks):
+        import torch
+
+        return (int(masks.sum(dtype=torch.int64)),
+                int(torch.count_nonzero(masks)))
+
+    def redraw(self):
+        """The masks again, in the VM's ``(B, 4 * n_cmds, W)`` layout."""
+        from repro_torch.core import errors
+
+        masks = errors.error_planes(
+            self.table, errors.fault_generator(self.key, self.device),
+            self.batch, self.row_words, self.model, self.device)
+        check(self._fingerprint(masks) == self.fingerprint,
+              f"the masks redrawn from key {self.key} differ from the "
+              "main path's draw")
+        return masks.movedim((0, 1), (-3, -2)).reshape(
+            -1, 4 * masks.shape[0], self.row_words)
 
 
 class Recorder:
@@ -292,20 +422,49 @@ class Recorder:
     arguments, so phase 4 can replay exactly the slice's launches. The
     wrappers themselves (and their launch counters) are untouched. Calls
     are kept only while ``stage`` names a stage of a main-path run (not
-    None), so the checks after each run record nothing."""
+    None), so the checks after each run record nothing, and, while
+    ``only`` is a set, only calls of the kinds it names. A VM launch with
+    fault masks keeps the masks' `FaultDraw` in their place, and only
+    while ``faulty`` is set: the largest such launch (batch x commands x
+    words) and the first with a batch of one."""
 
     def __init__(self):
+        import repro_torch.core.errors as errors
         import repro_torch.kernels.bittranspose as bt
         import repro_torch.kernels.vm as vm
 
         self.calls = []
         self.stage = None
+        self.only = None
+        self.faulty = False
+        self._key = self._draw = None
+        self._largest = self._single = None
         self._restore = [(vm, "vm_megakernel", vm.vm_megakernel),
-                         (bt, "bit_transpose", bt.bit_transpose)]
+                         (bt, "bit_transpose", bt.bit_transpose),
+                         (errors, "fault_generator", errors.fault_generator),
+                         (errors, "error_planes", errors.error_planes)]
         orig_vm, orig_bt = vm.vm_megakernel, bt.bit_transpose
+        orig_gen, orig_planes = errors.fault_generator, errors.error_planes
+
+        def gen_rec(key, device):
+            self._key = tuple(key)
+            return orig_gen(key, device)
+
+        def planes_rec(table, generator, batch, row_words, model,
+                       device=None):
+            masks = orig_planes(table, generator, batch, row_words, model,
+                                device)
+            self._draw = None
+            if self.faulty and self.stage is not None:
+                self._draw = (self._key, table, tuple(batch), row_words,
+                              model, masks.device, masks)
+            return masks
 
         def vm_rec(table, plane, out_idx, **kw):
-            self._keep("vm", (table, plane, tuple(out_idx)), kw)
+            if kw.get("errors") is None:
+                self._keep("vm", (table, plane, tuple(out_idx)), kw)
+            else:
+                self._keep_faulty(table, plane, tuple(out_idx), kw)
             return orig_vm(table, plane, out_idx, **kw)
 
         def bt_rec(values, n_bits):
@@ -314,8 +473,12 @@ class Recorder:
 
         vm.vm_megakernel = vm_rec
         bt.bit_transpose = bt_rec
+        errors.fault_generator = gen_rec
+        errors.error_planes = planes_rec
+        import repro_torch.kernels.arith as arith
         import repro_torch.kernels.bitwise as bitwise
         import repro_torch.kernels.bitweaving as bitweaving
+        import repro_torch.kernels.majority as majority
         import repro_torch.kernels.popcount as popcount
 
         for mod, fn, name in ((bitwise, "bitwise_kernel", "bitwise"),
@@ -323,7 +486,13 @@ class Recorder:
                                "bitwise_banked"),
                               (popcount, "popcount_kernel", "popcount"),
                               (bitweaving, "bitweaving_scan_kernel",
-                               "bitweaving_scan")):
+                               "bitweaving_scan"),
+                              (majority, "majority_kernel", "majority"),
+                              (arith, "bitserial_add_kernel",
+                               "bitserial_add"),
+                              (arith, "bitserial_lt_kernel", "bitserial_lt"),
+                              (bt, "bit_untranspose_kernel",
+                               "bit_untranspose")):
             self._wrap(mod, fn, name)
 
     def _wrap(self, mod, fn: str, name: str) -> None:
@@ -339,8 +508,37 @@ class Recorder:
         setattr(mod, fn, rec)
 
     def _keep(self, kind: str, args, kw) -> None:
-        if self.stage is not None:
+        if self.stage is not None and (self.only is None
+                                       or kind in self.only):
             self.calls.append((kind, args, kw, self.stage))
+
+    def _keep_faulty(self, table, plane, out_idx, kw) -> None:
+        """Keep a VM launch with fault masks if it is the largest so far
+        (dropping the previous largest) or the first with a batch of one,
+        its masks replaced by their draw."""
+        draw, self._draw = self._draw, None
+        if not self.faulty or self.stage is None or draw is None:
+            return
+        key, lp_table, batch, row_words, model, device, masks = draw
+        check(kw["errors"].data_ptr() == masks.data_ptr(),
+              "a VM launch's fault masks are not the last draw's")
+        size = plane.shape[0] * table.shape[0] * plane.shape[2]
+        single = self._single is None and plane.shape[0] == 1
+        if not single and self._largest is not None \
+                and size <= self._largest[0]:
+            return
+        call = ("vm", (table, plane, out_idx),
+                dict(kw, errors=FaultDraw(key, lp_table, batch, row_words,
+                                          model, device, masks)),
+                self.stage)
+        if single:
+            self._single = call
+        else:
+            if self._largest is not None:
+                old = self._largest[1]
+                self.calls = [c for c in self.calls if c is not old]
+            self._largest = (size, call)
+        self.calls.append(call)
 
     def held_bytes(self) -> int:
         """Device bytes the recorded arguments keep alive."""
@@ -453,13 +651,16 @@ def phase_slice(torch, spec, rec):
           f"results equal the unbatched interpreter; sum(t0/col)="
           f"{got_sum}, sum(t0/col+t0/col2)={got_add}, weekly-OR "
           f"count={got_week} equal numpy")
+    clean = {"svc": svc, "queries": queries, "mat": mat,
+             "scalars": [r.scalar for r in report.results],
+             "mat_values": [r.value for r in report_mat.results]}
     return launches, {"batch_wall_s": t_batch,
-                                 "warm_batch_wall_s": t_warm,
-                                 "build_service_s": t_build,
-                                 "peak_device_bytes": peak,
-                                 "recorder_held_bytes": held,
-                                 "n_plan_groups": report.n_plan_groups,
-                                 "n_cse_planes": report.n_cse_planes}
+                      "warm_batch_wall_s": t_warm,
+                      "build_service_s": t_build,
+                      "peak_device_bytes": peak,
+                      "recorder_held_bytes": held,
+                      "n_plan_groups": report.n_plan_groups,
+                      "n_cse_planes": report.n_cse_planes}, clean
 
 
 _POPCOUNT_TABLE = np.array([bin(i).count("1") for i in range(256)],
@@ -636,6 +837,277 @@ def phase_direct(torch, rec):
     return launches, {"direct_wall_s": t_path}
 
 
+#: phase 3c's flip rate: the first of these whose reckoned expectation of
+#: output bits wrong in two replicas at once stays under the limit
+RELIABILITY_P = (1e-8, 5e-9, 2e-9, 1e-9)
+DOUBLE_FAULT_LIMIT = 1e-3
+
+
+def _plan_groups(svc, queries):
+    """The plan groups the scheduler dispatches for one batch (no CSE:
+    mitigated batches share no planes), as lists of bound plans."""
+    groups = {}
+    for bp in svc.scheduler.plan_queries(queries):
+        groups.setdefault(bp.plan.key, []).append(bp)
+    return list(groups.values())
+
+
+def _double_fault_bits(svc, batches, model):
+    """(bound, flips): an upper bound on the expected number of output
+    bits wrong in two of three replicas at once, and on the expected
+    faults one replica of every group injects.
+
+    A fault at a bit position reaches the outputs only at that position
+    (the programs are bitwise and their carries ripple across planes of
+    one lane), so in one replica an output bit is wrong with probability
+    at most q = sum over the group's commands of the largest class flip
+    probability, and in two of three at most 3 q**2; summed over every
+    output plane bit of every group of every batch."""
+    words = svc.catalog.mask().shape[0]
+    bound = flips = 0.0
+    for queries in batches:
+        for members in _plan_groups(svc, queries):
+            plan = members[0].plan
+            if plan.lowered is None:
+                continue
+            q = float(model.flip_probs(plan.lowered.table)
+                      .astype(np.float64).max(axis=1).sum())
+            bits = len(members) * 32 * words
+            bound += 3 * min(q, 1.0) ** 2 * bits * len(plan.outputs)
+            flips += q * bits
+    return bound, flips
+
+
+def _service_like(base, rel):
+    """A service on ``base``'s catalog vectors (the same tensors, groups,
+    columns and placement order) under reliability ``rel``."""
+    from repro_torch.service import QueryService, ServiceConfig
+
+    svc = QueryService(ServiceConfig(n_banks=base.n_banks, device="cuda",
+                                     reliability=rel))
+    for name in base.catalog.names():
+        e = base.catalog.get(name)
+        svc.catalog.register(name, e.words, e.n_bits, group=e.group)
+    svc.catalog.columns.update(base.catalog.columns)
+    svc._columns.update(base._columns)     # range_scan_query's widths
+    return svc
+
+
+def phase_reliability(torch, clean, rec):
+    """§8's stream under TRA reliability (vote; ECC at P and at 0), on
+    phase 3a's catalog vectors, against 3a's clean results."""
+    from repro_torch.core import errors, lowering
+    from repro_torch.kernels import LAUNCHES
+
+    base, queries, mat = clean["svc"], clean["queries"], clean["mat"]
+    for p in RELIABILITY_P:
+        model = errors.TRAErrorModel(p_flip=p)
+        bound, flips = _double_fault_bits(base, (queries, mat), model)
+        print(f"[reliability] P = {p:g}: expected output bits wrong in two "
+              f"of three replicas <= {bound:.3e} (limit "
+              f"{DOUBLE_FAULT_LIMIT:g}); faults injected per replica of "
+              f"every group <= {flips:.1f}")
+        if bound < DOUBLE_FAULT_LIMIT:
+            break
+    check(bound < DOUBLE_FAULT_LIMIT,
+          f"no flip rate in {RELIABILITY_P} keeps double faults under "
+          f"{DOUBLE_FAULT_LIMIT:g}")
+    configs = {
+        "vote": errors.ReliabilityConfig("vote", k=3, model=model, seed=13),
+        "ecc": errors.ReliabilityConfig("ecc", model=model, seed=13),
+        "ecc p=0": errors.ReliabilityConfig(
+            "ecc", model=errors.TRAErrorModel(p_flip=0.0), seed=13)}
+    services = {name: _service_like(base, rel)
+                for name, rel in configs.items()}
+    torch.cuda.synchronize()
+
+    LAUNCHES.clear()
+    rec.only, rec.faulty = {"majority"}, True
+    t0 = time.perf_counter()
+    reports, walls = {}, {}
+    for name, svc in services.items():
+        rec.stage = f"reliability {name}"
+        t1 = time.perf_counter()
+        reports[name] = (svc.query_batch(queries), svc.query_batch(mat))
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t1
+    t_path = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    rec.stage = rec.only = None
+    rec.faulty = False
+    print(f"[reliability] launches while the mitigated stream ran: "
+          f"{launches}")
+    for name in RELIABILITY_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was never launched on the mitigated path")
+
+    stats = {}
+    for name, (rep, rep_mat) in reports.items():
+        check([r.scalar for r in rep.results] == clean["scalars"],
+              f"{name}: a mitigated scalar differs from the clean run")
+        for got, want in zip(rep_mat.results, clean["mat_values"]):
+            check(np.array_equal(got.value, want),
+                  f"{name}: materialize query {got.index} differs from "
+                  "the clean run")
+        st = services[name].stats()
+        stats[name] = {k: st[k] for k in (
+            "parity_checks", "reliability_replicas", "ecc_tiebreaks",
+            "tra_corrected_bits", "batches")}
+        stats[name]["wall_s"] = walls[name]
+        stats[name]["modeled_ns"] = rep.makespan_ns
+        stats[name]["plan_groups"] = rep.n_plan_groups + \
+            rep_mat.n_plan_groups
+        print(f"[reliability] {name}: {stats[name]}")
+    vote, ecc, ecc0 = (stats[n] for n in configs)
+    check(vote["tra_corrected_bits"] > 0 and vote["ecc_tiebreaks"] == 0,
+          f"vote at P: {vote}")
+    check(ecc["ecc_tiebreaks"] > 0 and ecc["tra_corrected_bits"] > 0,
+          f"ecc at P broke no tie: {ecc}")
+    check(ecc0["ecc_tiebreaks"] == 0 and ecc0["tra_corrected_bits"] == 0
+          and ecc0["reliability_replicas"] == 2 * ecc0["plan_groups"],
+          f"ecc at 0: {ecc0}")
+    for name in ("ecc", "ecc p=0"):
+        check(stats[name]["parity_checks"] == stats[name]["batches"] == 2,
+              f"{name}: {stats[name]['parity_checks']} parity checks over "
+              f"{stats[name]['batches']} batches")
+
+    # faults really land: the group with the most expected faults, run
+    # once with injection, differs from its clean run
+    svc = services["vote"]
+    members = max((m for m in _plan_groups(svc, queries)
+                   if m[0].plan.lowered is not None),
+                  key=lambda m: len(m) * float(model.flip_probs(
+                      m[0].plan.lowered.table).max(axis=1).sum()))
+    plan = members[0].plan
+    rows = [bp.input_map() for bp in members]
+    data = {n: [svc.catalog.get(r[n]).words for r in rows] for n in rows[0]}
+    outs = list(plan.outputs)
+    hit = errors.execute_injected(plan.lowered, data, outs, model=model,
+                                  key=(13, 10 ** 6))
+    ref = lowering.execute_lowered(plan.lowered, data, outputs=outs)
+    differ = sum(int((hit[o] != ref[o]).sum()) for o in outs)
+    check(differ > 0, "an injected group run equals its clean run")
+    # a corrupted catalog word stops the ECC service
+    svc = services["ecc"]
+    entry = svc.catalog.get(svc.catalog.names()[0])
+    saved = entry.words
+    entry.words = saved.clone()
+    entry.words[0] ^= 1
+    try:
+        svc.query_batch(queries[:1])
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        entry.words = saved
+    check("parity" in raised, f"a corrupted catalog word gave {raised!r}")
+    print(f"[reliability] {len(queries)} scalars and {len(mat)} "
+          f"materialized results equal the clean run under vote, ECC at "
+          f"P and ECC at 0; one injected {len(members)}-query group alone "
+          f"differs from its clean run in {differ} words; a corrupted "
+          f"catalog word raised ({raised[:40]}...); the mitigated runs "
+          f"took {t_path:.2f} s wall")
+    return launches, {"reliability_wall_s": t_path,
+                      "reliability_p_flip": model.p_flip,
+                      "double_fault_bound": bound,
+                      "faults_per_replica_bound": flips,
+                      "reliability": stats}
+
+
+#: §8.2's scale: two columns, a ragged count (sentinel tail)
+ARITH_VALUES = (1 << 25) - 7
+#: the column widths (arith_throughput's 8 bits, and a full word), with
+#: each width's lt_const bound
+ARITH_LT_CONST = {8: 100, 32: 3 << 29}
+
+
+def phase_arith(torch, rec):
+    """Bit-serial arithmetic at §8.2's scale through `repro_torch.ops`,
+    every result against numpy on the raw values; the in-DRAM twins at 8
+    bits against the fast path."""
+    from repro_torch import ops
+    from repro_torch.core.bitplane import to_uint32
+    from repro_torch.kernels import LAUNCHES
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2012)
+    raw = {}
+    for n_bits in ARITH_LT_CONST:
+        if n_bits == 32:
+            raw[n_bits] = [_draw_words(torch, gen, ARITH_VALUES)
+                           for _ in range(2)]
+        else:
+            raw[n_bits] = [torch.randint(0, 1 << n_bits, (ARITH_VALUES,),
+                                         dtype=torch.int32, generator=gen,
+                                         device=dev) for _ in range(2)]
+    torch.cuda.synchronize()
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = {}
+    for n_bits, (a, b) in raw.items():
+        rec.stage = f"arith {n_bits} bits"
+        k = ARITH_LT_CONST[n_bits]
+        ca = ops.VerticalColumn.encode(a, n_bits)
+        cb = ops.VerticalColumn.encode(b, n_bits)
+        s, d = ops.add_columns(ca, cb), ops.sub_columns(ca, cb)
+        r = {"add": s, "sub": d,
+             "add_values": ops.from_vertical(s.planes, n_bits),
+             "sub_values": ops.from_vertical(d.planes, n_bits),
+             "lt": ops.lt_columns(ca, cb), "lt_const": ops.lt_const(ca, k),
+             "sum": ops.sum_column(ca)}
+        if n_bits == 8:
+            for banks in (1, 8):
+                rec.stage = f"arith 8 bits in-DRAM n_banks={banks}"
+                r[banks] = (ops.add_columns_dram(ca, cb, n_banks=banks),
+                            ops.sub_columns_dram(ca, cb, n_banks=banks),
+                            ops.lt_columns_dram(ca, cb, n_banks=banks),
+                            ops.lt_const_dram(ca, k, n_banks=banks),
+                            ops.sum_column_dram(ca, n_banks=banks))
+        out[n_bits] = r
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    rec.stage = None
+    print(f"[arith] launches while the arithmetic path ran: {launches}")
+    for name in ARITH_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was never launched on the arithmetic path")
+
+    n = ARITH_VALUES
+    for n_bits, r in out.items():
+        a, b = (to_uint32(x).astype(np.int64) for x in raw[n_bits])
+        mod = 1 << n_bits
+        k = ARITH_LT_CONST[n_bits]
+        for op, want in (("add", (a + b) % mod), ("sub", (a - b) % mod)):
+            got = to_uint32(r[f"{op}_values"])[:n]
+            check(np.array_equal(got, want),
+                  f"{n_bits}-bit {op}: from_vertical differs from numpy")
+        check(np.array_equal(to_uint32(r["lt"].words), _packed(a < b)),
+              f"{n_bits}-bit lt_columns differs from numpy")
+        check(np.array_equal(to_uint32(r["lt_const"].words), _packed(a < k)),
+              f"{n_bits}-bit lt_const({k}) differs from numpy")
+        check(r["sum"] == int(a.sum()),
+              f"{n_bits}-bit sum_column {r['sum']} != numpy {int(a.sum())}")
+        for banks in (1, 8):
+            if banks not in r:
+                continue
+            add, sub, lt, ltc, total = r[banks]
+            check(torch.equal(add.planes, r["add"].planes)
+                  and torch.equal(sub.planes, r["sub"].planes)
+                  and torch.equal(lt.words, r["lt"].words)
+                  and torch.equal(ltc.words, r["lt_const"].words)
+                  and total == r["sum"],
+                  f"in-DRAM twins at n_banks={banks} differ from the fast "
+                  "path")
+    print(f"[arith] add, sub (through from_vertical), lt_columns, lt_const "
+          f"and sum_column over {n} values at {list(out)} bits equal "
+          f"numpy (sum at 32 bits {out[32]['sum']}); the 8-bit in-DRAM "
+          f"twins at 1 and 8 banks equal the fast path; the path took "
+          f"{t_path:.2f} s wall")
+    return launches, {"arith_wall_s": t_path}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: numbers
 # ---------------------------------------------------------------------------
@@ -707,7 +1179,8 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
     Returns (kernel name, kernel result, plain result, kernel ms, call ms,
     plain ms, bytes ms, ops ms, shape dict, library ms or None, library
     result or None)."""
-    from repro_torch.kernels import bitweaving, bitwise, popcount, ref, vm
+    from repro_torch.kernels import (arith, bittranspose, bitweaving,
+                                     bitwise, majority, popcount, ref, vm)
     from repro_torch.kernels.bittranspose import bit_transpose
 
     lib_ms = lib_out = None
@@ -715,6 +1188,9 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         name = "vm_materialize" if kw.get("reduce") is None \
             else "vm_popcount"
         table, plane, out_idx = args
+        draw = kw.get("errors")
+        if isinstance(draw, FaultDraw):
+            kw = dict(kw, errors=draw.redraw())
         got, k_ms, c_ms = _time_ms(torch, lambda: vm.vm_megakernel(
             table, plane, out_idx, **kw), 10, clock_hz)
         want, p_ms, _ = _time_ms(torch, lambda: vm.vm_plain(
@@ -723,6 +1199,10 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         shape = {"batch": plane.shape[0], "rows_in": plane.shape[1],
                  "n_rows": kw["n_rows"], "n_cmds": int(table.shape[0]),
                  "n_out": len(out_idx), "words": plane.shape[2]}
+        if isinstance(draw, FaultDraw):
+            shape["fault_key"] = list(draw.key)
+            shape["fault_words_set"] = draw.fingerprint[1]
+        del kw
     elif kind == "bt":
         name = "bit_transpose"
         values, n_bits = args
@@ -763,6 +1243,66 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         b_ms = (4 * n + 8) / HBM_BYTES_PER_S * 1e3
         o_ms = 2 * n / int_rate * 1e3          # a POPC and an add a word
         shape = {"shape": list(words.shape), "words": n}
+    elif kind == "majority":
+        name = kind
+        planes, threshold = args
+        got, k_ms, c_ms = _time_ms(torch, lambda: majority.majority_kernel(
+            planes, threshold), 10, clock_hz)
+        want, p_ms, _ = _time_ms(
+            torch, lambda: ref.majority_k(planes, threshold), 2, clock_hz)
+        k, words = planes.shape[0], planes[0].numel()
+        n_planes = max(1, k.bit_length())
+        # k planes read once, the result written once; per word k ripple
+        # adds into the counter (two ops a counter plane) and the compare
+        b_ms = 4 * (k + 1) * words / HBM_BYTES_PER_S * 1e3
+        o_ms = (2 * k + 3) * n_planes * words / int_rate * 1e3
+        # the copy `core.errors.vote_outputs` makes before the launch:
+        # the k replicas' output planes stacked into one (k, rows, W)
+        _, s_ms, _ = _time_ms(torch, lambda: torch.stack(planes.unbind(0)),
+                              10, clock_hz)
+        shape = {"k": k, "shape": list(planes.shape[1:]),
+                 "threshold": threshold, "stack_ms": s_ms}
+    elif kind == "bitserial_add":
+        name = kind
+        a, b, sub = args
+        got, k_ms, c_ms = _time_ms(torch, lambda: arith.bitserial_add_kernel(
+            a, b, sub), 10, clock_hz)
+        want, p_ms, _ = _time_ms(
+            torch, lambda: ref.bitserial_add(a, b, sub), 2, clock_hz)
+        n_bits, words = a.shape[0], a[0].numel()
+        # two planes read and one written per bit; a full adder (two XOR,
+        # one majority) and the complement per bit
+        b_ms = 4 * 3 * n_bits * words / HBM_BYTES_PER_S * 1e3
+        o_ms = 4 * n_bits * words / int_rate * 1e3
+        shape = {"n_bits": n_bits, "shape": list(a.shape[1:]), "sub": sub}
+    elif kind == "bitserial_lt":
+        name = kind
+        a, b = args
+        got, k_ms, c_ms = _time_ms(torch, lambda: arith.bitserial_lt_kernel(
+            a, b), 10, clock_hz)
+        want, p_ms, _ = _time_ms(torch, lambda: ref.bitserial_lt(a, b), 2,
+                                 clock_hz)
+        n_bits, words = a.shape[0], a[0].numel()
+        # two planes read per bit, one result word written; the lt / eq
+        # update is two three-input ops per bit
+        b_ms = 4 * (2 * n_bits + 1) * words / HBM_BYTES_PER_S * 1e3
+        o_ms = 2 * n_bits * words / int_rate * 1e3
+        shape = {"n_bits": n_bits, "shape": list(a.shape[1:])}
+    elif kind == "bit_untranspose":
+        name = kind
+        (planes,) = args
+        got, k_ms, c_ms = _time_ms(
+            torch, lambda: bittranspose.bit_untranspose_kernel(planes), 10,
+            clock_hz)
+        n_bits, g = planes.shape
+        want, p_ms, _ = _time_ms(
+            torch, lambda: ref.bit_untranspose(planes, n_bits), 2, clock_hz)
+        n = 32 * g
+        # each of the n_bits plane words read once and each value written
+        # once; one bit test per plane per value
+        b_ms = 4 * (n_bits + 32) * g / HBM_BYTES_PER_S * 1e3
+        o_ms = n_bits * n / int_rate * 1e3
+        shape = {"values": n, "n_bits": n_bits}
     else:
         name = "bitweaving_scan"
         planes, c1, c2, n_bits = args
@@ -790,7 +1330,7 @@ def phase_numbers(torch, calls, launches, max_err, int_rate, clock_hz):
     per_kernel = {name: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0,
                          "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
                          "library_ms": 0.0, "library_kernel_ms": 0.0,
-                         "library_launches": 0, "calls": []}
+                         "library_launches": 0, "replayed": 0, "calls": []}
                   for name in KERNELS}
     stages = {}
     errs = [max_err]
@@ -811,6 +1351,7 @@ def phase_numbers(torch, calls, launches, max_err, int_rate, clock_hz):
             row["library_ms"] += lib_ms
             row["library_kernel_ms"] += k_ms
             row["library_launches"] += 1
+        row["replayed"] += 1
         stages[stage] = stages.get(stage, 0.0) + k_ms
         row["calls"].append({**shape, "stage": stage, "ms": k_ms,
                              "call_ms": c_ms,
@@ -818,6 +1359,10 @@ def phase_numbers(torch, calls, launches, max_err, int_rate, clock_hz):
                              "bytes_ms": b_ms, "ops_ms": o_ms,
                              "library_ms": lib_ms})
     check(dict(LAUNCHES) != before, "replays launched no kernel")
+    stack = [c["stack_ms"] for c in per_kernel["majority"]["calls"]]
+    print(f"[numbers] majority: the replicas' torch.stack before each vote "
+          f"took {sum(stack):.3f} ms on the device over {len(stack)} "
+          f"launches")
     print("[numbers] kernel device ms by stage of the slice: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     rows = []
@@ -826,6 +1371,7 @@ def phase_numbers(torch, calls, launches, max_err, int_rate, clock_hz):
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
+            "replayed": r["replayed"],
             "max_abs_err": max(errs), "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
@@ -886,14 +1432,18 @@ def main() -> int:
                             n_queries=96)
         rec = Recorder()
         try:
-            launches, slice_info = phase_slice(torch, spec, rec)
-            direct, direct_info = phase_direct(torch, rec)
+            launches, slice_info, clean = phase_slice(torch, spec, rec)
+            later = [phase_direct(torch, rec),
+                     phase_reliability(torch, clean, rec),
+                     phase_arith(torch, rec)]
         finally:
             rec.close()
-        slice_info.update(direct_info)
-        # each kernel's launches over both main-path runs
-        for name, n in direct.items():
-            launches[name] = launches.get(name, 0) + n
+        del clean
+        # each kernel's launches over every main-path run
+        for counts, info in later:
+            slice_info.update(info)
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
         rows, per_kernel, stages = phase_numbers(
             torch, rec.calls, launches, max_err, int_rate, max_mhz * 1e6)
     except SmokeFailure as e:

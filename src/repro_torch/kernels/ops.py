@@ -7,16 +7,18 @@ which launches the CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors. Operands are int32 word tensors
 (`core.bitplane.as_words`). The reference's fold of 1-D
 operands into 8 sublane rows and its interpret-mode block sizes served
-the TPU's tiles and are gone. The remaining wrappers (majority, bit
-untranspose, bit-serial arithmetic, sign packing, attention) come with
-their kernels.
+the TPU's tiles and are gone. The remaining wrappers (sign packing,
+attention) come with their kernels.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels import bittranspose, bitweaving
+from repro_torch.kernels import arith, bittranspose, bitweaving
 from repro_torch.kernels import bitwise as _bitwise
+from repro_torch.kernels import majority as _majority
 from repro_torch.kernels import popcount as _popcount
 
 
@@ -54,6 +56,16 @@ def bitwise_banked(op: str, *args: torch.Tensor,
     return unshard_words(out, shape[-1]).reshape(shape)
 
 
+def majority(planes: torch.Tensor,
+             threshold: Optional[int] = None) -> torch.Tensor:
+    """(k, words) -> (words,) or (k, rows, words) -> (rows, words) packed
+    majority (generalized TRA): each bit set where at least ``threshold``
+    (default ``k // 2 + 1``) planes have it set."""
+    if planes.dim() == 2:
+        return _majority.majority_kernel(planes[:, None, :], threshold)[0]
+    return _majority.majority_kernel(planes, threshold)
+
+
 def popcount(words: torch.Tensor) -> torch.Tensor:
     """Total set bits of (words,) or (..., words) int32 words: a 0-dim
     int64 tensor on their device."""
@@ -65,7 +77,37 @@ def bit_transpose(values: torch.Tensor, n_bits: int) -> torch.Tensor:
     return bittranspose.bit_transpose(values, n_bits)
 
 
+def bit_untranspose(planes: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """(b, g) vertical planes -> (32g,) int32 values built from the first
+    ``n_bits`` planes; the bits above them are zero (the kernel reads only
+    those planes, with no padded copy)."""
+    b = planes.shape[0]
+    if not 0 <= n_bits <= min(b, 32):
+        raise ValueError(f"n_bits must be in 0..{min(b, 32)}, got {n_bits}")
+    return bittranspose.bit_untranspose_kernel(planes[:n_bits])
+
+
 def bitweaving_scan(planes: torch.Tensor, c1: int, c2: int,
                     n_bits: int) -> torch.Tensor:
     """(b, g) planes -> (g,) packed words of ``c1 <= v <= c2``."""
     return bitweaving.bitweaving_scan_kernel(planes, c1, c2, n_bits)
+
+
+def bitserial_add(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                  sub: bool = False) -> torch.Tensor:
+    """(n_bits, words) or (n_bits, rows, words) plane add / sub, modulo
+    ``2**n_bits``; the result has the operands' shape."""
+    if a_planes.dim() == 2:
+        return arith.bitserial_add_kernel(
+            a_planes[:, None, :], b_planes[:, None, :], sub)[:, 0]
+    return arith.bitserial_add_kernel(a_planes, b_planes, sub)
+
+
+def bitserial_lt(a_planes: torch.Tensor,
+                 b_planes: torch.Tensor) -> torch.Tensor:
+    """Packed unsigned ``a < b`` over (n_bits, words) or (n_bits, rows,
+    words) vertical planes: (words,) or (rows, words)."""
+    if a_planes.dim() == 2:
+        return arith.bitserial_lt_kernel(a_planes[:, None, :],
+                                         b_planes[:, None, :])[0]
+    return arith.bitserial_lt_kernel(a_planes, b_planes)

@@ -1,15 +1,17 @@
 """Plain PyTorch oracles of the port's kernels.
 
 The counterparts of the reference's `repro.kernels.ref`: the fused bulk
-bitwise ops, the total popcount, the BitWeaving-V bit transpose and the
-BitWeaving-V between-scan. Each CUDA wrapper runs these for CPU tensors,
+bitwise ops, the k-plane majority, the total popcount, the BitWeaving-V
+bit transpose and its inverse, the BitWeaving-V between-scan and the
+bit-serial add / sub / less-than. Each CUDA wrapper runs these for CPU
+tensors,
 and `chip_smoke.py` holds the kernels to them on the card. The
 opcode-table VM's plain version lives beside its kernel in `kernels.vm`.
 Words are int32 bit patterns; no function here shifts a word right.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +41,32 @@ ARITY = {op: fn.__code__.co_argcount for op, fn in BITWISE_OPS.items()}
 def bitwise(op: str, *args: torch.Tensor) -> torch.Tensor:
     """One of `BITWISE_OPS` over int32 word tensors of one shape."""
     return BITWISE_OPS[op](*args)
+
+
+# ---------------------------------------------------------------------------
+# majority over k bit-planes (generalized TRA)
+# ---------------------------------------------------------------------------
+
+
+def majority_k(planes: torch.Tensor, threshold: Optional[int] = None
+               ) -> torch.Tensor:
+    """planes: (k, ...) int32 words -> (...) words whose bit is set where
+    at least ``threshold`` (default ``k // 2 + 1``, the majority) of the k
+    planes have it set.
+
+    Unpacks each bit position and counts, one plane at a time: exact by
+    construction, and independent of the kernel's carry-save counter.
+    ``threshold <= 0`` gives all ones, ``threshold > k`` all zeros.
+    """
+    k = planes.shape[0]
+    if threshold is None:
+        threshold = k // 2 + 1
+    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
+    counts = torch.zeros(planes.shape[1:] + (32,), dtype=torch.int32,
+                         device=planes.device)
+    for i in range(k):
+        counts += (planes[i][..., None] >> shifts) & 1
+    return pack_lanes((counts >= threshold).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +102,19 @@ def bit_transpose(values: torch.Tensor, n_bits: int) -> torch.Tensor:
     return torch.stack(planes)
 
 
+def bit_untranspose(planes: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Inverse of `bit_transpose`: (b, g) planes -> (32g,) int32 values
+    built from the first ``n_bits`` planes (value 32*g + i takes bit j
+    from bit i of planes[j, g])."""
+    g = planes.shape[1]
+    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
+    vals = torch.zeros((g * 32,), dtype=torch.int32, device=planes.device)
+    for j in range(n_bits):
+        bits = ((planes[j][:, None] >> shifts) & 1).reshape(g * 32)
+        vals |= bits << j
+    return vals
+
+
 # ---------------------------------------------------------------------------
 # BitWeaving-V predicate scan: c1 <= v <= c2 over vertical planes
 # ---------------------------------------------------------------------------
@@ -104,3 +145,41 @@ def bitweaving_scan(planes: torch.Tensor, c1: int, c2: int, n_bits: int
     lt1, _ = _cmp_planes(planes, c1, n_bits)
     lt2, eq2 = _cmp_planes(planes, c2, n_bits)
     return ~lt1 & (lt2 | eq2)
+
+
+# ---------------------------------------------------------------------------
+# bit-serial ripple-carry arithmetic over vertical planes (SIMDRAM-style)
+# ---------------------------------------------------------------------------
+
+
+def bitserial_add(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                  sub: bool = False) -> torch.Tensor:
+    """(n_bits, ...) x2 int32 planes -> (n_bits, ...) sum planes.
+
+    Ripple-carry full adders per bit position; SUB is a + ~b + 1. The
+    carry out of the MSB is dropped (wrap modulo 2**n_bits), so the result
+    is exact for unsigned and two's-complement operands alike.
+    """
+    c = torch.full_like(a_planes[0], -1) if sub \
+        else torch.zeros_like(a_planes[0])
+    outs = []
+    for j in range(a_planes.shape[0]):
+        a = a_planes[j]
+        b = ~b_planes[j] if sub else b_planes[j]
+        outs.append(a ^ b ^ c)
+        c = (a & b) | (b & c) | (c & a)
+    if not outs:
+        return torch.empty_like(a_planes)
+    return torch.stack(outs)
+
+
+def bitserial_lt(a_planes: torch.Tensor, b_planes: torch.Tensor
+                 ) -> torch.Tensor:
+    """(n_bits, ...) x2 int32 planes -> (...) packed unsigned ``a < b``,
+    compared MSB first."""
+    lt = torch.zeros_like(a_planes[0])
+    eq = torch.full_like(a_planes[0], -1)
+    for j in range(a_planes.shape[0] - 1, -1, -1):
+        lt = lt | (eq & ~a_planes[j] & b_planes[j])
+        eq = eq & ~(a_planes[j] ^ b_planes[j])
+    return lt

@@ -1,4 +1,4 @@
-"""Layout conversion from horizontal integers to BitWeaving-V planes."""
+"""Layout conversion between horizontal integers and BitWeaving-V planes."""
 from __future__ import annotations
 
 import torch
@@ -21,3 +21,18 @@ def to_vertical(values, n_bits: int, device=None) -> torch.Tensor:
 
     return bit_transpose(
         as_words(values, operand_device([values], device)), n_bits)
+
+
+def from_vertical(planes, n_bits: int, device=None) -> torch.Tensor:
+    """(b, g) vertical bit planes -> (32g,) int32 values built from the
+    first ``n_bits`` planes (the inverse of `to_vertical`).
+
+    Always goes through the bit-untranspose wrapper (`kernels.ops.
+    bit_untranspose`): the CUDA kernel for planes on the card, its plain
+    version on the CPU (the reference's size threshold priced a TPU
+    launch). Host planes go to ``device``, default ``"cuda"``.
+    """
+    from repro_torch.kernels import ops as kops
+
+    return kops.bit_untranspose(
+        as_words(planes, operand_device([planes], device)), n_bits)

@@ -7,13 +7,14 @@ binding between those names and (a) the packed words that hold the bits
 in the modeled DRAM: each registered vector is placed into subarray rows
 through `core.allocator.DramAllocator` (paper §6.2.4 OS support), so
 co-registered vectors of one tenant land in one subarray and stay all-FPM
-reachable while capacity lasts.
+reachable while capacity lasts. For the service's "ecc" reliability mode
+the catalog keeps one XOR parity plane per affinity group, updated at
+registration, and `verify_parity` recomputes them as an integrity probe.
 
 Catalog names become the D-group row names of compiled query programs, so
 they must stay clear of the reserved B/C-group addresses and the compiler's
 temp/canonical-input namespaces — `register` validates that. Chip placement
-(the reference's distributed mode) and the ECC parity planes of its
-reliability mode are not ported yet.
+(the reference's distributed mode) is not ported yet.
 """
 from __future__ import annotations
 
@@ -87,6 +88,11 @@ class Catalog:
         # expand arithmetic query forms (sum/+/-/<) into plane programs.
         self.columns: Dict[str, int] = {}
         self._mask: Optional[torch.Tensor] = None
+        # ECC: running XOR parity plane per affinity group (None key =
+        # ungrouped), kept on the device and maintained at registration
+        # time — `verify_parity` recomputes from scratch and cross-checks,
+        # the integrity probe of the service's "ecc" reliability mode
+        self._parity: Dict[Optional[str], torch.Tensor] = {}
 
     # -- registration -------------------------------------------------------
 
@@ -120,6 +126,9 @@ class Catalog:
         handle = self.allocator.alloc(name, n_bits, group=group)
         entry = CatalogEntry(name, words, n_bits, handle, group=group)
         self._entries[name] = entry
+        prev = self._parity.get(group)
+        self._parity[group] = words.clone() if prev is None \
+            else prev ^ words
         return entry
 
     def register_bits(self, name: str, bits, group: Optional[str] = None
@@ -172,6 +181,33 @@ class Catalog:
         if self._mask is None or self._mask.shape[0] != n_words(self.n_bits):
             self._mask = as_words(tail_mask(self.n_bits), self.device)
         return self._mask
+
+    # -- ECC parity planes ----------------------------------------------------
+
+    def parity_plane(self, group: Optional[str] = None) -> torch.Tensor:
+        """The maintained XOR parity of one affinity group's vectors
+        (word-level XOR over the packed words, on the catalog's device)."""
+        if group not in self._parity:
+            raise CatalogError(f"no vectors registered in group {group!r}")
+        return self._parity[group]
+
+    def verify_parity(self) -> bool:
+        """Recompute every group's XOR parity on the device and cross-check
+        the maintained planes, reading back one bool — False means some
+        registered vector's words were corrupted (or parity maintenance
+        has a bug)."""
+        fresh: Dict[Optional[str], torch.Tensor] = {}
+        for entry in self._entries.values():
+            prev = fresh.get(entry.group)
+            fresh[entry.group] = entry.words if prev is None \
+                else prev ^ entry.words
+        if set(fresh) != set(self._parity):
+            return False
+        if not fresh:
+            return True
+        bad = torch.stack([(self._parity[g] != fresh[g]).any()
+                           for g in fresh])
+        return not bool(bad.any())
 
     # -- placement queries ----------------------------------------------------
 

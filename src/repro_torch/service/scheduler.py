@@ -37,8 +37,16 @@ comes from `core.energy` command counts.
 `run_queries_unbatched` is the independent reference path (fresh compile
 per query over its natural row names, one micro-op interpreter run per
 query, 1-bank serial schedule); the batched scheduler must match it
-bit-for-bit. The chip cluster, TRA reliability modes and the
-fault-tolerance policy of the reference scheduler are not ported yet.
+bit-for-bit.
+
+Under a TRA reliability mode (`core.errors.ReliabilityConfig`) every
+lowered plan group runs as seeded fault-injected replicas: ``"vote"`` runs
+k of them and votes their output planes with the majority kernel,
+``"ecc"`` runs two, accepts them when they agree and otherwise runs a
+third and votes, and opens every batch with the catalog's parity probe.
+The modeled timeline charges each replica's in-bank compute and one AAP
+per voted output plane. The chip cluster and the fault-tolerance policy
+of the reference scheduler are not ported yet.
 """
 from __future__ import annotations
 
@@ -175,6 +183,11 @@ class Scheduler:
     planner: Planner = dataclasses.field(default_factory=Planner)
     n_banks: int = 8
     timing: DramTiming = DDR3_1600
+    #: TRA reliability mode (`core.errors.ReliabilityConfig`): "vote" runs
+    #: every lowered plan-group k times with independent seeded fault draws
+    #: and bitwise-votes the output planes; "ecc" dual-runs with a vote
+    #: tie-break plus a catalog parity check per batch.
+    reliability: Optional["ReliabilityConfig"] = None  # noqa: F821
     #: observability sink (`repro_torch.obs.Telemetry`): span tree + modeled
     #: timeline per batch when tracing, registry counters/histograms when
     #: metering. None = `NULL_TELEMETRY` (both off, zero-allocation path).
@@ -184,7 +197,9 @@ class Scheduler:
         self.queries_served = 0
         self.total_modeled_ns = 0.0
         self.total_energy_nj = 0.0
+        self.parity_checks = 0
         self.cse_planes_built = 0
+        self._group_seq = 0      # deterministic per-dispatch key chain
         if self.telemetry is None:
             from repro_torch.obs.telemetry import NULL_TELEMETRY
 
@@ -201,6 +216,7 @@ class Scheduler:
             self._m_aaps = m.counter("aaps_total")
             self._m_energy = m.counter("modeled_energy_nj_total")
             self._m_modeled_ns = m.counter("modeled_ns_total")
+            self._m_parity = m.counter("parity_checks_total")
             self._m_cse = m.counter("cse_planes_total")
             self._m_lat = m.histogram("modeled_latency_ns")
             self._m_wall = m.histogram("batch_wall_us")
@@ -233,13 +249,18 @@ class Scheduler:
         card, the plain loop on the CPU (the wrapper decides either way)."""
         return "cuda" if self.catalog.device.type == "cuda" else "torch"
 
+    @property
+    def _mitigated(self) -> bool:
+        return self.reliability is not None \
+            and self.reliability.mode != "none"
+
     # -- functional execution ------------------------------------------------
 
     def _run_group(self, members: List[Tuple[int, BoundPlan]],
                    need_words: bool,
                    cse_planes: Optional[Dict[str, torch.Tensor]] = None,
                    need_counts: bool = True
-                   ) -> Tuple[Optional[torch.Tensor], List[int]]:
+                   ) -> Tuple[Optional[torch.Tensor], List[int], int]:
         """One stacked VM dispatch for all queries sharing a plan.
 
         Each canonical input IN{i} becomes a per-query list of operand
@@ -254,6 +275,11 @@ class Scheduler:
         n_queries)`` counts cross to the host, where exact Python ints
         apply the 2**j weights. ``need_counts=False`` (shared planes,
         whose scalars nobody reads) skips the popcount and its host sync.
+        Under a reliability mode a lowered plan runs as replicas
+        (`_run_reliable`): they materialize, vote, then mask and count.
+        The third value is the replicas run — 1 on the clean path, k under
+        vote, 2 or 3 under ecc — the multiplier the modeled timeline
+        charges.
         """
         input_rows = [bp.input_map() for _, bp in members]
         data = {
@@ -264,7 +290,10 @@ class Scheduler:
         plan = members[0][1].plan
         backend = plan.backend or self._vm_backend
         mask = self.catalog.mask()
-        if backend == "interp" or plan.lowered is None:
+        replicas = 1
+        if self._mitigated and plan.lowered is not None:
+            out, replicas = self._run_reliable(plan, data)
+        elif backend == "interp" or plan.lowered is None:
             # degenerate 1-2 command programs on the CPU: eager micro-op
             # interpreter, a VM run would cost more than the program
             data = {k: torch.stack(v) for k, v in data.items()}
@@ -280,7 +309,7 @@ class Scheduler:
                 plan.lowered, data, outputs=list(plan.outputs),
                 backend=backend, reduce="popcount", mask=mask)
             cnp = torch.stack([counts[o] for o in plan.outputs]).cpu().numpy()
-            return None, _weighted(cnp, len(members))
+            return None, _weighted(cnp, len(members)), 1
         else:
             out = lowering.execute_lowered(
                 plan.lowered, data, outputs=list(plan.outputs),
@@ -288,10 +317,52 @@ class Scheduler:
         # (n_outputs, len(members), n_words), output planes LSB-first
         masked = torch.stack([out[o] & mask for o in plan.outputs])
         if not need_counts:
-            return masked.movedim(0, 1), []
+            return masked.movedim(0, 1), [], replicas
         counts = popcount_words(masked, axis=-1).cpu().numpy()
         scalars = _weighted(counts, len(members))
-        return (masked.movedim(0, 1) if need_words else None), scalars
+        return ((masked.movedim(0, 1) if need_words else None), scalars,
+                replicas)
+
+    def _run_reliable(self, plan: Plan, data: Dict[str, list]
+                      ) -> Tuple[Dict[str, torch.Tensor], int]:
+        """Mitigated dispatch: vote or ecc over the lowered program, on
+        the same VM backend as a clean group.
+
+        Each plan-group takes the next link of a deterministic key chain
+        rooted at the config seed — ``(seed, group_seq)``, each replica
+        appending its index — so a served batch reproduces the same fault
+        pattern run-to-run on one device.
+        """
+        from repro_torch.core import errors as errmod
+
+        rel = self.reliability
+        key = (rel.seed, self._group_seq)
+        self._group_seq += 1
+        model = rel.model or errmod.TRAErrorModel(p_flip=0.0)
+        tel = self.telemetry
+        stats: Optional[Dict[str, int]] = {} if tel.metering else None
+        if rel.mode == "vote":
+            out = errmod.execute_voted(
+                plan.lowered, data, list(plan.outputs),
+                backend=self._vm_backend, model=model, key=key, k=rel.k,
+                stats_out=stats)
+            replicas = rel.k
+        else:
+            out, replicas = errmod.execute_ecc(
+                plan.lowered, data, list(plan.outputs),
+                backend=self._vm_backend, model=model, key=key,
+                stats_out=stats)
+        if stats is not None:
+            m = tel.metrics
+            m.counter("reliability_replicas_total").inc(stats["replicas"])
+            m.counter("ecc_tiebreaks_total").inc(stats["tiebreaks"])
+            m.counter("tra_corrected_bits_total").inc(
+                stats["corrected_bits"])
+            if tel.tracing and stats["corrected_bits"]:
+                tel.tracer.instant("tra_correction",
+                                   corrected_bits=stats["corrected_bits"],
+                                   replicas=stats["replicas"])
+        return out, replicas
 
     # -- the scheduler proper ------------------------------------------------
 
@@ -352,6 +423,17 @@ class Scheduler:
                 allow_cse: bool = True) -> BatchReport:
         tracing = tel.tracing
         tr = tel.tracer
+        if self.reliability is not None and self.reliability.mode == "ecc":
+            # ecc mode opens every batch with a catalog integrity probe:
+            # the maintained per-group XOR parity must match a fresh
+            # recomputation, or some operand vector was corrupted at rest
+            self.parity_checks += 1
+            if tel.metering:
+                self._m_parity.inc()
+            if not self.catalog.verify_parity():
+                raise RuntimeError(
+                    "catalog parity check failed: a registered vector's "
+                    "words no longer match the maintained XOR parity plane")
 
         # 1. plan every query through the cache (hits skip recompilation),
         #    then run the batch-level sharing pass (cross-query CSE)
@@ -380,8 +462,9 @@ class Scheduler:
                     tr.begin("cse_group", plane=d.name, uses=d.uses,
                              n_aaps=d.bound.plan.n_aaps)
                     tr.begin("cse_dispatch")
-                stacked, _ = self._run_group([(0, d.bound)], True,
-                                             cse_planes, need_counts=False)
+                stacked, _, _ = self._run_group([(0, d.bound)], True,
+                                                cse_planes,
+                                                need_counts=False)
                 cse_planes[d.name] = stacked[0, 0]   # stays on the device
                 if tracing:
                     tr.end()    # cse_dispatch
@@ -396,6 +479,7 @@ class Scheduler:
             groups.setdefault(bp.plan.key, []).append((idx, bp))
         words_by_idx: Dict[int, np.ndarray] = {}
         count_by_idx: Dict[int, int] = {}
+        replicas_by_idx: Dict[int, int] = {}
         for members in groups.values():
             need_words = any(queries[idx].mode == MATERIALIZE
                              for idx, _ in members)
@@ -403,8 +487,8 @@ class Scheduler:
                 tr.begin("group", members=[idx for idx, _ in members],
                          n_aaps=members[0][1].plan.n_aaps)
                 tr.begin("dispatch")
-            stacked, scalars = self._run_group(members, need_words,
-                                               cse_planes)
+            stacked, scalars, replicas = self._run_group(
+                members, need_words, cse_planes)
             if tracing:
                 tr.end()
                 tr.begin("readout")
@@ -419,6 +503,7 @@ class Scheduler:
                     w = host[slot]             # (n_outputs, n_words)
                     words_by_idx[idx] = w[0] if is_boolean else w
                 count_by_idx[idx] = scalars[slot]
+                replicas_by_idx[idx] = replicas
             if tracing:
                 tr.end()    # readout
                 tr.end()    # group
@@ -429,7 +514,7 @@ class Scheduler:
         #    placed — charged — exactly once.
         n_blocks = self._n_blocks
         placements, makespan = self._place_batch(
-            bound, cse, tr if tracing else None)
+            bound, cse, replicas_by_idx, tr if tracing else None)
         # defs are real AAPs/energy, but shared: charge them once, to the
         # first consuming query's accounting, so the batch energy total
         # stays the sum of per-result energies
@@ -447,7 +532,8 @@ class Scheduler:
         results: List[QueryResult] = []
         for idx, (q, bp) in enumerate(zip(queries, bound)):
             b, lat = placements[idx]
-            energy = bp.plan.energy_nj_per_block * n_blocks
+            replicas = replicas_by_idx.get(idx, 1)
+            energy = bp.plan.energy_nj_per_block * n_blocks * replicas
             extra_aaps = 0
             if idx == first_consumer:
                 energy += def_energy
@@ -476,14 +562,15 @@ class Scheduler:
             if tel.metering:
                 self._m_queries.inc()
                 self._m_lat.observe(lat)
-                self._m_aaps.inc((bp.plan.n_aaps + extra_aaps) * n_blocks)
+                self._m_aaps.inc((bp.plan.n_aaps + extra_aaps)
+                                 * n_blocks * replicas)
                 self._m_energy.inc(energy)
                 if q.tenant is not None:
                     m = tel.metrics
                     m.counter("tenant_queries_total",
                               tenant=q.tenant).inc()
                     m.counter("tenant_aaps_total", tenant=q.tenant).inc(
-                        bp.plan.n_aaps * n_blocks)
+                        bp.plan.n_aaps * n_blocks * replicas)
                     m.counter("tenant_energy_nj_total",
                               tenant=q.tenant).inc(energy)
 
@@ -503,11 +590,14 @@ class Scheduler:
     def _apply_cse(self, queries: Sequence[Query],
                    orig_bound: List[BoundPlan]
                    ) -> Tuple[List[BoundPlan], Optional[CseBatch]]:
-        """The cross-query sharing pass. The pass itself guarantees the
-        rewrite is kept only when it strictly lowers the batch's total
-        AAPs (`optimizer.plan_group_cse`)."""
+        """The cross-query sharing pass, on the clean path only: mitigated
+        dispatch repeats programs whole (a shared plane would be voted
+        once but consumed k times). The pass itself guarantees the rewrite
+        is kept only when it strictly lowers the batch's total AAPs
+        (`optimizer.plan_group_cse`)."""
         opt = getattr(self.planner.cache, "optimizer", None)
-        if opt is None or not opt.enable_cse or len(queries) < 2:
+        if (opt is None or not opt.enable_cse or len(queries) < 2
+                or self._mitigated):
             return orig_bound, None
         exprs = [
             (bind_expr(bp.plan.canon, bp.input_map())
@@ -522,7 +612,8 @@ class Scheduler:
         return cse.bound, cse
 
     def _place_batch(self, bound: Sequence[BoundPlan],
-                     cse: Optional[CseBatch], tr=None
+                     cse: Optional[CseBatch],
+                     replicas_by_idx: Dict[int, int], tr=None
                      ) -> Tuple[List[Tuple[int, float]], float]:
         """Modeled timeline placement for one batch (no execution).
 
@@ -530,8 +621,10 @@ class Scheduler:
         query lands on the least-loaded bank; operand transfers serialize
         on the internal bus, per-bank AAP compute overlaps across banks,
         and a consumer cannot start a block before every shared plane it
-        reads is ready. Returns (per-query [(bank, latency_ns)],
-        makespan_ns).
+        reads is ready. A k-replica dispatch repeats the in-bank AAP
+        compute k times (operands are already placed, so transfers are not
+        repeated) and a voted readout adds one AAP per output plane.
+        Returns (per-query [(bank, latency_ns)], makespan_ns).
         """
         n_blocks = self._n_blocks
         bus_free = 0.0
@@ -564,11 +657,16 @@ class Scheduler:
             deps = [n for n in bp.bindings if n.startswith(CSE_PREFIX)]
             b = least_loaded()
             xfer = self._xfer_ns(bp.plan)
+            replicas = replicas_by_idx.get(idx, 1)
+            vote_ns = (len(bp.plan.outputs) * self.timing.aap_ns
+                       if replicas > 1 else 0.0)
             for _ in range(n_blocks):
                 dep = max((cse_ready[p] for p in deps), default=0.0)
                 start = max(bus_free, bank_free[b], dep)
                 bus_free = start + xfer
-                bank_free[b] = bus_free + bp.plan.latency_ns_per_block
+                bank_free[b] = (bus_free
+                                + bp.plan.latency_ns_per_block * replicas
+                                + vote_ns)
                 if tr is not None:
                     tr.model_event("xfer", start, xfer, "chip0/bus", q=idx)
                     tr.model_event("compute", bus_free,
@@ -590,7 +688,7 @@ class Scheduler:
         qs = [q if isinstance(q, Query) else Query(q) for q in queries]
         orig_bound = self.plan_queries(qs)
         bound, cse = self._apply_cse(qs, orig_bound)
-        placements, makespan = self._place_batch(bound, cse)
+        placements, makespan = self._place_batch(bound, cse, {})
         n_blocks = self._n_blocks
         plans: List[PlanExplain] = []
         for idx, (q, bp0, bp) in enumerate(zip(qs, orig_bound, bound)):

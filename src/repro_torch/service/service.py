@@ -35,9 +35,13 @@ Registered columns also unlock the bit-serial arithmetic grammar:
     svc.query("sum(age)").value             # SUM aggregation
     svc.materialize_column("total", "spend + refund")   # derived column
 
-The chip cluster (`n_chips`, `rescale`), TRA reliability, the
-fault-tolerance policy and checkpointed `serve_stream` are not ported yet;
-each raises `NotImplementedError`.
+TRA reliability is a deployment mode: with
+``ServiceConfig(reliability=ReliabilityConfig(mode="vote" | "ecc", ...))``
+every plan group runs as seeded fault-injected replicas whose outputs are
+voted (`core.errors`, `service.scheduler`), and ``"ecc"`` checks the
+catalog's parity planes before each batch. The chip cluster (`n_chips`,
+`rescale`), the fault-tolerance policy and checkpointed `serve_stream` are
+not ported yet; each raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import threading
 from typing import Dict, List, Optional, Sequence, Union
 
 from repro_torch._device import resolve_device
+from repro_torch.core.errors import ReliabilityConfig
 from repro_torch.core.bitplane import as_words
 from repro_torch.core.compiler import Expr
 from repro_torch.ops.predicate import VerticalColumn, range_scan_expr
@@ -63,7 +68,6 @@ from repro_torch.service.server import QueryHandle, ServingLoop
 _NOT_PORTED = {
     "n_chips": "the chip cluster (ROADMAP queue A, multi-device)",
     "max_chips": "the chip cluster (ROADMAP queue A, multi-device)",
-    "reliability": "TRA reliability (ROADMAP queue A, errors + reliability)",
     "fault_tolerance": "the fault-tolerance policy (ROADMAP queue A, "
                        "multi-device)",
 }
@@ -91,10 +95,16 @@ class QueryService:
             if getattr(config, field) is not None:
                 raise NotImplementedError(
                     f"ServiceConfig.{field}: {what} is not ported yet")
+        if config.reliability is not None \
+                and not isinstance(config.reliability, ReliabilityConfig):
+            raise TypeError(
+                "ServiceConfig.reliability takes a repro_torch.core.errors."
+                f"ReliabilityConfig, got {type(config.reliability).__name__}")
         self.config = config
         self.device = resolve_device(config.device)
         self.n_banks = config.n_banks
         self.timing = config.timing
+        self.reliability = config.reliability
         #: the serving loop reads this; no chip cluster in this port yet
         self.cluster = None
         self.telemetry = config.telemetry
@@ -116,6 +126,7 @@ class QueryService:
             capacity=self.plan_cache_capacity))
         self.scheduler = Scheduler(catalog=self.catalog, planner=self.planner,
                                    n_banks=self.n_banks, timing=self.timing,
+                                   reliability=self.reliability,
                                    telemetry=self.telemetry)
         self._columns: Dict[str, VerticalColumn] = {}
         #: serializes direct dispatch against a live serving loop
@@ -304,8 +315,8 @@ class QueryService:
         With metering on (the default), the counter-backed keys read
         through `telemetry.metrics`; with metering off they fall back to
         the always-maintained legacy attributes, so the dict shape is
-        stable either way. The keys of the reference's distributed,
-        reliability and fault-tolerance modes read 0 here.
+        stable either way. The keys of the reference's distributed and
+        fault-tolerance modes read 0 here.
         """
         cache = self.planner.cache
         tel = self.telemetry
@@ -361,7 +372,7 @@ class QueryService:
                 "total_energy_nj": self.scheduler.total_energy_nj,
                 "n_chips": 1,
                 "chip_sweeps": 0,
-                "parity_checks": 0,
+                "parity_checks": self.scheduler.parity_checks,
                 "chip_rescales": 0,
             }
         s["replays"] = 0

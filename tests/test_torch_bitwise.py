@@ -24,6 +24,9 @@ from repro_torch.convert import catalog_from_reference
 from repro_torch.core import bankgroup as tbg
 from repro_torch.core import compiler as tcomp
 from repro_torch.core import engine as teng
+from repro_torch.core import errors as terr
+from repro_torch.core import lowering as tlow
+from repro_torch.core.errors import ReliabilityConfig
 from repro_torch.core.bitplane import as_words, to_uint32
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import ops as tkops
@@ -246,6 +249,7 @@ def _reference_catalog():
 
 _HOST_ROWS = {"D0": np.ones(8, np.uint32), "D1": np.arange(8, dtype=np.uint32)}
 _XOR = tcomp.op_program("xor", ["D0", "D1"], "D2")
+_FAULTS = terr.TRAErrorModel(p_flip=0.1)
 
 ENTRY_POINTS = {
     "bitwise_and": lambda **kw: tops.bitwise_and(
@@ -256,6 +260,8 @@ ENTRY_POINTS = {
     "BitSet": lambda **kw: tops.BitSet.from_elements([1, 5], 64, **kw),
     "BitSet.empty": lambda **kw: tops.BitSet.empty(64, **kw),
     "to_vertical": lambda **kw: to_vertical(np.arange(64), 6, **kw),
+    "from_vertical": lambda **kw: tops.from_vertical(
+        np.arange(12, dtype=np.uint32).reshape(6, 2), 6, **kw),
     "VerticalColumn.encode": lambda **kw: tops.VerticalColumn.encode(
         np.arange(40), 6, **kw),
     "UserDatabase.synthetic": lambda **kw: UserDatabase.synthetic(
@@ -270,7 +276,15 @@ ENTRY_POINTS = {
     "BankGroup.create": lambda **kw: tbg.BankGroup.create(3, 8, **kw),
     "BankGroup.from_flat": lambda **kw: tbg.BankGroup.from_flat(
         3, _HOST_ROWS, **kw),
+    "execute_injected": lambda **kw: terr.execute_injected(
+        tlow.lower(_XOR), _HOST_ROWS, ["D2"], model=_FAULTS, **kw),
+    "execute_voted": lambda **kw: terr.execute_voted(
+        tlow.lower(_XOR), _HOST_ROWS, ["D2"], model=_FAULTS, **kw),
+    "execute_ecc": lambda **kw: terr.execute_ecc(
+        tlow.lower(_XOR), _HOST_ROWS, ["D2"], model=_FAULTS, **kw),
     "QueryService": QueryService,
+    "QueryService(reliability=)": lambda **kw: QueryService(
+        reliability=ReliabilityConfig(mode="vote"), **kw),
     "Catalog": Catalog,
     "catalog_from_reference": lambda **kw: catalog_from_reference(
         _reference_catalog(), **kw),

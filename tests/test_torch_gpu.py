@@ -312,3 +312,156 @@ def test_direct_path_on_the_card_matches_the_host(cuda):
     for name in ("bitwise", "bitwise_banked", "popcount", "bitweaving_scan",
                  "bit_transpose", "vm_materialize"):
         assert LAUNCHES[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# TRA reliability and bit-serial arithmetic: majority, add / sub / lt and
+# the bit untranspose
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("words", [1001, 1024])   # word / 16-byte path
+@pytest.mark.parametrize("threshold", ["default", "one", "zero", "k+1"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 7, 15, 31])
+def test_majority_kernel_matches_plain(cuda, k, threshold, words):
+    from repro_torch.kernels.majority import majority_kernel
+
+    t = {"default": None, "one": 1, "zero": 0, "k+1": k + 1}[threshold]
+    planes = _card_words(cuda, np.random.default_rng(k), k, 3, words)
+    before = LAUNCHES["majority"]
+    got = majority_kernel(planes, t)
+    torch.cuda.synchronize()
+    assert LAUNCHES["majority"] == before + 1
+    assert torch.equal(got, ref.majority_k(planes, t))
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("n_bits", [1, 7, 8, 32])
+def test_bitserial_kernels_match_plain(cuda, n_bits, rows):
+    from repro_torch.kernels.arith import (bitserial_add_kernel,
+                                           bitserial_lt_kernel)
+
+    rng = np.random.default_rng(n_bits + rows)
+    a = _card_words(cuda, rng, n_bits, rows, 1001)
+    b = _card_words(cuda, rng, n_bits, rows, 1001)
+    b[..., :50] = a[..., :50]                   # equal lanes for lt
+    for sub in (False, True):
+        before = LAUNCHES["bitserial_add"]
+        got = bitserial_add_kernel(a, b, sub)
+        torch.cuda.synchronize()
+        assert LAUNCHES["bitserial_add"] == before + 1
+        assert torch.equal(got, ref.bitserial_add(a, b, sub))
+    before = LAUNCHES["bitserial_lt"]
+    got = bitserial_lt_kernel(a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitserial_lt"] == before + 1
+    assert torch.equal(got, ref.bitserial_lt(a, b))
+
+
+@pytest.mark.parametrize("groups", [1, 37, 1001, 1 << 15])
+@pytest.mark.parametrize("n_bits", [1, 8, 13, 32])
+def test_bit_untranspose_kernel_matches_plain(cuda, n_bits, groups):
+    from repro_torch.kernels import ops as kops
+
+    rng = np.random.default_rng(n_bits * groups)
+    planes = _card_words(cuda, rng, n_bits, groups)
+    before = LAUNCHES["bit_untranspose"]
+    got = kops.bit_untranspose(planes, n_bits)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bit_untranspose"] == before + 1
+    assert torch.equal(got, ref.bit_untranspose(planes, n_bits))
+    values = as_words(rng.integers(0, 1 << n_bits, 32 * groups,
+                                   dtype=np.uint64).astype(np.uint32), cuda)
+    assert torch.equal(kops.bit_untranspose(bit_transpose(values, n_bits),
+                                            n_bits), values)
+    wide = _card_words(cuda, rng, 32, groups)
+    assert torch.equal(kops.bit_untranspose(wide, n_bits),
+                       ref.bit_untranspose(wide, n_bits))
+
+
+def test_fault_draw_on_the_card_is_deterministic_per_key(cuda):
+    from repro_torch.core import errors
+
+    lp = tlow.lower(_program(4))
+    model = errors.TRAErrorModel(p_flip=0.01)
+
+    def draw(key):
+        return errors.error_planes(lp.table,
+                                   errors.fault_generator(key, cuda), (3,),
+                                   1001, model)
+
+    a = draw((9, 1, 0))
+    assert a.is_cuda and a.shape == (lp.n_cmds, 4, 3, 1001)
+    assert torch.equal(a, draw((9, 1, 0)))
+    assert not torch.equal(a, draw((9, 1, 1)))
+    tra = torch.from_numpy((lp.table[:, 0] & tlow.KIND_TRA) != 0).to(cuda)
+    assert a[tra].any() and not a[~tra].any()
+
+
+def test_mitigated_execution_puts_host_rows_on_the_card(cuda):
+    """Host rows go to the card by default: the masks are drawn there, the
+    VM kernel runs every replica and the vote launches the majority."""
+    from repro_torch.core import errors
+
+    lp = tlow.lower(_program(5))
+    rng = np.random.default_rng(11)
+    data = {f"D{i}": rng.integers(0, 1 << 32, (2, 500), dtype=np.uint32)
+            for i in range(6)}
+    model = errors.TRAErrorModel(p_flip=0.01)
+    LAUNCHES.clear()
+    hit = errors.execute_injected(lp, data, ["OUT"], model=model, key=(3,))
+    voted = errors.execute_voted(lp, data, ["OUT"], model=model, key=(3,))
+    out, n = errors.execute_ecc(lp, data, ["OUT"], model=model, key=(3,))
+    assert hit["OUT"].is_cuda and voted["OUT"].is_cuda and out["OUT"].is_cuda
+    assert n == 3          # at this rate two replicas always disagree
+    assert LAUNCHES["vm_materialize"] == 1 + 3 + n
+    assert LAUNCHES["majority"] == 2
+
+
+def test_mitigated_service_on_the_card_matches_the_clean_one(cuda):
+    from repro_torch.core.errors import ReliabilityConfig, TRAErrorModel
+    from repro_torch.service import WorkloadSpec, build_service, query_stream
+
+    spec = WorkloadSpec(domain_bits=(1 << 14) + 7)
+    clean = build_service(spec)
+    want = [r.scalar for r in clean.query_batch(
+        query_stream(spec, clean)).results]
+    for mode in ("vote", "ecc"):
+        svc = build_service(spec, reliability=ReliabilityConfig(
+            mode=mode, model=TRAErrorModel(p_flip=1e-6), seed=1))
+        LAUNCHES.clear()
+        rep = svc.query_batch(query_stream(spec, svc))
+        assert [r.scalar for r in rep.results] == want
+        if mode == "vote":
+            assert LAUNCHES["majority"] > 0
+            assert svc.stats()["tra_corrected_bits"] > 0
+
+
+def test_arith_ops_on_the_card_match_the_host(cuda):
+    from repro_torch import ops
+
+    rng = np.random.default_rng(8)
+    n = (1 << 16) + 3
+    a = rng.integers(0, 256, n, dtype=np.uint32)
+    b = rng.integers(0, 256, n, dtype=np.uint32)
+    LAUNCHES.clear()
+    ca, cb = (ops.VerticalColumn.encode(x, 8) for x in (a, b))
+    ha, hb = (ops.VerticalColumn.encode(x, 8, device="cpu") for x in (a, b))
+    for fn in (ops.add_columns, ops.sub_columns):
+        card, host = fn(ca, cb), fn(ha, hb)
+        assert torch.equal(card.planes.cpu(), host.planes)
+        assert torch.equal(ops.from_vertical(card.planes, 8).cpu(),
+                           ops.from_vertical(host.planes, 8))
+    assert torch.equal(ops.lt_columns(ca, cb).words.cpu(),
+                       ops.lt_columns(ha, hb).words)
+    assert ops.sum_column(ca) == ops.sum_column(ha) == int(a.sum())
+    for banks in (1, 8):
+        assert torch.equal(ops.add_columns_dram(ca, cb, n_banks=banks)
+                           .planes.cpu(),
+                           ops.add_columns_dram(ha, hb, n_banks=banks)
+                           .planes)
+    for name in ("bitserial_add", "bitserial_lt", "bit_untranspose",
+                 "vm_materialize"):
+        assert LAUNCHES[name] > 0, name
+    with pytest.raises(ValueError, match="use_kernel"):
+        ops.add_columns(ca, cb, use_kernel=False)

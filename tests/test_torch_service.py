@@ -250,10 +250,18 @@ def test_device_default_and_unported_modes():
         with pytest.raises(RuntimeError):
             T.build_service(T.WorkloadSpec(**SPEC))
     for field, value in (("n_chips", 2), ("max_chips", 4),
-                         ("reliability", object()),
                          ("fault_tolerance", object())):
         with pytest.raises(NotImplementedError, match="not ported"):
             T.QueryService(T.ServiceConfig(device="cpu", **{field: value}))
+    # TRA reliability is ported: a ReliabilityConfig is taken, anything
+    # else raises
+    from repro_torch.core.errors import ReliabilityConfig
+
+    assert T.QueryService(T.ServiceConfig(
+        device="cpu", reliability=ReliabilityConfig(mode="ecc"))
+    ).scheduler.reliability.mode == "ecc"
+    with pytest.raises(TypeError, match="ReliabilityConfig"):
+        T.QueryService(T.ServiceConfig(device="cpu", reliability=object()))
     svc = T.QueryService(T.ServiceConfig(device="cpu"))
     with pytest.raises(NotImplementedError):
         svc.rescale(2)
