@@ -15,6 +15,7 @@ from repro_torch._device import resolve_device
 from repro_torch.apps.bitmap_index import UserDatabase
 from repro_torch.core.bitplane import as_words
 from repro_torch.core.lowering import LoweredProgram
+from repro_torch.models.transformer import Transformer
 from repro_torch.ops.predicate import VerticalColumn
 from repro_torch.service.catalog import Catalog
 
@@ -58,3 +59,33 @@ def lowered_from_reference(lp) -> LoweredProgram:
         row_names=tuple(lp.row_names),
         table=np.asarray(lp.table, dtype=np.int32),
         reads=tuple(lp.reads), writes=tuple(lp.writes), comment=lp.comment)
+
+
+def _copy_tree(module, tree, index=None) -> None:
+    """Copy every leaf of a reference parameter dict into the like-named
+    parameter of ``module`` (``tree[name][index]`` for stacked layers)."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _copy_tree(getattr(module, name), leaf, index)
+            continue
+        x = np.array(leaf if index is None else leaf[index],
+                     dtype=np.float32)
+        dst = getattr(module, name)
+        if tuple(dst.shape) != x.shape:
+            raise ValueError(f"{name}: reference {x.shape} vs port "
+                             f"{tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(torch.from_numpy(x))
+
+
+def model_params_from_reference(cfg, params, device="cuda") -> Transformer:
+    """A port `models.transformer.Transformer` holding the reference's
+    dense-family parameters (``repro.models.build(cfg).init(key)``: a
+    pytree of arrays with the layers stacked on a leading axis), cast to
+    ``cfg.dtype`` on ``device``."""
+    model = Transformer(cfg, resolve_device(device))
+    _copy_tree(model.embed, params["embed"])
+    _copy_tree(model, {"final_norm": params["final_norm"]})
+    for i, block in enumerate(model.layers):
+        _copy_tree(block, params["layers"], index=i)
+    return model

@@ -192,7 +192,8 @@ def error_planes(table: np.ndarray, generator: Optional[torch.Generator],
     the bits, the positions left unflipped instead). ``p_flip == 0``
     returns exact zeros without drawing.
 
-    The masks live on ``device`` (default: the generator's), laid out
+    The masks live on ``device`` (default: the generator's, else
+    ``"cuda"``, which raises without a card), laid out
     ``batch + (n_cmds, 4, row_words)`` in memory — the VM's order, so
     `core.lowering` passes them on without a copy — and returned as a view
     in the reference's axis order.
@@ -200,10 +201,9 @@ def error_planes(table: np.ndarray, generator: Optional[torch.Generator],
     table = np.asarray(table)
     n_cmds = int(table.shape[0])
     batch = tuple(batch)
-    if device is None:
-        device = generator.device if generator is not None \
-            else torch.device("cpu")
-    device = torch.device(device)
+    if device is None and generator is not None:
+        device = generator.device
+    device = operand_device((), device)
     n_batch = math.prod(batch)
     flat = torch.zeros((n_batch, n_cmds, N_PATTERNS, row_words),
                        dtype=WORD_DTYPE, device=device)
@@ -240,10 +240,12 @@ def single_fault_planes(table: np.ndarray, batch: Tuple[int, ...],
     """A deterministic one-bit fault: flip bit `bit` of word `word` of
     command `cmd`'s sensed value, whatever the operand pattern is (all
     four pattern planes carry the bit, so exactly one flip happens iff the
-    command is a TRA). The property suite's injection primitive."""
+    command is a TRA). The property suite's injection primitive. On
+    ``device``, default ``"cuda"`` (raises without a card)."""
     table = np.asarray(table)
     planes = torch.zeros((int(table.shape[0]), N_PATTERNS) + tuple(batch)
-                         + (row_words,), dtype=WORD_DTYPE, device=device)
+                         + (row_words,), dtype=WORD_DTYPE,
+                         device=operand_device((), device))
     if table[cmd, 0] & KIND_TRA:
         planes[(cmd, slice(None)) + (Ellipsis, word)] = i32(1 << bit)
     return planes

@@ -1,0 +1,522 @@
+// Flash attention forward for Hopper (sm_90a): softmax(q k^T / sqrt(hd) +
+// mask) v per query head, with an online softmax over key tiles.
+//
+// Replaces: src/repro/kernels/flashattn.py::flash_attention_kernel (Pallas:
+// grid (B, H, nq, nk) with the key axis sequential, the running max /
+// denominator / accumulator in VMEM scratch across it, 512 x 512 tiles),
+// reached through models/layers.py::chunked_attention in every prefill
+// layer. Plain version: src/repro_torch/kernels/flashattn.py::
+// flash_attention_plain.
+//
+// What bounds it on this card: operations. At the serving path's prefill
+// (B = 8, H = 16, KV = 8, S = 2048, hd = 128, causal, bf16) the two
+// products are 4 B H hd S (S + 1) / 2 = 1.37e11 FLOP, 0.139 ms at 989
+// TFLOP/s (dense bf16), against q + k + v + o = 201 MB, 0.060 ms at 3.35
+// TB/s.
+//
+// Design. Blocks run in no order, so the TPU's sequential key axis becomes
+// a loop inside the block: one CTA per (q tile of 64 rows, head, batch)
+// walks the key tiles of 64 rows, skipping those wholly above the diagonal
+// when causal (the Pallas kernel's pl.when(run)), and keeps its row max,
+// denominator and output accumulator on chip for the whole loop. The
+// tiles are Hopper-sized, not the TPU's 512 x 512; the wrapper's block_q /
+// block_k only shape the plain version. q, k, v and o are read and
+// written in the model's (B, S, heads, hd) layout through their strides
+// (unit stride on hd), so the wrapper makes no transposed copies. The
+// GQA group maps query head h to key/value head h / (H / KV). Masked
+// scores are -1e30 and the denominator is clamped at 1e-30, as in the
+// reference; the keys past the sequence's end are masked and its query
+// rows past the end are not stored.
+//
+//   bf16: four warps, 16 query rows each. Q's fragments stay in registers;
+//   each key tile is staged in shared memory (K row-major, V transposed, so
+//   every operand fragment is one 32-bit load) and both products run on
+//   mma.sync.m16n8k16 with float32 accumulation. p is rounded to bf16 for
+//   the PV product while the denominator sums it in float32, as the
+//   reference casts p to v's dtype.
+//   float32: scalar FP32 FMAs, 256 threads, each owning a 4 x 4 block of
+//   the 64 x 64 score tile and a 4 x (hd / 16) block of the accumulator.
+//
+// The mma.sync path is a first design; wgmma, TMA and a pipelined K/V ring
+// are later work.
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBQ = 64;           // query rows per CTA
+constexpr int kBK = 64;           // keys per tile
+constexpr int kMmaThreads = 128;  // bf16 kernel: four warps
+constexpr float kNegInf = -1e30f;
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long q_strides[3];         // batch, sequence, head (elements)
+  long long k_strides[3];
+  long long v_strides[3];
+  long long o_strides[3];
+  int sq, sk, heads, group;       // group = H / KV
+  int causal;
+  float scale;
+};
+
+// The number of key tiles the q tile starting at q0 reads.
+__device__ __forceinline__ int key_tiles(const Params& p, int q0) {
+  int n = (p.sk + kBK - 1) / kBK;
+  if (p.causal) {
+    const int last = (q0 + kBQ - 1) / kBK + 1;
+    n = last < n ? last : n;
+  }
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Stage rows [r0, r0 + 64) of one head of x into shared memory, 16 bytes
+// at a time; rows past `rows` are zero. Every load of the tile is issued
+// before the first store, so their latencies overlap. kTranspose = false:
+// dst[r][d] with row stride HD + 8; true: dst[d][r] with row stride
+// kBK + 8, and consecutive threads take consecutive rows, so the 2-byte
+// stores of a warp fall in distinct banks.
+template <int HD, bool kTranspose>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* x,
+                                           long long row_stride, int r0,
+                                           int rows) {
+  constexpr int kChunks = HD / 8;                 // 16-byte chunks per row
+  constexpr int kPerThread = kBK * kChunks / kMmaThreads;
+  uint4 val[kPerThread];
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int c = threadIdx.x + i * kMmaThreads;
+    const int r = kTranspose ? c % kBK : c / kChunks;
+    const int d = (kTranspose ? c / kBK : c % kChunks) * 8;
+    val[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < rows) {
+      val[i] = *reinterpret_cast<const uint4*>(
+          x + static_cast<long long>(r0 + r) * row_stride + d);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int c = threadIdx.x + i * kMmaThreads;
+    const int r = kTranspose ? c % kBK : c / kChunks;
+    const int d = (kTranspose ? c / kBK : c % kChunks) * 8;
+    if constexpr (kTranspose) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[(d + j) * (kBK + 8) + r] = e[j];
+    } else {
+      *reinterpret_cast<uint4*>(dst + r * (HD + 8) + d) = val[i];
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_mma_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sVt = sK + kBK * (HD + 8);     // [HD][kBK + 8]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;                         // fragment row group
+  const int t = lane % 4;                         // thread in group
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / p.group;
+
+  const auto* q = static_cast<const __nv_bfloat16*>(p.q) +
+                  b * p.q_strides[0] + h * p.q_strides[2];
+  const auto* k = static_cast<const __nv_bfloat16*>(p.k) +
+                  b * p.k_strides[0] + kvh * p.k_strides[2];
+  const auto* v = static_cast<const __nv_bfloat16*>(p.v) +
+                  b * p.v_strides[0] + kvh * p.v_strides[2];
+  auto* o = static_cast<__nv_bfloat16*>(p.o) + b * p.o_strides[0] +
+            h * p.o_strides[2];
+
+  // Q's A fragments, staged through the K buffer once.
+  stage_tile<HD, false>(sK, q, p.q_strides[1], q0, p.sq);
+  __syncthreads();
+  uint32_t qf[HD / 16][4];
+  {
+    const __nv_bfloat16* r_lo = sK + (warp * 16 + g) * (HD + 8) + 2 * t;
+    const __nv_bfloat16* r_hi = r_lo + 8 * (HD + 8);
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) {
+      qf[ks][0] = lds32(r_lo + ks * 16);
+      qf[ks][1] = lds32(r_hi + ks * 16);
+      qf[ks][2] = lds32(r_lo + ks * 16 + 8);
+      qf[ks][3] = lds32(r_hi + ks * 16 + 8);
+    }
+  }
+
+  // rows g and g + 8 of this warp's 16
+  const int qpos0 = q0 + warp * 16 + g;
+  const int qpos1 = qpos0 + 8;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
+  }
+
+  const int n_tiles = key_tiles(p, q0);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();                  // every warp is done with the last tile
+    stage_tile<HD, false>(sK, k, p.k_strides[1], k0, p.sk);
+    stage_tile<HD, true>(sVt, v, p.v_strides[1], k0, p.sk);
+    __syncthreads();
+
+    // S = Q K^T: 8 column tiles of 8 keys
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+      const __nv_bfloat16* kr = sK + (nt * 8 + g) * (HD + 8) + 2 * t;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        mma_bf16(s[nt], qf[ks], lds32(kr + ks * 16), lds32(kr + ks * 16 + 8));
+      }
+    }
+
+    // scale, mask, and the tile's row max
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kpos = k0 + nt * 8 + 2 * t + (i & 1);
+        const int qpos = i < 2 ? qpos0 : qpos1;
+        const bool valid = kpos < p.sk && (!p.causal || qpos >= kpos);
+        const float x = valid ? s[nt][i] * p.scale : kNegInf;
+        s[nt][i] = x;
+        if (i < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // p = exp(s - m): float32 into the denominator, bf16 into the product
+    float sum0 = 0.f, sum1 = 0.f;
+    uint32_t pf[kBK / 8][2];
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+      const float p0 = expf(s[nt][0] - mn0), p1 = expf(s[nt][1] - mn0);
+      const float p2 = expf(s[nt][2] - mn1), p3 = expf(s[nt][3] - mn1);
+      sum0 += p0 + p1;
+      sum1 += p2 + p3;
+      pf[nt][0] = pack_bf16(p0, p1);
+      pf[nt][1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+    }
+    l0 = l0 * alpha0 + sum0;
+    l1 = l1 * alpha1 + sum1;
+
+    // acc = acc * alpha + P V: P's C fragments are A fragments of k = 16
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      acc[dt][0] *= alpha0;
+      acc[dt][1] *= alpha0;
+      acc[dt][2] *= alpha1;
+      acc[dt][3] *= alpha1;
+      const __nv_bfloat16* vr = sVt + (dt * 8 + g) * (kBK + 8) + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1],
+                               pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
+        mma_bf16(acc[dt], a, lds32(vr + kk * 16), lds32(vr + kk * 16 + 8));
+      }
+    }
+  }
+
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    const int d = dt * 8 + 2 * t;
+    if (qpos0 < p.sq) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          o + static_cast<long long>(qpos0) * p.o_strides[1] + d) =
+          __floats2bfloat162_rn(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    }
+    if (qpos1 < p.sq) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          o + static_cast<long long>(qpos1) * p.o_strides[1] + d) =
+          __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// float32: scalar FMAs
+// ---------------------------------------------------------------------------
+
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_simt_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);   // [kBQ][HD + 1]
+  float* sK = sQ + kBQ * (HD + 1);                  // [kBK][HD + 1]
+  float* sV = sK + kBK * (HD + 1);                  // [kBK][HD]
+  float* sP = sV + kBK * HD;                        // [kBQ][kBK + 1]
+  float* sM = sP + kBQ * (kBK + 1);                 // [kBQ] running max
+  float* sL = sM + kBQ;                             // [kBQ] denominator
+  float* sA = sL + kBQ;                             // [kBQ] rescale
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / p.group;
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_strides[0] +
+                   h * p.q_strides[2];
+  const float* k = static_cast<const float*>(p.k) + b * p.k_strides[0] +
+                   kvh * p.k_strides[2];
+  const float* v = static_cast<const float*>(p.v) + b * p.v_strides[0] +
+                   kvh * p.v_strides[2];
+  float* o = static_cast<float*>(p.o) + b * p.o_strides[0] +
+             h * p.o_strides[2];
+
+  for (int i = tid; i < kBQ * HD; i += blockDim.x) {
+    const int r = i / HD, d = i % HD;
+    sQ[r * (HD + 1) + d] =
+        q0 + r < p.sq ? q[static_cast<long long>(q0 + r) * p.q_strides[1] + d]
+                      : 0.f;
+  }
+  if (tid < kBQ) {
+    sM[tid] = kNegInf;
+    sL[tid] = 0.f;
+  }
+  float acc[4][HD / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) acc[i][j] = 0.f;
+  }
+
+  const int n_tiles = key_tiles(p, q0);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();
+    for (int i = tid; i < kBK * HD; i += blockDim.x) {
+      const int r = i / HD, d = i % HD;
+      const bool in = k0 + r < p.sk;
+      const long long row = static_cast<long long>(k0 + r);
+      sK[r * (HD + 1) + d] = in ? k[row * p.k_strides[1] + d] : 0.f;
+      sV[r * HD + d] = in ? v[row * p.v_strides[1] + d] : 0.f;
+    }
+    __syncthreads();
+
+    // scores of rows ty + 16 i, keys tx + 16 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    }
+    for (int d = 0; d < HD; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * (HD + 1) + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * (HD + 1) + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qpos = q0 + ty + 16 * i, kpos = k0 + tx + 16 * j;
+        const bool valid = kpos < p.sk && (!p.causal || qpos >= kpos);
+        sP[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
+            valid ? s[i][j] * p.scale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: four threads per row, 16 keys each
+    {
+      const int r = tid / 4, c0 = (tid % 4) * 16;
+      float* row = sP + r * (kBK + 1) + c0;
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, row[c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_prev = sM[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const float e = expf(row[c] - m_new);
+        row[c] = e;
+        sum += e;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      __syncwarp();
+      if (tid % 4 == 0) {
+        const float alpha = expf(m_prev - m_new);
+        sA[r] = alpha;
+        sL[r] = sL[r] * alpha + sum;
+        sM[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P V for rows ty + 16 i, columns tx + 16 j
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float alpha = sA[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) acc[i][j] *= alpha;
+    }
+    for (int c = 0; c < kBK; ++c) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * (kBK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) {
+        const float vv = sV[c * HD + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (q0 + r >= p.sq) continue;
+    const float inv = 1.f / fmaxf(sL[r], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j) {
+      o[static_cast<long long>(q0 + r) * p.o_strides[1] + tx + 16 * j] =
+          acc[i][j] * inv;
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int threads, size_t smem, const Params& p,
+                   int batch, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.sq + kBQ - 1) / kBQ, p.heads, batch);
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_hd(int dtype, const Params& p, int batch,
+                      cudaStream_t stream) {
+  if (dtype == 1) {
+    const size_t smem = sizeof(__nv_bfloat16) *
+                        (kBK * (HD + 8) + HD * (kBK + 8));
+    return launch(flash_mma_kernel<HD>, kMmaThreads, smem, p, batch, stream);
+  }
+  const size_t smem = sizeof(float) *
+                      (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD +
+                       kBQ * (kBK + 1) + 3 * kBQ);
+  return launch(flash_simt_kernel<HD>, 256, smem, p, batch, stream);
+}
+
+}  // namespace
+
+// q: (B, Sq, H, hd), k / v: (B, Sk, KV, hd), o: (B, Sq, H, hd), each given
+// by its base pointer and (batch, sequence, head) strides in elements; hd
+// is contiguous. dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). For
+// bfloat16 every pointer must be 16-byte aligned and every k / v / q
+// stride a multiple of 8 elements. Returns a cudaError_t.
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o,
+    const long long* q_strides, const long long* k_strides,
+    const long long* v_strides, const long long* o_strides, int batch,
+    int sq, int sk, int heads, int kv_heads, int head_dim, int causal,
+    float scale, int dtype, void* stream) {
+  if (batch < 1 || sq < 1 || sk < 1 || kv_heads < 1 || heads < 1 ||
+      heads % kv_heads != 0 || heads > 65535 || batch > 65535 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  for (int i = 0; i < 3; ++i) {
+    p.q_strides[i] = q_strides[i];
+    p.k_strides[i] = k_strides[i];
+    p.v_strides[i] = v_strides[i];
+    p.o_strides[i] = o_strides[i];
+  }
+  p.sq = sq;
+  p.sk = sk;
+  p.heads = heads;
+  p.group = heads / kv_heads;
+  p.causal = causal;
+  p.scale = scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16: return static_cast<int>(launch_hd<16>(dtype, p, batch, s));
+    case 32: return static_cast<int>(launch_hd<32>(dtype, p, batch, s));
+    case 64: return static_cast<int>(launch_hd<64>(dtype, p, batch, s));
+    case 128: return static_cast<int>(launch_hd<128>(dtype, p, batch, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -7,8 +7,8 @@ which launches the CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors. Operands are int32 word tensors
 (`core.bitplane.as_words`). The reference's fold of 1-D
 operands into 8 sublane rows and its interpret-mode block sizes served
-the TPU's tiles and are gone. The remaining wrappers (sign packing,
-attention) come with their kernels.
+the TPU's tiles and are gone. The sign-packing wrappers come with their
+kernels.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.kernels import arith, bittranspose, bitweaving
 from repro_torch.kernels import bitwise as _bitwise
+from repro_torch.kernels import flashattn as _flashattn
 from repro_torch.kernels import majority as _majority
 from repro_torch.kernels import popcount as _popcount
 
@@ -111,3 +112,15 @@ def bitserial_lt(a_planes: torch.Tensor,
         return arith.bitserial_lt_kernel(a_planes[:, None, :],
                                          b_planes[:, None, :])[0]
     return arith.bitserial_lt_kernel(a_planes, b_planes)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, block_q: int = 512,
+                    block_k: int = 512) -> torch.Tensor:
+    """Attention in the model-side layout: q (B, Sq, H, hd), k / v (B, Sk,
+    KV, hd) -> (B, Sq, H, hd), read in place on the card (the reference's
+    wrapper transposes). The reference's `shard_map` branch waits for the
+    multi-card slice."""
+    return _flashattn.flash_attention_kernel(q, k, v, causal=causal,
+                                             block_q=block_q,
+                                             block_k=block_k)

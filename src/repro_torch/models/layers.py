@@ -1,0 +1,278 @@
+"""Core transformer layers: norms, RoPE, GQA attention, MLP, embedding.
+
+The counterpart of `repro.models.layers`. Parameters live in `nn.Module`s
+in the reference's layouts (``wq (D, H, hd)``, ``wi (D, 2, F)``, ``head (D,
+V)``, ...), so a JAX parameter tree carries across as a copy
+(`repro_torch.convert.model_params_from_reference`). The functions keep
+the reference's names and cast points: statistics, RoPE, the SwiGLU gate
+and the softmax in float32, activations in ``cfg.dtype``.
+
+Prefill attention runs `kernels.ops.flash_attention`: the CUDA kernel on
+the card and its plain version on the CPU; the device is the only
+selector (the reference's ``attention_backend`` / ``attention_remat``
+knobs are not ported; remat only matters for a backward pass). Decode
+attention is plain PyTorch, as the reference's is plain ``jnp``; it writes
+the new key and value into the cache in place where the reference returns
+an updated copy (``dynamic_update_slice``).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+
+INIT_STD = 0.02
+NEG_INF = -1e30
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised parameter (filled by `init_` or a carried-across
+    copy); serving needs no gradients."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+@torch.no_grad()
+def dense_init_(p: torch.Tensor, generator: torch.Generator,
+                std: float = INIT_STD) -> None:
+    """Fill ``p`` with N(0, std^2) drawn in float32, then cast."""
+    x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
+                    device=p.device)
+    p.copy_(x * std)
+
+
+# --------------------------------------------------------------------------
+# RMSNorm
+# --------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(None)
+def _rope_freqs_on(head_dim: int, theta: float,
+                   device: torch.device) -> torch.Tensor:
+    """`rope_freqs` as float32 on ``device``, copied there once: a copy
+    per call would stall the host on the device's queue every layer."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    freqs = _rope_freqs_on(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs      # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]              # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# GQA attention
+# --------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """``wq (D, H, hd)``, ``wk`` / ``wv (D, KV, hd)``, ``wo (H, hd, D)``;
+    ``bq`` / ``bk`` / ``bv`` with ``qkv_bias``, ``q_norm`` / ``k_norm``
+    with ``qk_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        D = cfg.d_model
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        dt = torch_dtype(cfg)
+        self.wq = _param((D, H, hd), dt, device)
+        self.wk = _param((D, KV, hd), dt, device)
+        self.wv = _param((D, KV, hd), dt, device)
+        self.wo = _param((H, hd, D), dt, device)
+        if cfg.qkv_bias:
+            self.bq = _param((H, hd), dt, device)
+            self.bk = _param((KV, hd), dt, device)
+            self.bv = _param((KV, hd), dt, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((hd,), dt, device)
+            self.k_norm = _param((hd,), dt, device)
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator, cfg: ModelConfig) -> None:
+        dense_init_(self.wq, generator)
+        dense_init_(self.wk, generator)
+        dense_init_(self.wv, generator)
+        dense_init_(self.wo, generator,
+                    INIT_STD / np.sqrt(2 * max(cfg.n_layers, 1)))
+        for name in ("bq", "bk", "bv"):
+            if hasattr(self, name):
+                getattr(self, name).zero_()
+        for name in ("q_norm", "k_norm"):
+            if hasattr(self, name):
+                getattr(self, name).fill_(1)
+
+
+def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, rope: bool = True):
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, q_chunk: int = 512,
+                      kv_chunk: int = 512) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd): the
+    flash kernel on CUDA tensors, its plain version (the reference's
+    online softmax over ``q_chunk`` x ``kv_chunk`` blocks) on CPU
+    tensors."""
+    return kops.flash_attention(q, k, v, causal=causal, block_q=q_chunk,
+                                block_k=kv_chunk)
+
+
+def attention_train(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                    positions: Optional[torch.Tensor] = None,
+                    causal: bool = True, q_chunk: int = 512,
+                    kv_chunk: int = 512) -> torch.Tensor:
+    """Self-attention over a full sequence (train / prefill)."""
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                          kv_chunk=kv_chunk)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo)
+
+
+# ---- decode path ---------------------------------------------------------
+
+def kv_cache_init(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
+                  device) -> dict:
+    """Zeroed ``(n_layers, batch, max_len, KV * hd)`` key and value sheets
+    (the reference's flat trailing layout)."""
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads * cfg.head_dim_)
+    dt = torch_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: int, cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode. x: (B, 1, D); cache_{k,v}: (B, S_max, KV*hd),
+    written in place at ``pos``; returns (out, cache_k, cache_v)."""
+    B = x.shape[0]
+    S_max = cache_k.shape[1]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim_
+    H = cfg.n_heads
+    G = H // KV
+    positions = torch.full((B, 1), pos, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    cache_k[:, pos] = k.reshape(B, KV * hd)
+    cache_v[:, pos] = v.reshape(B, KV * hd)
+    k4 = cache_k.reshape(B, S_max, KV, hd)
+    v4 = cache_v.reshape(B, S_max, KV, hd)
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                     k4.float()) / math.sqrt(hd)
+    valid = torch.arange(S_max, device=x.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1).to(v4.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", prob, v4)
+    out = torch.einsum("bhk,hkd->bd", o.reshape(B, H, hd), p.wo)[:, None, :]
+    return out, cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# --------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU: ``wi (D, 2, F)`` (gate and up fused on the output dim),
+    ``wo (F, D)``; GELU: ``wi (D, F)``, ``wo (F, D)``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        D, F = cfg.d_model, cfg.d_ff
+        dt = torch_dtype(cfg)
+        wi_shape = (D, 2, F) if cfg.mlp_kind == "swiglu" else (D, F)
+        self.wi = _param(wi_shape, dt, device)
+        self.wo = _param((F, D), dt, device)
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator, cfg: ModelConfig) -> None:
+        dense_init_(self.wi, generator)
+        dense_init_(self.wo, generator,
+                    INIT_STD / np.sqrt(2 * max(cfg.n_layers, 1)))
+
+
+def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp_kind == "swiglu":
+        h = torch.einsum("bsd,dcf->bscf", x, p.wi)
+        gate, up = h[:, :, 0], h[:, :, 1]
+        a = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+    else:
+        h = torch.einsum("bsd,df->bsf", x, p.wi)
+        a = torch.nn.functional.gelu(h.float(),
+                                     approximate="tanh").to(x.dtype)
+    return torch.einsum("bsf,fd->bsd", a, p.wo)
+
+
+# --------------------------------------------------------------------------
+# Embedding / LM head
+# --------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """``tok (V, D)`` and an untied ``head (D, V)`` over the padded
+    vocabulary."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        V, D = cfg.padded_vocab, cfg.d_model
+        dt = torch_dtype(cfg)
+        self.tok = _param((V, D), dt, device)
+        self.head = _param((D, V), dt, device)
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator, cfg: ModelConfig) -> None:
+        dense_init_(self.tok, generator)
+        dense_init_(self.head, generator)
+
+
+def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    return p.tok[tokens]
+
+
+def lm_logits(p: Embed, x: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bsd,dv->bsv", x, p.head)

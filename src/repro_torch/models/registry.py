@@ -1,0 +1,87 @@
+"""Model registry: the reference's `ModelBundle` API, dense family.
+
+    bundle = build(cfg)                     # device="cuda" unless asked
+    params = bundle.init(torch.Generator("cuda").manual_seed(0))
+    logits, cache = bundle.prefill(params, {"tokens": tokens})
+    logits, cache = bundle.decode_step(params, token, cache, pos)
+
+The counterpart of `repro.models.registry`, with the same field names.
+``params`` is a `models.transformer.Transformer` on the bundle's device.
+Token tensors keep their device; host token arrays (numpy, lists) go to
+the model's device; tokens on another device than the model raise.
+``loss`` and ``abstract`` wait for the training slice; the other families
+(MoE, SSM / hybrid, enc-dec, VLM) raise at `build`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch._device import DEFAULT_DEVICE, operand_device, resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as TF
+
+Params = Dict[str, Any]
+
+#: the ROADMAP item (queue A) that ports each family the port lacks
+_FAMILY_SLICE = {"moe": "A5 (models/moe.py)", "ssm": "A6 (SSM / hybrid)",
+                 "hybrid": "A6 (SSM / hybrid)", "encdec": "A7 (enc-dec)",
+                 "vlm": "A8 (VLM)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ModelConfig
+    init: Callable            # generator -> params
+    abstract: Callable        # training slice
+    loss: Callable            # training slice
+    prefill: Callable         # (params, batch) -> (logits, cache)
+    decode_step: Callable     # (params, token, cache, pos) -> (logits, cache)
+    cache_init: Callable      # (batch, max_len) -> cache
+    device: torch.device      # where init puts the weights
+
+
+def _tokens(x, params: TF.Transformer) -> torch.Tensor:
+    """Token ids as an int64 tensor on the model's device."""
+    dev = operand_device([x], params.device)
+    return torch.as_tensor(x, device=dev).long()
+
+
+def build(cfg: ModelConfig, device=None) -> ModelBundle:
+    """The bundle of ``cfg`` (dense family) on ``device`` (default
+    ``"cuda"``; asking for the card where there is none raises)."""
+    if cfg.family != "dense":
+        where = _FAMILY_SLICE.get(cfg.family, "a later slice")
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ROADMAP queue {where}); the port builds the dense family")
+    dev = resolve_device(DEFAULT_DEVICE if device is None else device)
+
+    def init(generator: torch.Generator) -> TF.Transformer:
+        return TF.transformer_init(generator, cfg, dev)
+
+    def abstract():
+        raise NotImplementedError("bundle.abstract waits for the training "
+                                  "slice")
+
+    def loss(params, batch):
+        raise NotImplementedError("bundle.loss waits for the training slice "
+                                  "(ROADMAP queue A, train/step.py)")
+
+    def prefill(params, batch):
+        return TF.transformer_prefill(params, _tokens(batch["tokens"], params),
+                                      cfg)
+
+    def decode_step(params, token, cache, pos):
+        return TF.transformer_decode_step(params, _tokens(token, params),
+                                          cache, int(pos), cfg)
+
+    def cache_init(batch, max_len):
+        return L.kv_cache_init(cfg, cfg.n_layers, batch, max_len, dev)
+
+    return ModelBundle(cfg=cfg, init=init, abstract=abstract, loss=loss,
+                       prefill=prefill, decode_step=decode_step,
+                       cache_init=cache_init, device=dev)

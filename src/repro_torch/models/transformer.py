@@ -1,0 +1,161 @@
+"""Decoder-only transformer stack, dense family: forward, prefill and one
+decode step.
+
+The counterpart of the dense branches of `repro.models.transformer`. The
+reference scans over layers stacked on a leading axis; here a
+`Transformer` holds an `nn.ModuleList` of `DenseBlock`s and a Python loop
+walks them (PyTorch runs eagerly). The reference's sharding constraints
+are the identity on one card and are dropped. The MoE family waits for
+its slice (`models.registry.build` raises for it).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+class DenseBlock(nn.Module):
+    """``ln1``, ``attn``, ``ln2``, ``mlp``, as the reference's block."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt = L.torch_dtype(cfg)
+        self.ln1 = L._param((cfg.d_model,), dt, device)
+        self.attn = L.Attention(cfg, device)
+        self.ln2 = L._param((cfg.d_model,), dt, device)
+        self.mlp = L.MLP(cfg, device)
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator, cfg: ModelConfig) -> None:
+        self.ln1.fill_(1)
+        self.ln2.fill_(1)
+        self.attn.init_(generator, cfg)
+        self.mlp.init_(generator, cfg)
+
+
+class Transformer(nn.Module):
+    """``embed``, ``layers`` (one `DenseBlock` per layer), ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"the port's transformer holds the dense family; "
+                f"{cfg.name} is {cfg.family!r}")
+        self.embed = L.Embed(cfg, device)
+        self.layers = nn.ModuleList(DenseBlock(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = L._param((cfg.d_model,), L.torch_dtype(cfg),
+                                   device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+
+def transformer_init(generator: torch.Generator, cfg: ModelConfig,
+                     device) -> Transformer:
+    """A `Transformer` on ``device`` with weights drawn from
+    ``generator`` (which must live on that device): N(0, 0.02^2) matrices,
+    output projections scaled by 1/sqrt(2 n_layers), unit norms."""
+    model = Transformer(cfg, device)
+    if torch.device(generator.device).type != model.device.type:
+        raise ValueError(f"the generator lives on {generator.device}, the "
+                         f"model on {model.device}")
+    with torch.no_grad():
+        model.embed.init_(generator, cfg)
+        model.final_norm.fill_(1)
+        for block in model.layers:
+            block.init_(generator, cfg)
+    return model
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+
+def dense_block(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig,
+                q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+    h = x + L.attention_train(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps),
+                              cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    h = h + L.mlp(p.mlp, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
+    return h
+
+
+def dense_block_decode(p: DenseBlock, x: torch.Tensor, ck: torch.Tensor,
+                       cv: torch.Tensor, pos: int, cfg: ModelConfig):
+    a, ck, cv = L.attention_decode(
+        p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps), ck, cv, pos, cfg)
+    h = x + a
+    h = h + L.mlp(p.mlp, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
+    return h, ck, cv
+
+
+def _chunks_for(seq: int) -> Tuple[int, int]:
+    c = min(512, seq)
+    return c, c
+
+
+@torch.no_grad()
+def transformer_apply(params: Transformer, tokens: torch.Tensor,
+                      cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (hidden (B, S, D), aux_loss); the forward pass
+    without the reference's rematerialisation (no backward here)."""
+    qc, kc = _chunks_for(tokens.shape[1])
+    x = L.embed(params.embed, tokens)
+    for block in params.layers:
+        x = dense_block(block, x, cfg, qc, kc)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# serving: prefill + decode
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def transformer_prefill(params: Transformer, tokens: torch.Tensor,
+                        cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill: (last-position logits (B, V), KV cache filled up to S).
+    The cache is layer-major ``(L, B, S, KV * hd)``, as `kv_cache_init`
+    lays it out."""
+    qc, kc = _chunks_for(tokens.shape[1])
+    B, S = tokens.shape
+    x = L.embed(params.embed, tokens)
+    positions = torch.arange(S, device=x.device)[None, :]
+    cache = L.kv_cache_init(cfg, len(params.layers), B, S, x.device)
+    for i, p in enumerate(params.layers):
+        xn = L.rmsnorm(x, p.ln1, cfg.norm_eps)
+        q, k, v = L._project_qkv(p.attn, xn, cfg, positions)
+        o = L.chunked_attention(q, k, v, causal=True, q_chunk=qc,
+                                kv_chunk=kc)
+        h = x + torch.einsum("bshk,hkd->bsd", o, p.attn.wo)
+        x = h + L.mlp(p.mlp, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
+        cache["k"][i] = k.reshape(B, S, -1)
+        cache["v"][i] = v.reshape(B, S, -1)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = L.lm_logits(params.embed, x[:, -1:])[:, 0]
+    return logits, cache
+
+
+@torch.no_grad()
+def transformer_decode_step(params: Transformer, token: torch.Tensor,
+                            cache: Dict[str, torch.Tensor], pos: int,
+                            cfg: ModelConfig
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step. token: (B,) ids; cache: {"k", "v"} of shape (L, B,
+    S_max, KV * hd), written in place at ``pos``. Returns (logits (B, V),
+    the cache)."""
+    x = L.embed(params.embed, token[:, None])
+    for i, p in enumerate(params.layers):
+        x, _, _ = dense_block_decode(p, x, cache["k"][i], cache["v"][i],
+                                     pos, cfg)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = L.lm_logits(params.embed, x)[:, 0]
+    return logits, cache

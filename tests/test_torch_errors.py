@@ -190,8 +190,26 @@ def test_error_planes_deterministic_per_key_and_zero_at_rate0():
     assert not torch.equal(draw((5, 0, 1)), draw((5, 0, 2)))
     assert not torch.equal(draw((5, 0, 1)), draw((6, 0, 1)))
     zero = terr.error_planes(tlp.table, None, (2,), 17,
-                             terr.TRAErrorModel(p_flip=0.0))
+                             terr.TRAErrorModel(p_flip=0.0), cpu)
     assert zero.shape == (tlp.n_cmds, 4, 2, 17) and not zero.any()
+
+
+def test_fault_planes_default_to_the_card():
+    """With neither a device nor a generator, both fault-plane builders
+    put their planes on ``"cuda"`` (raising without a card), as every
+    other entry point does; a generator's device is kept."""
+    _, tlp = _lowered(1)
+    model = terr.TRAErrorModel(p_flip=0.05)
+    gen = terr.fault_generator((1,), torch.device("cpu"))
+    assert terr.error_planes(tlp.table, gen, (2,), 17,
+                             model).device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        terr.error_planes(tlp.table, None, (2,), 17,
+                          terr.TRAErrorModel(p_flip=0.0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        terr.single_fault_planes(tlp.table, (2,), 9, 0, 4, 31)
 
 
 @pytest.mark.parametrize("cmd", [0, 1, 2, 3, 4])
@@ -200,7 +218,8 @@ def test_single_fault_planes_match_reference(cmd):
     cmd = cmd % tlp.n_cmds
     want = np.asarray(rerr.single_fault_planes(rlp.table, (2,), 9, cmd, 4,
                                                31))
-    got = terr.single_fault_planes(tlp.table, (2,), 9, cmd, 4, 31)
+    got = terr.single_fault_planes(tlp.table, (2,), 9, cmd, 4, 31,
+                                   device="cpu")
     np.testing.assert_array_equal(to_uint32(got), want)
 
 
@@ -317,7 +336,7 @@ def test_vote_corrects_faults_confined_to_one_replica():
     faulty = tlow.execute_lowered(
         tlp, data, outputs=["OUT"], backend="torch",
         errors=terr.single_fault_planes(tlp.table, (2,), 40, tra[-1], 7,
-                                        3))["OUT"]
+                                        3, device="cpu"))["OUT"]
     assert not torch.equal(faulty, clean)
     voted = terr.vote_outputs([{"OUT": clean}, {"OUT": faulty},
                                {"OUT": clean}], ["OUT"])

@@ -465,3 +465,125 @@ def test_arith_ops_on_the_card_match_the_host(cuda):
         assert LAUNCHES[name] > 0, name
     with pytest.raises(ValueError, match="use_kernel"):
         ops.add_columns(ca, cb, use_kernel=False)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the LM serving path
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KV, hd, causal, block_q, block_k): the JAX package's five
+# test shapes, ragged lengths that are not a multiple of the 64-row tile,
+# and Sq != Sk without the causal mask and with it (positions aligned at 0)
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 32, True, 32, 32),
+    (2, 128, 128, 4, 2, 32, False, 32, 32),
+    (1, 100, 100, 4, 4, 16, False, 32, 32),
+    (1, 80, 80, 8, 2, 64, True, 32, 16),
+    (2, 64, 64, 8, 8, 128, True, 64, 64),
+    (1, 1000, 1000, 16, 8, 128, True, 512, 512),
+    (3, 77, 77, 4, 1, 64, True, 32, 32),
+    (1, 64, 100, 4, 4, 32, False, 32, 32),
+    (2, 100, 1000, 8, 2, 128, False, 64, 128),
+    (1, 100, 160, 4, 2, 64, True, 32, 32),
+    (1, 160, 100, 4, 2, 64, True, 32, 32),
+]
+# the JAX package's bounds against its oracle, relative to each element
+# and to the plain output's RMS (an absolute bound of the same size as the
+# outputs of a long causal row would admit a dropped key tile)
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+def _assert_flash_close(got, want, tol):
+    g, w = got.float(), want.float()
+    bound = tol * (w.pow(2).mean().sqrt() + w.abs())
+    excess = float(((g - w).abs() - bound).max())
+    assert bool(torch.isfinite(g).all()) and excess <= 0, excess
+
+
+def _qkv(cuda, seed, dtype, B, Sq, Sk, H, KV, hd):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(B, n, h, hd, generator=g, device=cuda).to(dtype)
+                 for n, h in ((Sq, H), (Sk, KV), (Sk, KV)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,bq,bk", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, hd, causal, bq,
+                                    bk, dtype):
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flashattn import flash_attention_plain
+
+    q, k, v = _qkv(cuda, Sq * hd + Sk, dtype, B, Sq, Sk, H, KV, hd)
+    before = LAUNCHES["flash_attention"]
+    got = kops.flash_attention(q, k, v, causal=causal, block_q=bq,
+                               block_k=bk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == dtype and got.is_cuda
+    want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal, bq,
+                                 bk).transpose(1, 2)
+    _assert_flash_close(got, want, FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_and_misaligned_operands(cuda, dtype):
+    """Operands that are views (a head-dim slice of a wider tensor) are
+    read in place; a bf16 operand 2 bytes off a 16-byte boundary is
+    copied first. Both agree with contiguous operands."""
+    from repro_torch.kernels.flashattn import flash_attention_kernel
+
+    q, k, v = _qkv(cuda, 5, dtype, 2, 96, 96, 4, 2, 64)
+    want = flash_attention_kernel(q, k, v)
+    wide = torch.cat([q, q], dim=-1)[..., :64]          # head stride 128
+    flat = torch.empty(k.numel() + 1, dtype=dtype, device=cuda)
+    flat[1:] = k.reshape(-1)
+    shifted = flat[1:].view(k.shape)                    # 2 or 4 bytes off
+    got = flash_attention_kernel(wide, shifted, v)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flashattn import flash_attention_kernel
+
+    q, k, v = _qkv(cuda, 1, torch.bfloat16, 1, 16, 16, 2, 1, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_kernel(q, k, v)
+    q, k, v = _qkv(cuda, 1, torch.float16, 1, 16, 16, 2, 1, 32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_kernel(q, k, v)
+
+
+def test_serving_path_on_the_card_launches_flash_per_layer(cuda):
+    """Reduced Qwen3-0.6B on the card: one flash launch per prefill layer,
+    and the card's logits and ids agree with the same weights on the
+    host."""
+    import copy
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import build
+    from repro_torch.serve import extend_cache, generate
+
+    cfg = reduced(get_config("qwen3_0p6b"))
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+    host = build(cfg, device="cpu")
+    host_params = copy.deepcopy(params).to("cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 100))
+    LAUNCHES.clear()
+    ids = generate(bundle, params, {"tokens": toks[:, :99]}, 4)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ids.is_cuda and ids.shape == (2, 4)
+    got, cache = bundle.prefill(params, {"tokens": toks[:, :99]})
+    want, _ = host.prefill(host_params, {"tokens": toks[:, :99]})
+    err = (got.cpu().float() - want.float()).abs().max() / \
+        want.float().abs().max()
+    assert err < 0.05, err
+    full, _ = bundle.prefill(params, {"tokens": toks})
+    step, _ = bundle.decode_step(params, toks[:, 99], extend_cache(cache, 1),
+                                 99)
+    err = (step.float() - full.float()).abs().max() / full.float().abs().max()
+    assert err < 0.05, err
+    with pytest.raises(ValueError, match="different devices"):
+        bundle.prefill(params, {"tokens": torch.from_numpy(toks)})
