@@ -27,7 +27,12 @@ Phases; the first failure exits non-zero:
    shape (64 queries over 100 keys) and B = 2, S = 1,000 causal at hd 128,
    each within the JAX package's own tolerance (2e-3 float32, 2e-2 bf16)
    of its plain version, relative to each element and to the plain
-   output's RMS.
+   output's RMS; the training kernels at the same shapes and at B = 1, S =
+   4,096 causal, both dtypes: the lse-emitting forward (its output equal
+   to the serving kernel's, the lse within 1e-4) and the backward (dq,
+   dk, dv) against their plain versions within the same tolerance; sign
+   pack / unpack bit for bit in float32 and bf16, with +-0, +-inf and NaNs
+   of either sign, on a ragged (3, 32,032) and a 2**26-lane input.
 3. slice   — (a) serve the §8 multi-tenant workload at full width (2**24-bit
    vectors) through ``build_service -> query_stream -> query_batch``, plus
    a batch of materialize queries. Every result must equal the unbatched
@@ -68,9 +73,28 @@ Phases; the first failure exits non-zero:
    ``[0, padded_vocab)`` and every logit finite; it prints the cold
    generate's prefill wall and ms per decode step, tok/s and peak memory,
    then the warm generate's and each part's device time by kind
-   (``torch.profiler``). Each of (a)-(e)
-   starts with every launch count at 0 and must launch each of its
-   kernels.
+   (``torch.profiler``). (f) training at Qwen3-0.6B's published widths
+   and depth in bf16 through ``build -> init -> make_train_step``: AdamW
+   with ``warmup_cosine``, ``remat="block"``, the port's `SyntheticLM`,
+   sequence 4,096 (train_4k's), global batch 8 in four microbatches of 2
+   (the batch cut from train_4k's 256 for time; the microbatch halved
+   from 4, whose float32 logits and their gradients ran the card out of
+   memory). Checks: (i) the first loss finite and
+   within 10% of ln 153,600; (ii) one step's loss and every gradient leaf
+   against the same step with the plain attention forward and backward
+   swapped in (loss within 1e-3 relative, each leaf's RMS difference
+   within 0.05 of its RMS); (iii) six steps on one batch lower the loss;
+   (iv) ``grad_accum`` 2 and 1 on the same batch agree in loss within
+   5e-3; (v) ``make_train_step_compressed`` with signum on a one-rank
+   NCCL group equals the local signum step with the same gradients on
+   every element whose ``u`` is not +-0 or NaN (their count printed);
+   (vi) exact launch counts: a step launches the lse forward twice per
+   layer and microbatch (the forward and the checkpointed recompute) and
+   the backward once, the compressed step also pack, unpack and the
+   majority once each. It prints the cold and warm step, tokens/s, peak
+   memory, and a warm step's device time by kind with the idle share.
+   Each of (a)-(f) starts with every launch count at 0 and must launch
+   each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
    the largest group and the first single-query one, their masks redrawn
@@ -88,6 +112,18 @@ Phases; the first failure exits non-zero:
    and ``scaled_dot_product_attention`` (the yardstick; the port never
    calls it), its bound the larger of q + k + v + o over 3.35 TB/s and the
    FLOPs of the unmasked (query, key) pairs over 989 TFLOP/s (dense bf16).
+   Of (f), every lse forward and backward launch of the first training
+   step and the compressed step's pack and unpack (the compressed step's
+   flash launches are counted, not replayed: their arguments would hold
+   another 21 GiB): the flash launches within the phase-2 gate, whose
+   reach the backward shows too (the plain backward at other blocks
+   passes; with one 64-query tile of one head dropped it must fail);
+   the forward timed beside ``scaled_dot_product_attention``, the
+   backward beside that call's backward alone, its bound the larger of
+   ``10 B H hd`` FLOPs per unmasked pair (five products) over 989 TFLOP/s
+   and q, k, v, o, do, lse, dq, dk, dv over 3.35 TB/s; pack and unpack
+   bit for bit, bound by their bytes. Phase 4 runs for (a)-(e) before
+   (f) starts, so their recorded arguments are freed first.
 
 Output: the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as the last line ``{"ok": true, "device": {...}}``. ``--out DIR``
@@ -138,6 +174,14 @@ KERNELS = {
                         "src/repro/kernels/bittranspose.py:74"),
     "flash_attention": ("src/repro_torch/csrc/flashattn.cu",
                         "src/repro/kernels/flashattn.py:103"),
+    "flash_attention_fwd": ("src/repro_torch/csrc/flashattn.cu",
+                            "src/repro/kernels/flashattn.py:242"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flashattn_bwd.cu",
+                            "src/repro/kernels/flashattn.py:294"),
+    "pack_signs": ("src/repro_torch/csrc/signpack.cu",
+                   "src/repro/kernels/signpack.py:51"),
+    "unpack_signs": ("src/repro_torch/csrc/signpack.cu",
+                     "src/repro/kernels/signpack.py:75"),
 }
 #: the kernels each main-path run of phase 3 must launch
 SERVICE_KERNELS = ("vm_popcount", "vm_materialize", "bit_transpose")
@@ -146,6 +190,9 @@ RELIABILITY_KERNELS = ("majority", "vm_materialize")
 ARITH_KERNELS = ("bitserial_add", "bitserial_lt", "bit_untranspose",
                  "bit_transpose", "bitweaving_scan", "vm_materialize")
 LM_KERNELS = ("flash_attention",)
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+COMPRESSED_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                      "pack_signs", "unpack_signs", "majority")
 
 
 class SmokeFailure(RuntimeError):
@@ -493,6 +540,104 @@ def phase_flash_kernels(torch) -> float:
     return worst
 
 
+#: the training kernels' phase-2 shapes: FLASH_CASES (the JAX package's
+#: five, cross-attention, S = 1,000 causal at hd 128) and the training
+#: path's sequence length
+TRAIN_FLASH_CASES = FLASH_CASES + ((1, 4096, 4096, 16, 8, 128, True, 512,
+                                    512),)
+
+
+def _hm(x):
+    """Model layout (B, S, heads, hd) -> head-major (B, heads, S, hd)."""
+    return x.transpose(1, 2)
+
+
+def _close_all(label, got, want, tol):
+    """`_close` over matching tuples of results; returns the largest
+    absolute difference and share of the tolerance."""
+    worst = most = 0.0
+    for name, g, w in zip(("o / dq", "lse / dk", "dv"), got, want):
+        err, share = _close(f"{label} {name}", g, w, tol)
+        worst, most = max(worst, err), max(most, share)
+    return worst, most
+
+
+def phase_train_kernels(torch) -> dict:
+    """The lse-emitting forward and the backward against their plain
+    versions in both dtypes (the lse to 1e-4 of its RMS plus each
+    element), and the sign pack / unpack bit for bit; returns the largest
+    absolute difference per kernel."""
+    from repro_torch.kernels import flashattn, ref, signpack
+
+    gen = torch.Generator(device="cuda").manual_seed(107)
+    worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    most, n_cases = 0.0, 0
+    for name, tol in FLASH_TOL.items():
+        dt = getattr(torch, name)
+        for B, Sq, Sk, H, KV, hd, causal, bq, bk in TRAIN_FLASH_CASES:
+            q, k, v = (torch.randn(B, n, h, hd, generator=gen,
+                                   device="cuda").to(dt)
+                       for n, h in ((Sq, H), (Sk, KV), (Sk, KV)))
+            do = torch.randn(B, Sq, H, hd, generator=gen,
+                             device="cuda").to(dt)
+            label = (f"{name} B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} hd={hd} "
+                     f"causal={causal}")
+            o, lse = flashattn.flash_attention_fwd_kernel(q, k, v, causal)
+            check(torch.equal(o, flashattn.flash_attention_kernel(
+                q, k, v, causal)), f"flash_attention_fwd {label}: the "
+                "output differs from the serving kernel's")
+            po, plse = flashattn.flash_attention_fwd_plain(
+                _hm(q), _hm(k), _hm(v), causal, bq, bk)
+            err_o, share_o = _close(f"flash_attention_fwd {label} o", o,
+                                    _hm(po), tol)
+            err_l, share_l = _close(f"flash_attention_fwd {label} lse", lse,
+                                    plse, 1e-4)
+            grads = flashattn.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                                         causal)
+            want = flashattn.flash_attention_bwd_plain(
+                _hm(q), _hm(k), _hm(v), _hm(o), lse, _hm(do), causal, bq,
+                bk)
+            err_b, share_b = _close_all(f"flash_attention_bwd {label}",
+                                        grads, [_hm(w) for w in want], tol)
+            worst["flash_attention_fwd"] = max(
+                worst["flash_attention_fwd"], err_o, err_l)
+            worst["flash_attention_bwd"] = max(
+                worst["flash_attention_bwd"], err_b)
+            most = max(most, share_o, share_l, share_b)
+            n_cases += 1
+    # sign pack / unpack: the special lanes (+-0, +-inf, NaNs with and
+    # without the sign bit) at the front of every row
+    special = {torch.float32: [0x00000000, 0x80000000, 0x7F800000,
+                               0xFF800000, 0x7FC00000, 0xFFC00000],
+               torch.bfloat16: [0x0000, 0x8000, 0x7F80, 0xFF80, 0x7FC0,
+                                0xFFC0]}
+    n_sign = 0
+    for shape in ((3, 32 * 1001), (1, 1 << 26)):
+        for dt, bits in special.items():
+            x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            wide = dt == torch.float32
+            itype = torch.int32 if wide else torch.int16
+            pattern = np.array(bits, np.uint32 if wide else np.uint16)
+            x[:, :len(bits)] = torch.from_numpy(pattern.view(
+                np.int32 if wide else np.int16)).to("cuda").view(dt)
+            words = signpack.pack_signs_kernel(x)
+            _compare(f"pack_signs {dt} {shape}", words, ref.pack_signs(x),
+                     [])
+            _compare(f"unpack_signs {dt} {shape}",
+                     signpack.unpack_signs_kernel(words, dt).view(itype),
+                     ref.unpack_signs(words, dt).view(itype), [])
+            n_sign += 2
+    torch.cuda.synchronize()
+    print(f"[kernels] training flash attention: {n_cases} cases of the "
+          f"lse forward (its output equal to the serving kernel's) and the "
+          f"backward within the tolerance of the plain versions (largest "
+          f"share {most:.3g}; max abs err forward "
+          f"{worst['flash_attention_fwd']:.3g}, backward "
+          f"{worst['flash_attention_bwd']:.3g}); sign pack / unpack: "
+          f"{n_sign} cases bit-identical")
+    return dict(worst, pack_signs=0.0, unpack_signs=0.0)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice at full width
 # ---------------------------------------------------------------------------
@@ -595,6 +740,7 @@ class Recorder:
         import repro_torch.kernels.flashattn as flashattn
         import repro_torch.kernels.majority as majority
         import repro_torch.kernels.popcount as popcount
+        import repro_torch.kernels.signpack as signpack
 
         for mod, fn, name in ((bitwise, "bitwise_kernel", "bitwise"),
                               (bitwise, "banked_bitwise_kernel",
@@ -609,7 +755,14 @@ class Recorder:
                               (bt, "bit_untranspose_kernel",
                                "bit_untranspose"),
                               (flashattn, "flash_attention_kernel",
-                               "flash_attention")):
+                               "flash_attention"),
+                              (flashattn, "flash_attention_fwd_kernel",
+                               "flash_attention_fwd"),
+                              (flashattn, "flash_attention_bwd_kernel",
+                               "flash_attention_bwd"),
+                              (signpack, "pack_signs_kernel", "pack_signs"),
+                              (signpack, "unpack_signs_kernel",
+                               "unpack_signs")):
             self._wrap(mod, fn, name)
 
     def _wrap(self, mod, fn: str, name: str) -> None:
@@ -627,6 +780,10 @@ class Recorder:
     def _keep(self, kind: str, args, kw) -> None:
         if self.stage is not None and (self.only is None
                                        or kind in self.only):
+            # detached: a kept training activation must not keep its
+            # autograd graph (and the tensors the graph saved) alive
+            args = tuple(a.detach() if hasattr(a, "detach") else a
+                         for a in args)
             self.calls.append((kind, args, kw, self.stage))
 
     def _keep_faulty(self, table, plane, out_idx, kw) -> None:
@@ -672,6 +829,11 @@ class Recorder:
     def close(self):
         for mod, name, fn in self._restore:
             setattr(mod, name, fn)
+
+    def drop(self):
+        """Forget every kept call (phase 4 has replayed them)."""
+        self.calls.clear()
+        self._largest = self._single = None
 
 
 def _raw_tenant0(spec):
@@ -1239,13 +1401,16 @@ def _max_rel(got, want) -> float:
     return float((g - w).abs().max() / w.abs().max().clamp_min(1e-9))
 
 
-def _device_ms_by_kind(prof):
+def _device_ms_by_kind(prof, backward: bool = False):
     """(device ms by kind, device events) of a profiled run: the flash
-    kernel, cuBLAS GEMMs, everything else (elementwise passes,
-    reductions, copies); the events count kernels and copies."""
+    forward kernel, with ``backward`` the flash backward kernels, cuBLAS
+    GEMMs, everything else (elementwise passes, reductions, copies); the
+    events count kernels and copies."""
     from torch.autograd import DeviceType
 
     out = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    if backward:
+        out["flash_attention_bwd"] = 0.0
     n_events = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -1254,6 +1419,8 @@ def _device_ms_by_kind(prof):
         name = e.key
         if "flash_mma_kernel" in name or "flash_simt_kernel" in name:
             kind = "flash_attention"
+        elif backward and "flash_bwd_" in name:
+            kind = "flash_attention_bwd"
         elif "gemm" in name.lower() or "xmma" in name \
                 or name.startswith(("nvjet", "cutlass")):
             kind = "gemm"
@@ -1434,6 +1601,277 @@ def phase_lm(torch, rec):
     return launches, info
 
 
+#: phase 3f: the published architecture at train_4k's sequence length;
+#: the global batch is cut from train_4k's 256 to 8 for time, in four
+#: microbatches of 2: with microbatches of 4 the float32 logits (4 x 4,096
+#: x 153,600, 10 GB) and their gradients ran the card out of memory
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = "qwen3_0p6b", 4096, 8, 4
+TRAIN_SEED, TRAIN_STEPS = 15, 6
+#: AdamW's schedule: a warm-up of two steps to 1e-3, cosine over 100
+TRAIN_LR = (1e-3, 2, 100)
+#: check (ii): each gradient leaf's RMS difference from the step with the
+#: plain attention, as a share of the plain leaf's RMS (bf16 activations
+#: through 28 layers; the kernels round p and ds to bf16 for their
+#: products where the plain backward keeps float32), and the loss's
+#: relative difference
+TRAIN_GRAD_TOL, TRAIN_LOSS_TOL = 0.05, 1e-3
+#: check (iv): grad_accum 2 against 1 on the same batch, the JAX
+#: package's bound (tests/test_optim_train.py)
+TRAIN_ACCUM_TOL = 5e-3
+
+
+def _plain_attention(flashattn):
+    """Model-layout adapters of the plain forward-with-lse and backward,
+    to swap in for the kernel wrappers."""
+
+    def fwd(q, k, v, causal=True, block_q=512, block_k=512):
+        o, lse = flashattn.flash_attention_fwd_plain(
+            _hm(q), _hm(k), _hm(v), causal, block_q, block_k)
+        return _hm(o), lse
+
+    def bwd(q, k, v, o, lse, do, causal=True, block_q=512, block_k=512):
+        return tuple(_hm(g) for g in flashattn.flash_attention_bwd_plain(
+            _hm(q), _hm(k), _hm(v), _hm(o), lse, _hm(do), causal, block_q,
+            block_k))
+
+    return fwd, bwd
+
+
+def _rel_rms(got, want) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).pow(2).mean().sqrt()
+                 / w.pow(2).mean().sqrt().clamp_min(1e-30))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_train(torch, rec):
+    """Training at Qwen3-0.6B's published widths through ``build -> init
+    -> make_train_step`` (AdamW, ``warmup_cosine``, ``remat="block"``,
+    the port's `SyntheticLM`), and the compressed signum step on a
+    one-rank NCCL group, with their checks."""
+    import copy
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES, flashattn
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, signum, warmup_cosine
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.train import (make_train_step,
+                                   make_train_step_compressed)
+    from repro_torch.train.step import loss_and_grads
+
+    torch.cuda.empty_cache()         # the earlier phases' cached blocks
+    cfg = get_config(TRAIN_ARCH)
+    bundle = build(cfg, remat="block")
+    gen = torch.Generator(device=bundle.device).manual_seed(TRAIN_SEED)
+    params = bundle.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                       seed=TRAIN_SEED)
+    batch = data.batch(0)
+    check(batch["tokens"].is_cuda and next(params.parameters()).dtype
+          == torch.bfloat16, f"{cfg.name} is not in bf16 on the card")
+    opt = adamw(warmup_cosine(*TRAIN_LR))
+    state = opt.init(params)
+    step_fn = make_train_step(bundle, opt, grad_accum=TRAIN_ACCUM)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_micro = TRAIN_ACCUM * cfg.n_layers
+
+    # the main path: the cold first step, every launch recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    rec.stage, rec.only = "train step", set(TRAIN_KERNELS)
+    t0 = time.perf_counter()
+    params, state, metrics = step_fn(params, state, 0, batch)
+    losses = [float(metrics["loss"])]
+    t_cold = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    rec.stage = rec.only = None
+    print(f"[train] launches in the first step: {launches}")
+    want = {"flash_attention_fwd": 2 * n_micro,
+            "flash_attention_bwd": n_micro}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"the step launched {launches}, not {want}: per layer and "
+          f"microbatch the lse forward twice (the forward and the "
+          f"checkpointed block's recompute) and the backward once")
+    # (i) the first loss
+    ln_v = float(np.log(cfg.padded_vocab))
+    check(np.isfinite(losses[0]) and abs(losses[0] - ln_v) < 0.1 * ln_v,
+          f"first loss {losses[0]:.4f} is not within 10% of ln "
+          f"{cfg.padded_vocab} = {ln_v:.4f}")
+    # (iii) six steps on the one batch lower the loss; the warm ones timed
+    warm = []
+    for i in range(1, TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, i, batch)
+        losses.append(float(metrics["loss"]))
+        warm.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    held = rec.held_bytes()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{TRAIN_STEPS} steps on one batch did not lower the loss: "
+          f"{losses}")
+    t_warm = float(np.mean(warm[1:]))
+    # the device's split of one more warm step
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, TRAIN_STEPS, batch)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    device, events = _device_ms_by_kind(prof, backward=True)
+    del prof, state, opt, step_fn
+
+    # (ii) loss and gradients against the plain attention swapped in
+    loss_k, _, grads_k = loss_and_grads(bundle, params, batch, TRAIN_ACCUM)
+    saved = (flashattn.flash_attention_fwd_kernel,
+             flashattn.flash_attention_bwd_kernel)
+    flashattn.flash_attention_fwd_kernel, \
+        flashattn.flash_attention_bwd_kernel = _plain_attention(flashattn)
+    try:
+        loss_p, _, grads_p = loss_and_grads(bundle, params, batch,
+                                            TRAIN_ACCUM)
+    finally:
+        flashattn.flash_attention_fwd_kernel, \
+            flashattn.flash_attention_bwd_kernel = saved
+    err_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    err_grad = {n: _rel_rms(grads_k[n], grads_p[n]) for n in grads_p}
+    worst_leaf = max(err_grad, key=err_grad.get)
+    check(err_loss < TRAIN_LOSS_TOL, f"loss with the kernels vs the plain "
+          f"attention: {err_loss:.3g} relative (>= {TRAIN_LOSS_TOL})")
+    check(err_grad[worst_leaf] < TRAIN_GRAD_TOL, f"gradient {worst_leaf} "
+          f"with the kernels vs the plain attention: RMS difference "
+          f"{err_grad[worst_leaf]:.3g} of its RMS (>= {TRAIN_GRAD_TOL})")
+    del grads_k, grads_p
+    # (iv) grad_accum 2 against 1 on the same batch: one main-path
+    # microbatch, so the single microbatch stays the main path's size
+    half = {k: x[:TRAIN_BATCH // TRAIN_ACCUM] for k, x in batch.items()}
+    loss_2, _, g2 = loss_and_grads(bundle, params, half, 2)
+    del g2
+    loss_1, _, g1 = loss_and_grads(bundle, params, half, 1)
+    del g1
+    err_accum = abs(float(loss_2) - float(loss_1))
+    check(err_accum < TRAIN_ACCUM_TOL, f"grad_accum 2 vs 1: losses "
+          f"{float(loss_2):.5f} and {float(loss_1):.5f} differ by "
+          f"{err_accum:.3g} (>= {TRAIN_ACCUM_TOL})")
+
+    # (v) the compressed step on a one-rank NCCL group against the local
+    # signum step with the same gradients
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1)
+    try:
+        group = dist.group.WORLD
+        voted = signum(warmup_cosine(*TRAIN_LR), group=group)
+        local = signum(warmup_cosine(*TRAIN_LR))
+        seen = {}
+
+        def update(grads, state, params, step):
+            seen["grads"] = {k: g.clone() for k, g in grads.items()}
+            return voted.update(grads, state, params, step)
+
+        twin = copy.deepcopy(params)
+        comp = make_train_step_compressed(
+            bundle, Optimizer(voted.init, update, voted.name), group,
+            grad_accum=TRAIN_ACCUM)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        rec.stage, rec.only = "compressed step", {"pack_signs",
+                                                  "unpack_signs"}
+        t0 = time.perf_counter()
+        params, _, cm = comp(params, voted.init(params), TRAIN_STEPS + 1,
+                             batch)
+        torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t0
+        comp_launches = dict(LAUNCHES)
+        rec.stage = rec.only = None
+    finally:
+        dist.destroy_process_group()
+    print(f"[train] launches in the compressed step: {comp_launches}")
+    want = {"flash_attention_fwd": 2 * n_micro,
+            "flash_attention_bwd": n_micro, "pack_signs": 1,
+            "unpack_signs": 1, "majority": 1}
+    check({k: v for k, v in comp_launches.items() if v} == want,
+          f"the compressed step launched {comp_launches}, not {want}")
+    local.update(seen["grads"], local.init(twin), twin, TRAIN_STEPS + 1)
+    twins = dict(twin.named_parameters())
+    n_diff = n_signless = 0
+    for name, p in params.named_parameters():
+        g = seen["grads"][name].float()
+        free = (g == 0) | torch.isnan(g)        # u = g at the first step
+        diff = p.detach() != twins[name].detach()
+        n_diff += int((diff & ~free).sum())
+        n_signless += int(free.sum())
+    check(n_diff == 0, f"the compressed step differs from the local signum "
+          f"step on {n_diff} elements whose u is not +-0 or NaN")
+    del twin, twins, seen, params
+    for n, c in comp_launches.items():
+        launches[n] = launches.get(n, 0) + c
+    info = {"train_arch": cfg.name, "train_params": n_params,
+            "train_tokens_per_step": tokens, "train_cold_s": t_cold,
+            "train_warm_s": t_warm, "train_warm_steps_s": warm,
+            "train_tok_per_s": tokens / t_warm, "train_losses": losses,
+            "train_peak_device_bytes": peak, "train_recorded_bytes": held,
+            "train_profiled_step_s": t_prof, "train_device_ms": device,
+            "train_device_events": events,
+            "train_err_plain_loss": err_loss,
+            "train_err_plain_grad": err_grad[worst_leaf],
+            "train_err_plain_grad_leaf": worst_leaf,
+            "train_err_accum": err_accum, "train_compressed_s": t_comp,
+            "train_compressed_loss": float(cm["loss"]),
+            "train_signless_elements": n_signless}
+    busy = sum(device.values())
+    print(f"[train] {cfg.name} at its published widths: {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab "
+          f"{cfg.padded_vocab} padded, {n_params / 1e9:.3f} B parameters "
+          f"in bf16; AdamW, remat 'block', sequence {TRAIN_SEQ}, global "
+          f"batch {TRAIN_BATCH} in {TRAIN_ACCUM} microbatches (cut from "
+          f"train_4k's 256 for time; microbatch halved from 4 for "
+          f"memory)")
+    print(f"[train] step ms: cold {t_cold * 1e3:.1f}, warm "
+          f"{t_warm * 1e3:.1f} (mean of steps 2-{TRAIN_STEPS - 1}; "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in warm)}); "
+          f"{tokens / t_warm:.0f} tok/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB, of which {held / 2**30:.2f} GiB hold "
+          f"the recorded launches' arguments for phase 4")
+    print(f"[train] losses over {TRAIN_STEPS} steps on one batch: "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f" (ln V = {ln_v:.4f})")
+    print(f"[train] warm step under the profiler: {t_prof * 1e3:.1f} ms "
+          f"wall; device "
+          + (f"{busy:.1f} ms over {events} kernels and copies ("
+             + ", ".join(f"{k} {v:.1f}" for k, v in device.items())
+             + f"), idle {1 - busy / (t_prof * 1e3):.1%} of the wall "
+             f"(the profiler's own host work included; against the "
+             f"unprofiled warm step, {1 - busy / (t_warm * 1e3):.1%})"
+             if busy else "time not measured (the profiler saw no device "
+             "events)"))
+    print(f"[train] (ii) kernels vs plain attention: loss {err_loss:.3g} "
+          f"relative, worst gradient leaf {worst_leaf} RMS difference "
+          f"{err_grad[worst_leaf]:.3g} of its RMS (bounds "
+          f"{TRAIN_LOSS_TOL}, {TRAIN_GRAD_TOL}); (iv) grad_accum 2 vs 1 "
+          f"loss {err_accum:.3g} (bound {TRAIN_ACCUM_TOL}); (v) compressed "
+          f"step on one NCCL rank: {t_comp * 1e3:.1f} ms, equal to the "
+          f"local signum step on every element but the {n_signless} whose "
+          f"u is +-0 or NaN")
+    return launches, info
+
+
 # ---------------------------------------------------------------------------
 # phase 4: numbers
 # ---------------------------------------------------------------------------
@@ -1507,7 +1945,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
     result or None)."""
     from repro_torch.kernels import (arith, bittranspose, bitweaving,
                                      bitwise, flashattn, majority, popcount,
-                                     ref, vm)
+                                     ref, signpack, vm)
     from repro_torch.kernels.bittranspose import bit_transpose
 
     lib_ms = lib_out = None
@@ -1662,6 +2100,93 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         shape = {"B": B, "H": H, "KV": k.shape[2], "Sq": Sq, "Sk": Sk,
                  "hd": hd, "causal": causal, "dtype": str(q.dtype),
                  "flops": flops, "bytes": nbytes}
+    elif kind in ("flash_attention_fwd", "flash_attention_bwd"):
+        name = kind
+        q, k, v = args[:3]                  # the model's (B, S, heads, hd)
+        causal = kw.get("causal", True)
+        B, Sq, H, hd = q.shape
+        Sk = k.shape[1]
+        dtype = str(q.dtype).split(".")[-1]
+        pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal \
+            else Sq * Sk
+        # the library call, on head-major contiguous copies (the port
+        # never calls it)
+        qc, kc, vc = (_hm(x).contiguous() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if kind == "flash_attention_fwd":
+            got, k_ms, c_ms = _time_ms(torch, lambda: flashattn.
+                                       flash_attention_fwd_kernel(
+                                           q, k, v, **kw), 10, clock_hz)
+            want, p_ms, _ = _time_ms(torch, lambda: flashattn.
+                                     flash_attention_fwd_plain(
+                                         _hm(q), _hm(k), _hm(v), **kw), 2,
+                                     clock_hz)
+            want = (_hm(want[0]), want[1])
+            lib_out, lib_ms, _ = _time_ms(torch, lambda: sdpa(
+                qc, kc, vc, is_causal=causal, enable_gqa=True), 10,
+                clock_hz)
+            lib_out = (_hm(lib_out),)
+            # two products of hd MACs over the unmasked pairs; q, k, v
+            # read, o and lse written
+            flops = 4 * B * H * hd * pairs
+            nbytes = q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel()) + 4 * B * H * Sq
+        else:
+            o, lse, do = args[3:]
+            got, k_ms, c_ms = _time_ms(torch, lambda: flashattn.
+                                       flash_attention_bwd_kernel(
+                                           *args, **kw), 5, clock_hz)
+            want, p_ms, _ = _time_ms(torch, lambda: flashattn.
+                                     flash_attention_bwd_plain(
+                                         _hm(q), _hm(k), _hm(v), _hm(o), lse,
+                                         _hm(do), **kw), 2, clock_hz)
+            want = tuple(_hm(w) for w in want)
+            # the library's backward alone: the graph of one forward, its
+            # backward timed
+            qg, kg, vg = (x.requires_grad_() for x in (qc, kc, vc))
+            with torch.enable_grad():
+                lib_o = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)
+            doc = _hm(do).contiguous()
+            lib_out, lib_ms, _ = _time_ms(torch, lambda: torch.autograd.grad(
+                lib_o, (qg, kg, vg), doc, retain_graph=True), 10, clock_hz)
+            lib_out = tuple(_hm(g) for g in lib_out)
+            del lib_o, doc, qg, kg, vg
+            # five products of hd MACs over the unmasked pairs (s, dp,
+            # dv, dq, dk); q, k, v, o, do, lse read, dq, dk, dv written
+            flops = 10 * B * H * hd * pairs
+            nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
+                + 4 * B * H * Sq
+        del qc, kc, vc
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = flops / FLOPS_PER_S[dtype] * 1e3
+        shape = {"B": B, "H": H, "KV": k.shape[2], "Sq": Sq, "Sk": Sk,
+                 "hd": hd, "causal": causal, "dtype": str(q.dtype),
+                 "flops": flops, "bytes": nbytes}
+    elif kind in ("pack_signs", "unpack_signs"):
+        name = kind
+        if kind == "pack_signs":
+            (x,) = args
+            got, k_ms, c_ms = _time_ms(
+                torch, lambda: signpack.pack_signs_kernel(x), 10, clock_hz)
+            want, p_ms, _ = _time_ms(torch, lambda: ref.pack_signs(x), 2,
+                                     clock_hz)
+            lanes, lane_bytes = x.numel(), x.element_size()
+        else:
+            words, dtype = args
+            got, k_ms, c_ms = _time_ms(
+                torch, lambda: signpack.unpack_signs_kernel(words, dtype),
+                10, clock_hz)
+            want, p_ms, _ = _time_ms(
+                torch, lambda: ref.unpack_signs(words, dtype), 2, clock_hz)
+            lanes, lane_bytes = 32 * words.numel(), got.element_size()
+            itype = torch.int32 if lane_bytes == 4 else torch.int16
+            got, want = got.view(itype), want.view(itype)
+        # every lane read (written) once, one word per 32 lanes written
+        # (read); one sign test or select per lane
+        b_ms = (lane_bytes * lanes + 4 * lanes // 32) / HBM_BYTES_PER_S \
+            * 1e3
+        o_ms = lanes / int_rate * 1e3
+        shape = {"lanes": lanes, "lane_bytes": lane_bytes}
     else:
         name = "bitweaving_scan"
         planes, c1, c2, n_bits = args
@@ -1732,37 +2257,119 @@ def _flash_gate_faults(torch, q, k, v, want, tol: float) -> dict:
 #: the one PyTorch call each kernel row's ``library_ms`` times
 LIBRARY_CALLS = {"bitwise": "torch.bitwise_*", "bitwise_banked":
                  "torch.bitwise_*", "flash_attention":
-                 "scaled_dot_product_attention"}
+                 "scaled_dot_product_attention", "flash_attention_fwd":
+                 "scaled_dot_product_attention", "flash_attention_bwd":
+                 "scaled_dot_product_attention's backward"}
 
 
-def phase_numbers(torch, calls, launches, max_err, flash_err, int_rate,
-                  clock_hz):
+def _flash_bwd_gate_faults(torch, args, kw, want, tol: float) -> dict:
+    """The backward replay gate's reach, on one main-path launch: the
+    plain backward at other block sizes (256 x 256) must pass `_gate`
+    against the plain result ``want`` (dq, dk, dv in the model layout);
+    with the last 64 query rows of query head 0 dropped (a dq or dk / dv
+    CTA that skips a query tile: ``do`` zeroed there) it must fail.
+    Returns each share of the tolerance used (the largest of dq, dk,
+    dv)."""
+    from repro_torch.kernels import flashattn
+
+    q, k, v, o, lse, do = args
+    dropped = do.clone()
+    dropped[:, -64:, 0] = 0
+    shares = {}
+    for fault, d, blocks in (("none", do, 256),
+                             ("query tile dropped", dropped,
+                              kw.get("block_q", 512))):
+        got = flashattn.flash_attention_bwd_plain(
+            _hm(q), _hm(k), _hm(v), _hm(o), lse, _hm(d),
+            kw.get("causal", True), blocks, blocks)
+        shares[fault] = max(_gate(_hm(g), w, tol)[0]
+                            for g, w in zip(got, want))
+        del got
+    check(shares["none"] <= 1.0, f"the backward gate rejects the plain "
+          f"backward at other blocks ({shares['none']:.3g} of its "
+          f"tolerance)")
+    check(shares["query tile dropped"] > 1.0, f"the backward gate admits a "
+          f"dropped query tile ({shares['query tile dropped']:.3g} of its "
+          f"tolerance)")
+    print("[numbers] flash backward replay gate, share of its tolerance "
+          "used on one training launch: "
+          + ", ".join(f"{f} {v:.3g}" for f, v in shares.items())
+          + " (at most 1 passes)")
+    return shares
+
+
+#: the float kernels, held to their plain versions by `_gate`
+FLOAT_KERNELS = ("flash_attention", "flash_attention_fwd",
+                 "flash_attention_bwd")
+
+
+class Numbers:
+    """Phase 4's totals per kernel and per stage, over one or more
+    batches of replayed launches."""
+
+    def __init__(self, max_err, float_err):
+        self.per_kernel = {
+            name: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0,
+                   "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+                   "library_ms": 0.0, "library_kernel_ms": 0.0,
+                   "library_launches": 0, "replayed": 0, "calls": []}
+            for name in KERNELS}
+        self.stages = {}
+        self.errs = [max_err]
+        self.float_err = dict(float_err)
+
+
+def phase_numbers(torch, calls, numbers: Numbers, int_rate, clock_hz):
+    """Replay ``calls`` (and drop them as they go), each against its plain
+    version and timed, into ``numbers``."""
     from repro_torch.kernels import LAUNCHES
 
     before = dict(LAUNCHES)
-    per_kernel = {name: {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0,
-                         "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
-                         "library_ms": 0.0, "library_kernel_ms": 0.0,
-                         "library_launches": 0, "replayed": 0, "calls": []}
-                  for name in KERNELS}
-    stages = {}
-    errs = [max_err]
-    for kind, args, kw, stage in calls:
+    per_kernel, stages = numbers.per_kernel, numbers.stages
+    errs, float_err = numbers.errs, numbers.float_err
+    calls.reverse()
+    while calls:
+        kind, args, kw, stage = calls.pop()
         (name, got, want, k_ms, c_ms, p_ms, b_ms, o_ms, shape, lib_ms,
          lib_out) = _replay(torch, kind, args, kw, int_rate, clock_hz)
         row = per_kernel[name]
-        if name == "flash_attention":
-            tol = FLASH_TOL[str(got.dtype).split(".")[-1]]
-            err, share = _close(f"{name} replay ({stage})", got, want, tol)
-            flash_err = max(flash_err, err)
+        if name in FLOAT_KERNELS:
+            tol = FLASH_TOL[str(args[0].dtype).split(".")[-1]]
+            label = f"{name} replay ({stage})"
+            if name == "flash_attention":
+                err, share = _close(label, got, want, tol)
+                lib_share = _close(f"{label}: the library call", lib_out,
+                                   got, tol)[1]
+            else:
+                # the lse to 1e-4, as in phase 2
+                tols = (tol, 1e-4) if name == "flash_attention_fwd" \
+                    else (tol, tol, tol)
+                err = share = 0.0
+                for part, g, w, t in zip(("o / dq", "lse / dk", "dv"), got,
+                                         want, tols):
+                    e, sh = _close(f"{label} {part}", g, w, t)
+                    err, share = max(err, e), max(share, sh)
+                # the library's forward is held to the kernel as in
+                # prefill; its bf16 backward rounds p and ds once, so its
+                # share is reported, not gated
+                lib_share = max(_gate(lo, g, tol)[0]
+                                for lo, g in zip(lib_out, got))
+                if name == "flash_attention_fwd":
+                    check(lib_share <= 1.0, f"{label}: the library call "
+                          f"differs from the kernel ({lib_share:.3g} of "
+                          f"the tolerance)")
+            float_err[name] = max(float_err.get(name, 0.0), err)
             row["gate_share"] = max(row.get("gate_share", 0.0), share)
-            if stage == "lm prefill" and "gate_faults" not in row:
-                row["gate_faults"] = _flash_gate_faults(
-                    torch, *args, want, tol)
+            if stage in ("lm prefill", "train step") \
+                    and "gate_faults" not in row:
+                row["gate_faults"] = (
+                    _flash_bwd_gate_faults(torch, args, kw, want, tol)
+                    if name == "flash_attention_bwd" else
+                    _flash_gate_faults(torch, *args[:3], want[0]
+                                       if name == "flash_attention_fwd"
+                                       else want, tol))
             row["library_gate_share"] = max(
-                row.get("library_gate_share", 0.0),
-                _close(f"{name} replay ({stage}): the library call", lib_out,
-                       got, tol)[1])
+                row.get("library_gate_share", 0.0), lib_share)
         else:
             _compare(f"{name} replay ({stage})", got, want, errs)
             if lib_ms is not None:
@@ -1786,7 +2393,14 @@ def phase_numbers(torch, calls, launches, max_err, flash_err, int_rate,
                              "plain_ms": p_ms,
                              "bytes_ms": b_ms, "ops_ms": o_ms,
                              "library_ms": lib_ms})
+        del args, kw
     check(dict(LAUNCHES) != before, "replays launched no kernel")
+
+
+def kernel_rows(numbers: Numbers, launches):
+    """Print phase 4's totals; returns the ``{"kernels": [...]}`` rows."""
+    per_kernel, stages = numbers.per_kernel, numbers.stages
+    errs, float_err = numbers.errs, numbers.float_err
     stack = [c["stack_ms"] for c in per_kernel["majority"]["calls"]]
     print(f"[numbers] majority: the replicas' torch.stack before each vote "
           f"took {sum(stack):.3f} ms on the device over {len(stack)} "
@@ -1800,8 +2414,8 @@ def phase_numbers(torch, calls, launches, max_err, flash_err, int_rate,
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get(name, 0),
             "replayed": r["replayed"],
-            "max_abs_err": flash_err if name == "flash_attention"
-            else max(errs), "ms": r["ms"],
+            "max_abs_err": float_err.get(name, 0.0)
+            if name in FLOAT_KERNELS else max(errs), "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
@@ -1824,8 +2438,8 @@ def phase_numbers(torch, calls, launches, max_err, flash_err, int_rate,
                  f"element; largest share used {r['gate_share']:.3g}, the "
                  f"library call against the kernel "
                  f"{r['library_gate_share']:.3g})"
-                 if name == "flash_attention" else ""))
-    return rows, per_kernel, stages
+                 if name in FLOAT_KERNELS and r["replayed"] else ""))
+    return rows
 
 
 def main() -> int:
@@ -1863,9 +2477,11 @@ def main() -> int:
                              n_queries=96)
         max_err = phase_kernels(torch, build_service(small, device="cuda"),
                                 small)
-        flash_err = phase_flash_kernels(torch)
+        float_err = {"flash_attention": phase_flash_kernels(torch)}
+        float_err.update(phase_train_kernels(torch))
         spec = WorkloadSpec(n_tenants=4, n_weeks=3, domain_bits=1 << 24,
                             n_queries=96)
+        numbers = Numbers(max_err, float_err)
         rec = Recorder()
         try:
             launches, slice_info, clean = phase_slice(torch, spec, rec)
@@ -1874,6 +2490,12 @@ def main() -> int:
                      phase_arith(torch, rec)]
             del clean
             later.append(phase_lm(torch, rec))
+            # phase 4 for 3a-3e first, which frees their recorded
+            # arguments before training records its own
+            phase_numbers(torch, rec.calls, numbers, int_rate,
+                          max_mhz * 1e6)
+            rec.drop()
+            later.append(phase_train(torch, rec))
         finally:
             rec.close()
         # each kernel's launches over every main-path run
@@ -1881,10 +2503,8 @@ def main() -> int:
             slice_info.update(info)
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
-        rows, per_kernel, stages = phase_numbers(
-            torch, rec.calls, launches, max_err, flash_err, int_rate,
-            max_mhz * 1e6)
-        rec.calls.clear()         # the replays' inputs, flash's q, k, v
+        phase_numbers(torch, rec.calls, numbers, int_rate, max_mhz * 1e6)
+        rows = kernel_rows(numbers, launches)
     except SmokeFailure as e:
         print(f"[fail] {e}", file=sys.stderr)
         return 1
@@ -1892,8 +2512,8 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps({
             "card": card, "int32_ops_per_s": int_rate, "slice": slice_info,
-            "kernel_ms_by_stage": stages,
-            "kernels": rows, "launches": per_kernel}, indent=1))
+            "kernel_ms_by_stage": numbers.stages,
+            "kernels": rows, "launches": numbers.per_kernel}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))

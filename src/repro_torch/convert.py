@@ -89,3 +89,48 @@ def model_params_from_reference(cfg, params, device="cuda") -> Transformer:
     for i, block in enumerate(model.layers):
         _copy_tree(block, params["layers"], index=i)
     return model
+
+
+def _state_tree(tree, adafactor: bool, prefix: str = ""):
+    """(port leaf name, value) of a reference optimizer-state tree shaped
+    like the parameters: ``layers/attn/wq`` -> ``layers.attn.wq``; under
+    adafactor a leaf is its ``{"r", "c"}`` or ``{"v"}`` dict."""
+    for k in sorted(tree):
+        v, name = tree[k], f"{prefix}{k}"
+        if isinstance(v, dict) and not (adafactor and set(v) <= {"r", "c",
+                                                                 "v"}):
+            yield from _state_tree(v, adafactor, name + ".")
+        else:
+            yield name, v
+
+
+def opt_state_from_reference(name: str, state, model: Transformer) -> dict:
+    """A port optimizer state (`repro_torch.optim`) holding a reference
+    optimizer's state tree (``opt.init(params)`` or a later ``update``'s),
+    for optimizer ``name`` ("sgd", "adamw", "adafactor" or "signum"), on
+    ``model``'s device. The port keys its state by the reference's leaves
+    (`optim.optimizers.leaves`), stacked layers included, so every array
+    keeps its shape and dtype."""
+    from repro_torch.optim.optimizers import leaves
+
+    expected = {leaf.name for leaf in leaves(dict(model.named_parameters()))}
+    dev = model.device
+
+    def tensor(x):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    out = {}
+    for key, tree in state.items():
+        items = dict(_state_tree(tree, name == "adafactor"))
+        if set(items) != expected:
+            raise ValueError(f"{name} state {key!r}: leaves "
+                             f"{sorted(set(items) ^ expected)} differ from "
+                             f"the model's")
+        out[key] = {k: ({kk: tensor(vv) for kk, vv in v.items()}
+                        if isinstance(v, dict) else tensor(v))
+                    for k, v in items.items()}
+    return out

@@ -5,8 +5,12 @@
 // grid (B, H, nq, nk) with the key axis sequential, the running max /
 // denominator / accumulator in VMEM scratch across it, 512 x 512 tiles),
 // reached through models/layers.py::chunked_attention in every prefill
-// layer. Plain version: src/repro_torch/kernels/flashattn.py::
-// flash_attention_plain.
+// layer, and src/repro/kernels/flashattn.py::flash_attention_fwd_kernel
+// (the same forward that also emits the logsumexp rows, lse (B, H, Sq),
+// which the backward recomputes p from), reached through the custom VJP in
+// every training layer. Plain versions: src/repro_torch/kernels/
+// flashattn.py::flash_attention_plain and flash_attention_fwd_plain. One
+// kernel serves both: the lse pointer is null for the serving path.
 //
 // What bounds it on this card: operations. At the serving path's prefill
 // (B = 8, H = 16, KV = 8, S = 2048, hd = 128, causal, bf16) the two
@@ -39,22 +43,16 @@
 //
 // The mma.sync path is a first design; wgmma, TMA and a pipelined K/V ring
 // are later work.
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_tiles.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;           // query rows per CTA
-constexpr int kBK = 64;           // keys per tile
-constexpr int kMmaThreads = 128;  // bf16 kernel: four warps
-constexpr float kNegInf = -1e30f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;                     // (B, H, Sq) float32, or null
   long long q_strides[3];         // batch, sequence, head (elements)
   long long k_strides[3];
   long long v_strides[3];
@@ -72,69 +70,6 @@ __device__ __forceinline__ int key_tiles(const Params& p, int q0) {
     n = last < n ? last : n;
   }
   return n;
-}
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [r0, r0 + 64) of one head of x into shared memory, 16 bytes
-// at a time; rows past `rows` are zero. Every load of the tile is issued
-// before the first store, so their latencies overlap. kTranspose = false:
-// dst[r][d] with row stride HD + 8; true: dst[d][r] with row stride
-// kBK + 8, and consecutive threads take consecutive rows, so the 2-byte
-// stores of a warp fall in distinct banks.
-template <int HD, bool kTranspose>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* x,
-                                           long long row_stride, int r0,
-                                           int rows) {
-  constexpr int kChunks = HD / 8;                 // 16-byte chunks per row
-  constexpr int kPerThread = kBK * kChunks / kMmaThreads;
-  uint4 val[kPerThread];
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int c = threadIdx.x + i * kMmaThreads;
-    const int r = kTranspose ? c % kBK : c / kChunks;
-    const int d = (kTranspose ? c / kBK : c % kChunks) * 8;
-    val[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows) {
-      val[i] = *reinterpret_cast<const uint4*>(
-          x + static_cast<long long>(r0 + r) * row_stride + d);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int c = threadIdx.x + i * kMmaThreads;
-    const int r = kTranspose ? c % kBK : c / kChunks;
-    const int d = (kTranspose ? c / kBK : c % kChunks) * 8;
-    if constexpr (kTranspose) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val[i]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(d + j) * (kBK + 8) + r] = e[j];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * (HD + 8) + d) = val[i];
-    }
-  }
 }
 
 template <int HD>
@@ -273,6 +208,11 @@ flash_mma_kernel(const Params p) {
 
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (p.lse != nullptr && t == 0) {
+    float* lse = p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
+    if (qpos0 < p.sq) lse[qpos0] = m0 + logf(fmaxf(l0, 1e-30f));
+    if (qpos1 < p.sq) lse[qpos1] = m1 + logf(fmaxf(l1, 1e-30f));
+  }
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt) {
     const int d = dt * 8 + 2 * t;
@@ -433,6 +373,10 @@ flash_simt_kernel(const Params p) {
   }
   __syncthreads();
 
+  if (p.lse != nullptr && tid < kBQ && q0 + tid < p.sq) {
+    p.lse[(static_cast<long long>(b) * p.heads + h) * p.sq + q0 + tid] =
+        sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -476,11 +420,14 @@ cudaError_t launch_hd(int dtype, const Params& p, int batch,
 
 // q: (B, Sq, H, hd), k / v: (B, Sk, KV, hd), o: (B, Sq, H, hd), each given
 // by its base pointer and (batch, sequence, head) strides in elements; hd
-// is contiguous. dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). For
+// is contiguous. lse: null, or a contiguous (B, H, Sq) float32 buffer that
+// receives each row's logsumexp m + log(max(l, 1e-30)) of the scaled,
+// masked scores (the backward's saved statistic); a null lse runs exactly
+// the lse-free kernel. dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). For
 // bfloat16 every pointer must be 16-byte aligned and every k / v / q
 // stride a multiple of 8 elements. Returns a cudaError_t.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides, int batch,
     int sq, int sk, int heads, int kv_heads, int head_dim, int causal,
@@ -495,6 +442,7 @@ extern "C" int flash_attention_launch(
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   for (int i = 0; i < 3; ++i) {
     p.q_strides[i] = q_strides[i];
     p.k_strides[i] = k_strides[i];

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at the root of
-the checkout (the hash covers the source and the flags, so an edited
-source rebuilds) and loaded with `ctypes`. No PyTorch header is included,
-so one build takes seconds. Nothing here runs at import time: the CPU
+the checkout (the hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header rebuilds) and
+loaded with `ctypes`. No PyTorch header is included, so one build takes
+seconds. Nothing here runs at import time: the CPU
 path never needs ``nvcc``.
 """
 from __future__ import annotations
@@ -48,6 +49,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers too, so an edited header rebuilds its includers
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

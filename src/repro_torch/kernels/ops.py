@@ -1,14 +1,16 @@
 """Public wrappers over the port's kernels.
 
-The counterpart of the reference's `repro.kernels.ops`, for the kernels
-ported so far. Each wrapper reshapes its operands to the kernel's layout
-and calls the kernel wrapper (looked up on its module at call time),
-which launches the CUDA kernel for CUDA tensors and runs its plain
-version for CPU tensors. Operands are int32 word tensors
-(`core.bitplane.as_words`). The reference's fold of 1-D
+The counterpart of the reference's `repro.kernels.ops`. Each wrapper
+reshapes its operands to the kernel's layout and calls the kernel
+wrapper (looked up on its module at call time), which launches the CUDA
+kernel for CUDA tensors and runs its plain version for CPU tensors.
+Operands are int32 word tensors (`core.bitplane.as_words`), or floats
+for the sign packing and flash attention. The reference's fold of 1-D
 operands into 8 sublane rows and its interpret-mode block sizes served
-the TPU's tiles and are gone. The sign-packing wrappers come with their
-kernels.
+the TPU's tiles and are gone.
+`flash_attention` is differentiable: with grad on it is a
+`torch.autograd.Function` whose forward is the lse-emitting kernel and
+whose backward is the backward kernel.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.kernels import bitwise as _bitwise
 from repro_torch.kernels import flashattn as _flashattn
 from repro_torch.kernels import majority as _majority
 from repro_torch.kernels import popcount as _popcount
+from repro_torch.kernels import signpack as _signpack
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -114,13 +117,59 @@ def bitserial_lt(a_planes: torch.Tensor,
     return arith.bitserial_lt_kernel(a_planes, b_planes)
 
 
+def pack_signs(x: torch.Tensor) -> torch.Tensor:
+    """(32 w,) or (r, 32 w) float32 / bf16 -> (w,) or (r, w) int32 words
+    of IEEE sign bits (bit i of word j = lane 32 j + i; -0.0 -> 1)."""
+    if x.dim() == 1:
+        return _signpack.pack_signs_kernel(x[None, :])[0]
+    return _signpack.pack_signs_kernel(x)
+
+
+def unpack_signs(words: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(w,) or (r, w) int32 words -> (32 w,) or (r, 32 w) in {+1, -1} of
+    ``dtype`` (a set bit gives -1)."""
+    if words.dim() == 1:
+        return _signpack.unpack_signs_kernel(words[None, :], dtype)[0]
+    return _signpack.unpack_signs_kernel(words, dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_hm`` custom VJP: the forward saves q, k,
+    v, o and lse (no O(S^2) state), the backward recomputes p from them.
+    Both call the kernel wrappers, which take the plain versions for CPU
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        o, lse = _flashattn.flash_attention_fwd_kernel(
+            q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, block_q, block_k = ctx.args
+        dq, dk, dv = _flashattn.flash_attention_bwd_kernel(
+            q, k, v, o, lse, do, causal=causal, block_q=block_q,
+            block_k=block_k)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: int = 512,
                     block_k: int = 512) -> torch.Tensor:
     """Attention in the model-side layout: q (B, Sq, H, hd), k / v (B, Sk,
     KV, hd) -> (B, Sq, H, hd), read in place on the card (the reference's
-    wrapper transposes). The reference's `shard_map` branch waits for the
-    multi-card slice."""
+    wrapper transposes). Differentiable: where grad is on and an operand
+    needs it, the forward is `flash_attention_fwd_kernel` and the backward
+    `flash_attention_bwd_kernel`; otherwise (serving) the lse-free
+    `flash_attention_kernel`. The reference's `shard_map` branch waits for
+    the multi-card slice."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
     return _flashattn.flash_attention_kernel(q, k, v, causal=causal,
                                              block_q=block_q,
                                              block_k=block_k)

@@ -2,12 +2,13 @@
 
 The counterparts of the reference's `repro.kernels.ref`: the fused bulk
 bitwise ops, the k-plane majority, the total popcount, the BitWeaving-V
-bit transpose and its inverse, the BitWeaving-V between-scan and the
-bit-serial add / sub / less-than. Each CUDA wrapper runs these for CPU
-tensors,
-and `chip_smoke.py` holds the kernels to them on the card. The
-opcode-table VM's plain version lives beside its kernel in `kernels.vm`.
-Words are int32 bit patterns; no function here shifts a word right.
+bit transpose and its inverse, the BitWeaving-V between-scan, the
+bit-serial add / sub / less-than and the sign pack / unpack. Each CUDA
+wrapper runs these for CPU tensors, and `chip_smoke.py` holds the
+kernels to them on the card. The opcode-table VM's plain version lives
+beside its kernel in `kernels.vm`. Words are int32 bit patterns; a right
+shift here is always followed by ``& 1``, so the sign bits it drags in
+never count.
 """
 from __future__ import annotations
 
@@ -183,3 +184,29 @@ def bitserial_lt(a_planes: torch.Tensor, b_planes: torch.Tensor
         lt = lt | (eq & ~a_planes[j] & b_planes[j])
         eq = eq & ~(a_planes[j] ^ b_planes[j])
     return lt
+
+
+# ---------------------------------------------------------------------------
+# sign pack / unpack (1-bit gradient compression)
+# ---------------------------------------------------------------------------
+
+
+def pack_signs(x: torch.Tensor) -> torch.Tensor:
+    """(..., 32 w) float32 / bf16 -> (..., w) int32 words; bit i of a word
+    is the IEEE sign bit of lane i (`torch.signbit`: set for -0.0 and for
+    NaNs with the sign bit)."""
+    n = x.shape[-1]
+    if n % 32:
+        raise ValueError(f"pack_signs needs a multiple of 32 lanes, got {n}")
+    bits = torch.signbit(x).to(torch.int32)
+    return pack_lanes(bits.reshape(x.shape[:-1] + (n // 32, 32)))
+
+
+def unpack_signs(words: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(..., w) int32 words -> (..., 32 w) in {+1, -1} of ``dtype`` (bit 1
+    -> -1)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    out = 1.0 - 2.0 * bits.to(torch.float32)
+    return out.reshape(words.shape[:-1] + (words.shape[-1] * 32,)).to(dtype)

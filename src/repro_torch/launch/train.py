@@ -1,0 +1,80 @@
+"""End-to-end training driver (the counterpart of `repro.launch.train`).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \
+        --steps 200 --batch 8 --seq 128 [--full] [--opt adamw|signum] \
+        [--device cpu]
+
+Runs on the card (``--device cuda``, the default) unless asked for the
+CPU; the reduced config unless ``--full``. One process trains on one
+device: ``--opt signum`` is then the local sign step, as the reference's
+is on one device. Checkpointing (``--ckpt-dir``) and model parallelism
+(``--model-parallel``) wait for ROADMAP §A10.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs.base import ShapeConfig, get_config, reduced
+from repro_torch.data import SyntheticLM
+from repro_torch.models import build
+from repro_torch.optim import get_optimizer, warmup_cosine
+from repro_torch.train import make_train_step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3_0p6b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--opt", default="adamw")
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.ckpt_dir:
+        raise NotImplementedError("--ckpt-dir: checkpointing and resilient "
+                                  "runs wait for ROADMAP §A10")
+    if args.model_parallel != 1:
+        raise NotImplementedError("--model-parallel: sharded models wait "
+                                  "for ROADMAP §A10")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    bundle = build(cfg, device=args.device)
+    print(f"arch={cfg.name} family={cfg.family} device={bundle.device}")
+    params = bundle.init(
+        torch.Generator(device=bundle.device).manual_seed(0))
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"params: {n_params / 1e6:.2f}M")
+
+    lr_fn = warmup_cosine(args.lr, max(10, args.steps // 20), args.steps)
+    data = SyntheticLM.for_cell(
+        cfg, ShapeConfig("cli", args.seq, args.batch, "train"),
+        device=bundle.device)
+    opt = get_optimizer(args.opt, lr_fn)
+    step_fn = make_train_step(bundle, opt, grad_accum=args.grad_accum)
+    opt_state = opt.init(params)
+    t0 = time.time()
+    for i in range(args.steps):
+        params, opt_state, metrics = step_fn(params, opt_state, i,
+                                             data.batch(i))
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(f"step {i:5d} loss {float(metrics['loss']):.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

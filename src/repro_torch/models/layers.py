@@ -7,13 +7,16 @@ V)``, ...), so a JAX parameter tree carries across as a copy
 the reference's names and cast points: statistics, RoPE, the SwiGLU gate
 and the softmax in float32, activations in ``cfg.dtype``.
 
-Prefill attention runs `kernels.ops.flash_attention`: the CUDA kernel on
-the card and its plain version on the CPU; the device is the only
-selector (the reference's ``attention_backend`` / ``attention_remat``
-knobs are not ported; remat only matters for a backward pass). Decode
-attention is plain PyTorch, as the reference's is plain ``jnp``; it writes
-the new key and value into the cache in place where the reference returns
-an updated copy (``dynamic_update_slice``).
+Train and prefill attention run `kernels.ops.flash_attention`: the CUDA
+kernels on the card and their plain versions on the CPU; the device is
+the only selector, and with grad on it is differentiable through the
+backward kernel. The reference's ``attention_backend`` /
+``attention_remat`` knobs are not ported: the flash
+`torch.autograd.Function` saves q, k, v, o and the logsumexp rows, so no
+O(S^2) state arises to rematerialise. Decode attention is plain
+PyTorch, as the reference's is plain ``jnp``; it writes the new key and
+value into the cache in place where the reference returns an updated
+copy (``dynamic_update_slice``).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _param(shape, dtype, device) -> nn.Parameter:
     """An uninitialised parameter (filled by `init_` or a carried-across
-    copy); serving needs no gradients."""
+    copy); serving needs no gradients, and the train step turns them on
+    (`train.step.trainable`)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -276,3 +280,18 @@ def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(p: Embed, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, p.head)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean cross-entropy over valid positions, float32, with z-loss. The
+    logsumexp runs over every column of ``logits``: the padded vocabulary
+    of `lm_logits`, as the reference's does."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll + z_loss * lse * lse
+    if mask is not None:
+        return (loss * mask).sum() / mask.sum().clamp_min(1)
+    return loss.mean()

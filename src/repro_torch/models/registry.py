@@ -2,6 +2,7 @@
 
     bundle = build(cfg)                     # device="cuda" unless asked
     params = bundle.init(torch.Generator("cuda").manual_seed(0))
+    loss, metrics = bundle.loss(params, batch)
     logits, cache = bundle.prefill(params, {"tokens": tokens})
     logits, cache = bundle.decode_step(params, token, cache, pos)
 
@@ -9,8 +10,9 @@ The counterpart of `repro.models.registry`, with the same field names.
 ``params`` is a `models.transformer.Transformer` on the bundle's device.
 Token tensors keep their device; host token arrays (numpy, lists) go to
 the model's device; tokens on another device than the model raise.
-``loss`` and ``abstract`` wait for the training slice; the other families
-(MoE, SSM / hybrid, enc-dec, VLM) raise at `build`.
+``abstract`` (shapes without allocating, for the dry run and the sharded
+cells) waits for ROADMAP §A10; the other families (MoE, SSM / hybrid,
+enc-dec, VLM) raise at `build`.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ _FAMILY_SLICE = {"moe": "A5 (models/moe.py)", "ssm": "A6 (SSM / hybrid)",
 class ModelBundle:
     cfg: ModelConfig
     init: Callable            # generator -> params
-    abstract: Callable        # training slice
-    loss: Callable            # training slice
+    abstract: Callable        # raises: ROADMAP §A10
+    loss: Callable            # (params, batch) -> (loss, metrics)
     prefill: Callable         # (params, batch) -> (logits, cache)
     decode_step: Callable     # (params, token, cache, pos) -> (logits, cache)
     cache_init: Callable      # (batch, max_len) -> cache
@@ -50,26 +52,42 @@ def _tokens(x, params: TF.Transformer) -> torch.Tensor:
     return torch.as_tensor(x, device=dev).long()
 
 
-def build(cfg: ModelConfig, device=None) -> ModelBundle:
+def _batch(batch: Dict[str, Any], params: TF.Transformer
+           ) -> Dict[str, torch.Tensor]:
+    """A training batch's tokens and labels as int64 and its mask as
+    float32, on the model's device."""
+    out = {k: _tokens(batch[k], params) for k in ("tokens", "labels")}
+    if batch.get("mask") is not None:
+        dev = operand_device([batch["mask"]], params.device)
+        out["mask"] = torch.as_tensor(batch["mask"], device=dev).float()
+    return out
+
+
+def build(cfg: ModelConfig, device=None, remat: str = "block"
+          ) -> ModelBundle:
     """The bundle of ``cfg`` (dense family) on ``device`` (default
-    ``"cuda"``; asking for the card where there is none raises)."""
+    ``"cuda"``; asking for the card where there is none raises). ``remat``
+    is the loss's rematerialisation policy: "block" or "full" (each block
+    recomputed in the backward, the reference's ``nothing_saveable``);
+    "dots" waits for ROADMAP §A10."""
     if cfg.family != "dense":
         where = _FAMILY_SLICE.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP queue {where}); the port builds the dense family")
+    TF.check_remat(remat)
     dev = resolve_device(DEFAULT_DEVICE if device is None else device)
 
     def init(generator: torch.Generator) -> TF.Transformer:
         return TF.transformer_init(generator, cfg, dev)
 
     def abstract():
-        raise NotImplementedError("bundle.abstract waits for the training "
-                                  "slice")
+        raise NotImplementedError(
+            "bundle.abstract (parameter shapes without allocating) serves "
+            "the dry run and the sharded cells, which wait for ROADMAP §A10")
 
     def loss(params, batch):
-        raise NotImplementedError("bundle.loss waits for the training slice "
-                                  "(ROADMAP queue A, train/step.py)")
+        return TF.lm_loss(params, _batch(batch, params), cfg, remat=remat)
 
     def prefill(params, batch):
         return TF.transformer_prefill(params, _tokens(batch["tokens"], params),

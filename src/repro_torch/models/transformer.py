@@ -1,12 +1,17 @@
-"""Decoder-only transformer stack, dense family: forward, prefill and one
-decode step.
+"""Decoder-only transformer stack, dense family: the training forward and
+LM loss, prefill and one decode step.
 
 The counterpart of the dense branches of `repro.models.transformer`. The
 reference scans over layers stacked on a leading axis; here a
 `Transformer` holds an `nn.ModuleList` of `DenseBlock`s and a Python loop
-walks them (PyTorch runs eagerly). The reference's sharding constraints
-are the identity on one card and are dropped. The MoE family waits for
-its slice (`models.registry.build` raises for it).
+walks them (PyTorch runs eagerly). The reference rematerialises each
+scanned block (``jax.checkpoint`` with ``nothing_saveable`` for ``remat=
+"block"`` and ``"full"``); here each block runs under non-reentrant
+`torch.utils.checkpoint.checkpoint` while grad is on, so its forward runs
+again in the backward. Its ``"dots"`` policy (keep the matmul outputs)
+waits for ROADMAP §A10. The reference's sharding constraints are the
+identity on one card and are dropped. The MoE family waits for its slice
+(`models.registry.build` raises for it).
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -101,17 +107,54 @@ def _chunks_for(seq: int) -> Tuple[int, int]:
     return c, c
 
 
-@torch.no_grad()
+#: the reference's weight on the MoE load-balancing loss (dense: aux = 0)
+MOE_AUX_WEIGHT = 0.01
+#: remat policies the port runs (both rematerialise whole blocks)
+REMAT_POLICIES = ("block", "full")
+
+
+def check_remat(remat: str) -> None:
+    """Raise for a remat policy the port does not run."""
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (keep the matmul outputs, recompute the rest) "
+            "waits for ROADMAP §A10; the port runs 'block' / 'full'")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; expected one of "
+                         f"{REMAT_POLICIES}")
+
+
 def transformer_apply(params: Transformer, tokens: torch.Tensor,
-                      cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) -> (hidden (B, S, D), aux_loss); the forward pass
-    without the reference's rematerialisation (no backward here)."""
+                      cfg: ModelConfig, remat: str = "block"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (hidden (B, S, D), aux_loss). While grad is on,
+    each block is checkpointed (``remat``: "block" or "full", the
+    reference's ``nothing_saveable``): only its input is kept, and its
+    forward runs again in the backward."""
+    check_remat(remat)
     qc, kc = _chunks_for(tokens.shape[1])
     x = L.embed(params.embed, tokens)
     for block in params.layers:
-        x = dense_block(block, x, cfg, qc, kc)
+        if torch.is_grad_enabled():
+            x = checkpoint(dense_block, block, x, cfg, qc, kc,
+                           use_reentrant=False)
+        else:
+            x = dense_block(block, x, cfg, qc, kc)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params: Transformer, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, remat: str = "block"
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"xent", "aux"}) of ``batch`` ("tokens", "labels", optional
+    "mask"): `layers.softmax_xent` of the logits over the padded
+    vocabulary, plus the MoE weight times the aux loss."""
+    x, aux = transformer_apply(params, batch["tokens"], cfg, remat=remat)
+    logits = L.lm_logits(params.embed, x)
+    xent = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    loss = xent + MOE_AUX_WEIGHT * aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 # --------------------------------------------------------------------------

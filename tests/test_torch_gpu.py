@@ -587,3 +587,130 @@ def test_serving_path_on_the_card_launches_flash_per_layer(cuda):
     assert err < 0.05, err
     with pytest.raises(ValueError, match="different devices"):
         bundle.prefill(params, {"tokens": torch.from_numpy(toks)})
+
+
+# ---------------------------------------------------------------------------
+# the training path: flash forward with lse, its backward, sign packing
+# ---------------------------------------------------------------------------
+
+
+def _hm(x):
+    return x.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,bq,bk", FLASH_CASES)
+def test_flash_fwd_and_bwd_kernels_match_plain(cuda, B, Sq, Sk, H, KV, hd,
+                                               causal, bq, bk, dtype):
+    from repro_torch.kernels import flashattn as F
+
+    q, k, v = _qkv(cuda, Sq * hd + Sk + 1, dtype, B, Sq, Sk, H, KV, hd)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(Sq), device=cuda).to(dtype)
+    before = dict(LAUNCHES)
+    o, lse = F.flash_attention_fwd_kernel(q, k, v, causal)
+    dq, dk, dv = F.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_fwd"] == \
+        before.get("flash_attention_fwd", 0) + 1
+    assert LAUNCHES["flash_attention_bwd"] == \
+        before.get("flash_attention_bwd", 0) + 1
+    assert torch.equal(o, F.flash_attention_kernel(q, k, v, causal))
+    po, plse = F.flash_attention_fwd_plain(_hm(q), _hm(k), _hm(v), causal,
+                                           bq, bk)
+    _assert_flash_close(o, _hm(po), FLASH_TOL[dtype])
+    _assert_flash_close(lse, plse, 1e-4)
+    want = F.flash_attention_bwd_plain(_hm(q), _hm(k), _hm(v), _hm(o), lse,
+                                       _hm(do), causal, bq, bk)
+    for got, w, like in zip((dq, dk, dv), want, (q, k, v)):
+        assert got.shape == like.shape and got.dtype == dtype
+        _assert_flash_close(got, _hm(w), FLASH_TOL[dtype])
+
+
+def test_flash_function_on_the_card_launches_fwd_and_bwd(cuda):
+    """With grad on, `ops.flash_attention` launches the lse forward and,
+    in the backward, the backward kernel, once each; without it, the
+    serving kernel."""
+    from repro_torch.kernels import ops as kops
+
+    q, k, v = (x.requires_grad_() for x in
+               _qkv(cuda, 9, torch.bfloat16, 2, 200, 200, 8, 2, 64))
+    LAUNCHES.clear()
+    out = kops.flash_attention(q, k, v)
+    out.float().pow(2).sum().backward()
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"flash_attention_fwd": 1,
+                              "flash_attention_bwd": 1}
+    assert q.grad.shape == q.shape and k.grad.dtype == torch.bfloat16
+    with torch.no_grad():
+        kops.flash_attention(q, k, v)
+    assert LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32), (3, 32 * 1001), (5, 32 * 7),
+                                   (1, 1 << 20)])
+def test_sign_pack_kernels_match_plain(cuda, shape, dtype):
+    from repro_torch.kernels.signpack import (pack_signs_kernel,
+                                              unpack_signs_kernel)
+
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1.0, -1.0, -0.0], device=cuda)
+    n = min(8, shape[-1])
+    x[:, :n] = special[:n].to(dtype)
+    before = dict(LAUNCHES)
+    words = pack_signs_kernel(x)
+    signs = unpack_signs_kernel(words, dtype)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pack_signs"] == before.get("pack_signs", 0) + 1
+    assert LAUNCHES["unpack_signs"] == before.get("unpack_signs", 0) + 1
+    assert torch.equal(words, ref.pack_signs(x))
+    assert torch.equal(signs, ref.unpack_signs(words, dtype))
+    # the IEEE sign bit: -0.0 packs as 1 and unpacks as -1
+    assert torch.equal(signs, torch.where(torch.signbit(x), -1.0, 1.0)
+                       .to(dtype))
+    assert float(signs[0, 1]) == -1.0
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_on_the_card(cuda, accum):
+    """Reduced Qwen3-0.6B on the card: the step launches the lse forward
+    twice per layer and microbatch and the backward once; accumulated
+    gradients are float32; loss and gradients agree with the same
+    weights on the host (plain attention)."""
+    import copy
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = reduced(get_config("qwen3_0p6b"))
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(0))
+    host_params = copy.deepcopy(params).to("cpu")
+    batch = SyntheticLM(cfg.vocab_size, 96, 4, seed=1, device=cuda).batch(0)
+    LAUNCHES.clear()
+    loss, _, grads = loss_and_grads(bundle, params, batch, accum)
+    torch.cuda.synchronize()
+    n = cfg.n_layers * accum
+    assert dict(LAUNCHES) == {"flash_attention_fwd": 2 * n,
+                              "flash_attention_bwd": n}
+    want_dtype = torch.float32 if accum > 1 else torch.bfloat16
+    assert all(g.dtype == want_dtype and g.is_cuda for g in grads.values())
+    host = build(cfg, device="cpu")
+    hloss, _, hgrads = loss_and_grads(
+        host, host_params, {k: x.cpu() for k, x in batch.items()}, accum)
+    assert abs(float(loss) - float(hloss)) < 5e-3 * abs(float(hloss))
+    for name, g in hgrads.items():
+        d = (grads[name].cpu().float() - g.float()).pow(2).mean().sqrt()
+        assert float(d) <= 0.05 * float(g.float().pow(2).mean().sqrt()) \
+            + 1e-12, name
+    opt = adamw(constant(1e-3))
+    step = make_train_step(bundle, opt, grad_accum=accum)
+    _, _, m = step(params, opt.init(params), 0, batch)
+    assert bool(torch.isfinite(m["loss"])) and m["loss"].is_cuda

@@ -259,8 +259,13 @@ def test_build_takes_the_dense_family_only(arch):
     assert torch.isfinite(logits.float()).all()
     assert cache_bytes(cache) == 2 * cfg.n_layers * B * 8 * \
         cfg.n_kv_heads * cfg.head_dim_ * 2
-    with pytest.raises(NotImplementedError):
-        bundle.loss(params, {})
+    # the loss runs; the abstract shapes wait for the sharded cells
+    toks = _prompts()[:, :9]
+    loss, metrics = bundle.loss(params, {"tokens": toks[:, :8],
+                                         "labels": toks[:, 1:]})
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"xent", "aux"}
+    with pytest.raises(NotImplementedError, match="§A10"):
+        bundle.abstract()
 
 
 def test_entry_points_need_a_card_unless_asked():
@@ -291,3 +296,29 @@ def test_serve_cli_runs_on_the_cpu(capsys):
                         "8", "--max-new", "3"]) == 0
     out = capsys.readouterr().out
     assert "generated (2, 3)" in out and "on cpu" in out
+
+
+def test_loss_remat_policies():
+    """"block" and "full" rematerialise each block (the same loss and
+    gradients, the loss equal to the forward without grad); "dots" waits
+    for ROADMAP §A10; other names raise."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config("qwen3_0p6b")),
+                              dtype="float32")
+    toks = _prompts()
+    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:]}
+    params = build(cfg, device="cpu").init(torch.Generator().manual_seed(4))
+    params.requires_grad_(True)
+    out = {}
+    for remat in ("block", "full"):
+        loss, _ = build(cfg, device="cpu", remat=remat).loss(params, batch)
+        out[remat] = (loss, torch.autograd.grad(loss,
+                                                params.layers[0].attn.wq))
+    assert torch.equal(out["block"][0], out["full"][0])
+    assert torch.equal(out["block"][1][0], out["full"][1][0])
+    with torch.no_grad():
+        loss, _ = build(cfg, device="cpu").loss(params, batch)
+    assert torch.equal(loss, out["block"][0].detach())
+    with pytest.raises(NotImplementedError, match="§A10"):
+        build(cfg, device="cpu", remat="dots")
+    with pytest.raises(ValueError, match="remat"):
+        build(cfg, device="cpu", remat="none")
