@@ -22,15 +22,19 @@ Phases; the first failure exits non-zero:
    and edge (0, k + 1) thresholds over a ragged word count; bit-serial add,
    sub and lt at 1, 7, 8 and 32 bits, one and three rows of a ragged
    width; the bit untranspose with fewer than 32 planes, ragged group
-   counts and a round trip through the bit transpose; flash attention in
-   float32 and bf16 at the JAX package's five test shapes, a cross-attention
-   shape (64 queries over 100 keys) and B = 2, S = 1,000 causal at hd 128,
-   each within the JAX package's own tolerance (2e-3 float32, 2e-2 bf16)
-   of its plain version, relative to each element and to the plain
-   output's RMS; the training kernels at the same shapes and at B = 1, S =
-   4,096 causal, both dtypes: the lse-emitting forward (its output equal
-   to the serving kernel's, the lse within 1e-4) and the backward (dq,
-   dk, dv) against their plain versions within the same tolerance; sign
+   counts and a round trip through the bit transpose; ptxas's registers
+   and spill bytes of the head-dim-128 Hopper flash kernels (any spill
+   fails); flash attention in float32 and bf16 at the JAX package's five
+   test shapes, a cross-attention shape (64 queries over 100 keys), B = 2,
+   S = 1,000 causal at hd 128, and the hd-128 kernels' edges (100 queries
+   over 1,000 keys without the mask, GQA groups of 1 and 8, S = 130 and
+   1,000, B H = 144), each within the JAX package's own tolerance (2e-3
+   float32, 2e-2 bf16) of its plain version, relative to each element and
+   to the plain output's RMS; the training kernels at the same shapes and
+   at B = 1, S = 4,096 causal, both dtypes: the lse-emitting forward (its
+   output equal to the serving kernel's, the lse within 1e-4) and the
+   backward (dq, dk, dv; two runs bit-identical) against their plain
+   versions within the same tolerance; sign
    pack / unpack bit for bit in float32 and bf16, with +-0, +-inf and NaNs
    of either sign, on a ragged (3, 32,032) and a 2**26-lane input.
 3. slice   — (a) serve the §8 multi-tenant workload at full width (2**24-bit
@@ -121,7 +125,9 @@ Phases; the first failure exits non-zero:
    the forward timed beside ``scaled_dot_product_attention``, the
    backward beside that call's backward alone, its bound the larger of
    ``10 B H hd`` FLOPs per unmasked pair (five products) over 989 TFLOP/s
-   and q, k, v, o, do, lse, dq, dk, dv over 3.35 TB/s; pack and unpack
+   and q, k, v, o, do, lse, dq, dk, dv over 3.35 TB/s, and on the first
+   training launch what its hi + lo split of p and ds costs (timed with
+   and without it, each one's share of the gate printed); pack and unpack
    bit for bit, bound by their bytes. Phase 4 runs for (a)-(e) before
    (f) starts, so their recorded arguments are freed first.
 
@@ -226,7 +232,7 @@ def phase_build(build_mod) -> None:
     for name in names:
         print(f"[build] {name}.cu: " + (f"{seconds[name]:.1f} s"
                                        if name in seconds else "cached"))
-        for line in build_mod.BUILD_LOGS.get(name, "").splitlines():
+        for line in build_mod.build_log(name).splitlines():
             if "registers" in line or "Compiling entry" in line \
                     or "bytes stack" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
@@ -457,7 +463,11 @@ def _vote_arith_kernel_cases(torch, device, errs) -> int:
 
 #: flash attention's phase-2 shapes: (B, Sq, Sk, H, KV, hd, causal,
 #: block_q, block_k): the JAX package's five test cases, a cross-attention
-#: shape, and a ragged causal one at the serving path's head width
+#: shape, a ragged causal one at the serving path's head width, and the
+#: edges of the head-dim-128 Hopper kernels: Sq != Sk without the mask
+#: (cross attention), GQA groups of 1 and 8, lengths that are not a
+#: multiple of their 128-row tiles (130, 1,000), and B H = 144 query heads,
+#: more than the card's 132 SMs
 FLASH_CASES = (
     (2, 128, 128, 4, 2, 32, True, 32, 32),
     (2, 128, 128, 4, 2, 32, False, 32, 32),
@@ -466,7 +476,16 @@ FLASH_CASES = (
     (2, 64, 64, 8, 8, 128, True, 64, 64),
     (1, 64, 100, 4, 4, 32, False, 32, 32),
     (2, 1000, 1000, 16, 8, 128, True, 512, 512),
+    (2, 100, 1000, 8, 2, 128, False, 64, 128),
+    (1, 130, 130, 16, 16, 128, True, 64, 64),
+    (1, 1000, 1000, 16, 2, 128, True, 512, 512),
+    (9, 256, 256, 16, 8, 128, True, 128, 128),
 )
+#: the head-dim-128 bf16 kernels (sm_90a: TMA ring + wgmma) that
+#: `phase_sm90_report` holds to zero spills, by source
+SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel",),
+                "flashattn_bwd": ("flash_bwd_dq_sm90_kernel",
+                                  "flash_bwd_dkv_sm90_kernel")}
 #: kernel vs plain version: the JAX package's own bounds against its
 #: oracle (tests/test_flashattn.py), relative to each element and to the
 #: plain output's RMS over the launch; the two sum in another order and
@@ -505,6 +524,54 @@ def _close(label, got, want, tol: float):
           f"{err:.3g}, {share:.3g} of the tolerance: {tol:g} x (RMS of "
           f"the plain output + each element's magnitude))")
     return err, share
+
+
+def phase_sm90_report(build_mod) -> dict:
+    """Each head-dim-128 Hopper kernel's registers and spill bytes from
+    ptxas's report of its build; fails if any of them spills. Returns
+    ``{kernel: {"registers": r, "spill_stores": s, "spill_loads": l}}``
+    (template instances by their ``<true>`` / ``<false>`` argument)."""
+    import re
+
+    report = {}
+    for source, kernels in SM90_KERNELS.items():
+        entry = None
+        for line in build_mod.build_log(source).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m is not None:
+                entry = None
+                for name in kernels:
+                    if name in m.group(1):
+                        arg = re.search(name + r"ILb([01])E", m.group(1))
+                        entry = name + ("" if arg is None else
+                                        ("<true>" if arg.group(1) == "1"
+                                         else "<false>"))
+                        report[entry] = {}
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m is not None:
+                report[entry]["spill_stores"] = int(m.group(1))
+                report[entry]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m is not None:
+                report[entry]["registers"] = int(m.group(1))
+    for source, kernels in SM90_KERNELS.items():
+        for name in kernels:
+            check(any(k.startswith(name) for k in report),
+                  f"ptxas reported nothing for {name} ({source}.cu)")
+    for name, r in report.items():
+        check(len(r) == 3, f"ptxas's report of {name} is incomplete: {r}")
+        print(f"[kernels] ptxas {name}: {r['registers']} registers at "
+              f"entry (its consumer warpgroups take more with setmaxnreg), "
+              f"{r['spill_stores']} bytes spill stores, "
+              f"{r['spill_loads']} bytes spill loads")
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"{name} spills ({r['spill_stores']} bytes stored, "
+              f"{r['spill_loads']} loaded)")
+    return report
 
 
 def phase_flash_kernels(torch) -> float:
@@ -594,6 +661,12 @@ def phase_train_kernels(torch) -> dict:
                                     plse, 1e-4)
             grads = flashattn.flash_attention_bwd_kernel(q, k, v, o, lse, do,
                                                          causal)
+            again = flashattn.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                                         causal)
+            check(all(torch.equal(g, a) for g, a in zip(grads, again)),
+                  f"flash_attention_bwd {label}: two runs on the same "
+                  f"inputs differ")
+            del again
             want = flashattn.flash_attention_bwd_plain(
                 _hm(q), _hm(k), _hm(v), _hm(o), lse, _hm(do), causal, bq,
                 bk)
@@ -630,7 +703,8 @@ def phase_train_kernels(torch) -> dict:
     torch.cuda.synchronize()
     print(f"[kernels] training flash attention: {n_cases} cases of the "
           f"lse forward (its output equal to the serving kernel's) and the "
-          f"backward within the tolerance of the plain versions (largest "
+          f"backward (bit-identical over two runs) within the tolerance of "
+          f"the plain versions (largest "
           f"share {most:.3g}; max abs err forward "
           f"{worst['flash_attention_fwd']:.3g}, backward "
           f"{worst['flash_attention_bwd']:.3g}); sign pack / unpack: "
@@ -1417,7 +1491,8 @@ def _device_ms_by_kind(prof, backward: bool = False):
             continue
         n_events += e.count
         name = e.key
-        if "flash_mma_kernel" in name or "flash_simt_kernel" in name:
+        if "flash_fwd_sm90_kernel" in name or "flash_mma_kernel" in name \
+                or "flash_simt_kernel" in name:
             kind = "flash_attention"
         elif backward and "flash_bwd_" in name:
             kind = "flash_attention_bwd"
@@ -2298,6 +2373,37 @@ def _flash_bwd_gate_faults(torch, args, kw, want, tol: float) -> dict:
     return shares
 
 
+def _split_cost(torch, args, kw, want, tol: float, clock_hz) -> dict:
+    """What entering p and ds as hi + lo bf16 parts costs the head-dim-128
+    backward, on one main-path launch: the launch timed with the split
+    (what the port runs) and with p and ds rounded to bf16 once
+    (`flashattn._launch_bwd(split=False)`, which the port never calls), in
+    turns, and the share of the gate each uses against the plain version
+    ``want`` (dq, dk, dv). The unsplit share is reported, not gated."""
+    from repro_torch.kernels import flashattn
+
+    causal = kw.get("causal", True)
+    runs = {True: [], False: []}
+    for split in (True, False, False, True):
+        got, ms, _ = _time_ms(torch, lambda: flashattn._launch_bwd(
+            *args, causal, split=split), 5, clock_hz)
+        runs[split].append(ms)
+    shares = {split: max(_gate(g, w, tol)[0] for g, w in zip(
+        flashattn._launch_bwd(*args, causal, split=split), want))
+        for split in (True, False)}
+    out = {"split_ms": min(runs[True]), "unsplit_ms": min(runs[False]),
+           "split_gate_share": shares[True],
+           "unsplit_gate_share": shares[False]}
+    print(f"[numbers] flash backward hi + lo split, one training launch: "
+          f"{out['split_ms']:.4f} ms with it, {out['unsplit_ms']:.4f} ms "
+          f"with p and ds rounded once (the split costs "
+          f"{out['split_ms'] - out['unsplit_ms']:.4f} ms, "
+          f"{100 * (out['split_ms'] / out['unsplit_ms'] - 1):.1f}%); share "
+          f"of the gate used {shares[True]:.3g} with it, {shares[False]:.3g} "
+          f"without (at most 1 passes)")
+    return out
+
+
 #: the float kernels, held to their plain versions by `_gate`
 FLOAT_KERNELS = ("flash_attention", "flash_attention_fwd",
                  "flash_attention_bwd")
@@ -2360,6 +2466,10 @@ def phase_numbers(torch, calls, numbers: Numbers, int_rate, clock_hz):
                           f"the tolerance)")
             float_err[name] = max(float_err.get(name, 0.0), err)
             row["gate_share"] = max(row.get("gate_share", 0.0), share)
+            if name == "flash_attention_bwd" and stage == "train step" \
+                    and "split_cost" not in row:
+                row["split_cost"] = _split_cost(torch, args, kw, want, tol,
+                                                clock_hz)
             if stage in ("lm prefill", "train step") \
                     and "gate_faults" not in row:
                 row["gate_faults"] = (
@@ -2477,6 +2587,7 @@ def main() -> int:
                              n_queries=96)
         max_err = phase_kernels(torch, build_service(small, device="cuda"),
                                 small)
+        sm90 = phase_sm90_report(_build)
         float_err = {"flash_attention": phase_flash_kernels(torch)}
         float_err.update(phase_train_kernels(torch))
         spec = WorkloadSpec(n_tenants=4, n_weeks=3, domain_bits=1 << 24,
@@ -2512,6 +2623,7 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps({
             "card": card, "int32_ops_per_s": int_rate, "slice": slice_info,
+            "ptxas_sm90": sm90,
             "kernel_ms_by_stage": numbers.stages,
             "kernels": rows, "launches": numbers.per_kernel}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

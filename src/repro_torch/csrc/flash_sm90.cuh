@@ -1,0 +1,376 @@
+// Hopper (sm_90a) building blocks of the flash-attention kernels for head
+// dim 128 in bf16 (flashattn.cu: the forward; flashattn_bwd.cu: the
+// backward): TMA tensor maps built on the host, mbarriers, the bulk tensor
+// copy, warpgroup register hand-over (setmaxnreg) and wgmma with its
+// shared-memory descriptors. Everything has internal linkage: each source
+// that includes this builds into its own library.
+//
+// Layout convention. Every operand tile is a run of rows of 128 head-dim
+// values in bf16 (256 bytes), brought in by TMA as two "halves" of 64
+// columns (128 bytes a row), each half stored row after row with the
+// 128-byte swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)).
+// A half of R rows takes R * 128 bytes and starts on a 1024-byte boundary.
+// wgmma reads a half in one of two ways:
+//   K-major (the product runs over head dims: Q K^T, dO V^T, K Q^T, ...):
+//   8-row groups 1024 bytes apart (SBO); the 16-deep k-step s of a half
+//   starts 32 s bytes into it.
+//   N-major (the product runs over rows, the head dim is the output
+//   column: P V, dS K, P^T dO, dS^T Q): the transpose bit is set, the
+//   16-deep k-step s starts 16 rows (2048 bytes) in, 8-row groups are
+//   1024 bytes apart (SBO) and the second 64 output columns are the other
+//   half (LBO = its distance).
+#pragma once
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;   // exp(x) = 2^(x log2(e))
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so the library links against nothing beyond the runtime; null
+// where the installed CUDA lacks it.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A map over a bf16 operand in the model's layout (B, S, heads, 128),
+// given by its base and (batch, sequence, head) strides in elements: 4-D,
+// innermost first (head dim, sequence, head, batch), read in boxes of 64
+// head-dim columns by `rows` sequence rows of one head, 128-byte swizzle.
+// Rows past `seq` read as zeros. Returns false if the encoding is refused
+// (TMA needs a 16-byte aligned base and strides that are multiples of 16
+// bytes: `_readable` in kernels/flashattn.py guarantees both).
+bool make_tile_map(CUtensorMap* map, const void* base, int batch, int seq,
+                   int heads, const long long* strides, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, bytes, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// device: barriers, copies, register hand-over
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive, and expect `bytes` more from the copies that signal `bar`.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`
+// (its n-th completion has parity n & 1). A wait that never ends (a lost
+// arrival or copy) traps after about 2^28 polls, so a fault surfaces as a
+// launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// One box of `map` at coordinates (column, row, head, batch) into shared
+// memory at dst, completing `bytes` of `bar`'s expected transfer.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// Both 64-column halves of `rows` rows of one head (2 * rows * 128 bytes).
+__device__ __forceinline__ void tma_load_rows(unsigned char* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int rows,
+                                              int row, int head, int batch) {
+  tma_load(dst, map, bar, 0, row, head, batch);
+  tma_load(dst + rows * 128, map, bar, 64, row, head, batch);
+}
+
+template <int N>
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void regs_claim() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// The shared memory at or after p on a 1024-byte boundary (the 128-byte
+// swizzle's period).
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// ---------------------------------------------------------------------------
+// device: wgmma
+// ---------------------------------------------------------------------------
+
+// A shared-memory matrix descriptor with the 128-byte swizzle.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor of a K-major tile (its 8-row groups 1024 bytes apart)
+// and of an N-major one whose two halves are `half_bytes` apart.
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile) {
+  return smem_desc(tile, 16, 1024);
+}
+
+__device__ __forceinline__ uint64_t desc_n(const unsigned char* tile,
+                                           uint32_t half_bytes) {
+  return smem_desc(tile, half_bytes, 1024);
+}
+
+// k-step s (16 deep) from a tile's descriptor: K-major, half s / 4 of a
+// tile of `rows` rows, 32 (s % 4) bytes in; N-major, 16 s rows in. Only
+// the start address (in 16-byte units, the low bits) moves.
+__device__ __forceinline__ uint64_t kstep_k(uint64_t d, int rows, int s) {
+  return d + static_cast<uint64_t>(((s / 4) * rows * 128 + (s % 4) * 32)
+                                   >> 4);
+}
+
+__device__ __forceinline__ uint64_t kstep_n(uint64_t d, int s) {
+  return d + static_cast<uint64_t>(128 * s);
+}
+
+// d, opaque to the compiler, so that the steps derived from it are
+// recomputed inside a loop (one add each) rather than hoisted out of it
+// and held in registers for its whole length.
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 64, float32) = A B, or += where `accumulate`: A 64 x 16 and
+// B 16 x 64 bf16, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, float32) = A B, or += where `accumulate`: A 64 x 16 and
+// B 16 x 128 bf16, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, float32) = A B, or += where `accumulate`: A 64 x 16 bf16
+// from registers (each
+// warp's 16 rows in the mma.sync A fragment layout), B 16 x 128 bf16 from
+// shared memory, N-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+
+// A float32 accumulator of N values a thread (N / 4 blocks of 8 columns;
+// block j holds elements 4 j, 4 j + 1 of row g and 4 j + 2, 4 j + 3 of
+// row g + 8) as the bf16 A fragments of a product over its columns: k-step
+// kk (16 deep) takes blocks 2 kk and 2 kk + 1, in registers 4 kk .. 4 kk +
+// 3 (a0: row g, a1: row g + 8, columns 0-7; a2, a3: columns 8-15).
+template <int N>
+__device__ __forceinline__ void acc_to_frags(const float (&x)[N],
+                                             uint32_t (&a)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const __nv_bfloat162 r0 = __floats2bfloat162_rn(x[4 * j], x[4 * j + 1]);
+    const __nv_bfloat162 r1 =
+        __floats2bfloat162_rn(x[4 * j + 2], x[4 * j + 3]);
+    a[4 * (j / 2) + 2 * (j % 2)] = *reinterpret_cast<const uint32_t*>(&r0);
+    a[4 * (j / 2) + 2 * (j % 2) + 1] =
+        *reinterpret_cast<const uint32_t*>(&r1);
+  }
+}
+
+// The same, split in two bf16 parts: hi = bf16(x), lo = bf16(x - hi).
+template <int N>
+__device__ __forceinline__ void acc_to_split_frags(const float (&x)[N],
+                                                   uint32_t (&hi)[N / 2],
+                                                   uint32_t (&lo)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float a = x[4 * j + 2 * r], b = x[4 * j + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+      const int i = 4 * (j / 2) + 2 * (j % 2) + r;
+      hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+    }
+  }
+}
+
+}  // namespace

@@ -16,34 +16,48 @@
 // (B = 8, H = 16, KV = 8, S = 2048, hd = 128, causal, bf16) the two
 // products are 4 B H hd S (S + 1) / 2 = 1.37e11 FLOP, 0.139 ms at 989
 // TFLOP/s (dense bf16), against q + k + v + o = 201 MB, 0.060 ms at 3.35
-// TB/s.
+// TB/s; the training path's lse forward (B = 2, S = 4096) has the same
+// 0.139 ms bound.
 //
 // Design. Blocks run in no order, so the TPU's sequential key axis becomes
-// a loop inside the block: one CTA per (q tile of 64 rows, head, batch)
-// walks the key tiles of 64 rows, skipping those wholly above the diagonal
-// when causal (the Pallas kernel's pl.when(run)), and keeps its row max,
-// denominator and output accumulator on chip for the whole loop. The
-// tiles are Hopper-sized, not the TPU's 512 x 512; the wrapper's block_q /
-// block_k only shape the plain version. q, k, v and o are read and
-// written in the model's (B, S, heads, hd) layout through their strides
-// (unit stride on hd), so the wrapper makes no transposed copies. The
-// GQA group maps query head h to key/value head h / (H / KV). Masked
-// scores are -1e30 and the denominator is clamped at 1e-30, as in the
-// reference; the keys past the sequence's end are masked and its query
-// rows past the end are not stored.
+// a loop inside the block: a CTA per (query tile, head, batch) walks the
+// key tiles, skipping those wholly above the diagonal when causal (the
+// Pallas kernel's pl.when(run)), and keeps its row max, denominator and
+// output accumulator on chip for the whole loop. The tiles are
+// Hopper-sized, not the TPU's 512 x 512; the wrapper's block_q / block_k
+// only shape the plain version. q, k, v and o are read and written in the
+// model's (B, S, heads, hd) layout through their strides (unit stride on
+// hd), so the wrapper makes no transposed copies. The GQA group maps query
+// head h to key/value head h / (H / KV). Masked scores are -1e30 and the
+// denominator is clamped at 1e-30, as in the reference; keys past the
+// sequence's end are masked and query rows past the end are not stored.
+// The launcher's switch on the head dim and dtype picks the kernel; none
+// falls back on another:
 //
-//   bf16: four warps, 16 query rows each. Q's fragments stay in registers;
-//   each key tile is staged in shared memory (K row-major, V transposed, so
-//   every operand fragment is one 32-bit load) and both products run on
-//   mma.sync.m16n8k16 with float32 accumulation. p is rounded to bf16 for
-//   the PV product while the denominator sums it in float32, as the
-//   reference casts p to v's dtype.
-//   float32: scalar FP32 FMAs, 256 threads, each owning a 4 x 4 block of
-//   the 64 x 64 score tile and a 4 x (hd / 16) block of the accumulator.
-//
-// The mma.sync path is a first design; wgmma, TMA and a pipelined K/V ring
-// are later work.
+//   bf16, head dim 128 (every dense config the port serves and trains):
+//   flash_fwd_sm90_kernel. Against the operation bound it keeps the
+//   tensor cores fed: a CTA of 128 query rows, two consumer warpgroups of
+//   64 rows on wgmma and one producer thread that streams 128-key K and V
+//   tiles by TMA (a tensor map per operand, built on the host over the
+//   model's layout; 128-byte swizzle) through a two-stage ring of full /
+//   empty mbarriers; setmaxnreg gives the producer's registers to the
+//   consumers. S = Q K^T reads both operands from shared memory, K-major;
+//   O += P V takes P from registers (the S accumulator rounded to bf16 is
+//   the A fragment) and reads V in its [key][hd] layout through the
+//   descriptor's transpose bit, so nothing is staged transposed. The
+//   online softmax runs in exp2 with scale log2(e) folded in; p enters P V
+//   in bf16 while the denominator sums it in float32; lse is written in
+//   natural log. Masking runs only on tiles that cross the diagonal or the
+//   keys' end, and the heaviest (last) query tiles launch first.
+//   bf16, head dims 16, 32, 64: the first design, flash_mma_kernel: four
+//   warps, 16 query rows each, on mma.sync.m16n8k16 with float32
+//   accumulation; Q's fragments stay in registers, each 64-key tile is
+//   staged in shared memory (K row-major, V transposed).
+//   float32, every head dim: flash_simt_kernel, scalar FP32 FMAs, 256
+//   threads, each owning a 4 x 4 block of the 64 x 64 score tile and a
+//   4 x (hd / 16) block of the accumulator.
 #include "flash_tiles.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -390,6 +404,258 @@ flash_simt_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, head dim 128: TMA ring + wgmma (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdBM = 128;          // query rows per CTA (two warpgroups)
+constexpr int kFwdBN = 128;          // keys per tile
+constexpr int kFwdStages = 2;        // K / V tiles in flight
+constexpr int kFwdThreads = 384;     // consumers: warpgroups 0, 1; producer: 2
+constexpr int kFwdTile = 128 * 256;  // bytes of a 128-row tile (two halves)
+constexpr int kFwdSmem = 1024 + (1 + 2 * kFwdStages) * kFwdTile + 64;
+
+struct Sm90Params {
+  CUtensorMap q_map, k_map, v_map;
+  void* o;
+  float* lse;                     // (B, H, Sq) float32, or null
+  long long o_strides[3];
+  int sq, sk, heads, group, batch, n_q_tiles;
+  int causal;
+  float scale;                    // 1 / sqrt(hd)
+  float scale_log2;               // scale * log2(e)
+};
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sK = smem + kFwdTile;                    // [stage]
+  unsigned char* sV = sK + kFwdStages * kFwdTile;         // [stage]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kFwdStages * kFwdTile);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;                            // [stage]
+  uint64_t* v_full = k_full + kFwdStages;                 // [stage]
+  uint64_t* empty = v_full + kFwdStages;                  // [stage]
+
+  // the heaviest (last, when causal) query tiles first
+  const int bh = p.heads * p.batch;
+  const int qt = p.n_q_tiles - 1 - static_cast<int>(blockIdx.x) / bh;
+  const int h = static_cast<int>(blockIdx.x) % bh % p.heads;
+  const int b = static_cast<int>(blockIdx.x) % bh / p.heads;
+  const int q0 = qt * kFwdBM;
+  int n_tiles = (p.sk + kFwdBN - 1) / kFwdBN;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kFwdBM - 1) / kFwdBN + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);        // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread keeps the ring full
+    regs_release<40>();
+    if (threadIdx.x == 256) {
+      const int kvh = h / p.group;
+      mbar_arrive_expect_tx(q_full, kFwdTile);
+      tma_load_rows(sQ, &p.q_map, q_full, kFwdBM, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kFwdStages;
+        if (j >= kFwdStages) mbar_wait(&empty[s], (j / kFwdStages - 1) & 1);
+        mbar_arrive_expect_tx(&k_full[s], kFwdTile);
+        tma_load_rows(sK + s * kFwdTile, &p.k_map, &k_full[s], kFwdBN,
+                      j * kFwdBN, kvh, b);
+        mbar_arrive_expect_tx(&v_full[s], kFwdTile);
+        tma_load_rows(sV + s * kFwdTile, &p.v_map, &v_full[s], kFwdBN,
+                      j * kFwdBN, kvh, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    regs_claim<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 64 * wg + 16 * warp + g;   // and row0 + 8
+    const int wg_row = q0 + 64 * wg;                 // the group's first row
+    const uint64_t q_desc = desc_k(sQ + wg * 64 * 128);
+    const float c = p.scale_log2;
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;   // running max of the raw scores
+    float l0 = 0.f, l1 = 0.f;           // this thread's part of the sums
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kFwdStages;
+      const uint32_t parity = (j / kFwdStages) & 1;
+      const unsigned char* k_tile = sK + s * kFwdTile;
+      const unsigned char* v_tile = sV + s * kFwdTile;
+      const int k0 = j * kFwdBN;
+
+      // S = Q K^T over the two halves of the head dim
+      float sc[64];
+      mbar_wait(&k_full[s], parity);
+      wgmma_fence();
+      const uint64_t qd = opaque(q_desc), kd = desc_k(k_tile);
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        wgmma_ss_n128(sc, kstep_k(qd, kFwdBM, ks), kstep_k(kd, kFwdBN, ks),
+                      ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // the mask, only where the tile reaches past a row's position or
+      // the keys' end
+      if (k0 + kFwdBN > p.sk || (p.causal && k0 + kFwdBN - 1 > wg_row)) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int qpos = row0 + ((i & 2) ? 8 : 0);
+          if (kpos >= p.sk || (p.causal && kpos > qpos)) sc[i] = kNegInf;
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float alpha0 = exp2f((m0 - mx0) * c);
+      const float alpha1 = exp2f((m1 - mx1) * c);
+      m0 = mx0;
+      m1 = mx1;
+      // (a row with every key masked so far takes p = 0, not 2^(huge))
+      const float mc0 = mx0 == kNegInf ? 0.f : mx0 * c;
+      const float mc1 = mx1 == kNegInf ? 0.f : mx1 * c;
+
+      // p = 2^(s c - m c): float32 into the sums, bf16 into P V
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        sc[i] = exp2f(fmaf(sc[i], c, -mc0));
+        sc[i + 1] = exp2f(fmaf(sc[i + 1], c, -mc0));
+        sc[i + 2] = exp2f(fmaf(sc[i + 2], c, -mc1));
+        sc[i + 3] = exp2f(fmaf(sc[i + 3], c, -mc1));
+        sum0 += sc[i] + sc[i + 1];
+        sum1 += sc[i + 2] + sc[i + 3];
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+      uint32_t pf[32];
+      acc_to_frags(sc, pf);
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        o[i] *= alpha0;
+        o[i + 1] *= alpha0;
+        o[i + 2] *= alpha1;
+        o[i + 3] *= alpha1;
+      }
+
+      // O += P V: V read N-major in its [key][head dim] layout
+      mbar_wait(&v_full[s], parity);
+      const uint64_t vd = desc_n(v_tile, kFwdBN * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwdBN / 16; ++kk) {
+        const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                               pf[4 * kk + 3]};
+        wgmma_rs_n128(o, a, kstep_n(vd, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (p.lse != nullptr && t == 0) {
+      float* lse = p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
+      if (row0 < p.sq) lse[row0] = m0 * p.scale + logf(fmaxf(l0, 1e-30f));
+      if (row0 + 8 < p.sq) {
+        lse[row0 + 8] = m1 * p.scale + logf(fmaxf(l1, 1e-30f));
+      }
+    }
+    auto* out = static_cast<__nv_bfloat16*>(p.o) + b * p.o_strides[0] +
+                h * p.o_strides[2];
+#pragma unroll
+    for (int i = 0; i < 64; i += 4) {
+      const int d = 8 * (i / 4) + 2 * t;
+      if (row0 < p.sq) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + static_cast<long long>(row0) * p.o_strides[1] + d) =
+            __floats2bfloat162_rn(o[i] * inv0, o[i + 1] * inv0);
+      }
+      if (row0 + 8 < p.sq) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + static_cast<long long>(row0 + 8) * p.o_strides[1] + d) =
+            __floats2bfloat162_rn(o[i + 2] * inv1, o[i + 3] * inv1);
+      }
+    }
+  }
+}
+
+// The head-dim-128 bf16 launch: a tensor map per operand, a CTA per
+// (query tile, head, batch).
+cudaError_t launch_sm90(const Params& p, int batch, int kv_heads,
+                        cudaStream_t stream) {
+  Sm90Params s;
+  const bool mapped =
+      make_tile_map(&s.q_map, p.q, batch, p.sq, p.heads, p.q_strides,
+                    kFwdBM) &&
+      make_tile_map(&s.k_map, p.k, batch, p.sk, kv_heads, p.k_strides,
+                    kFwdBN) &&
+      make_tile_map(&s.v_map, p.v, batch, p.sk, kv_heads, p.v_strides,
+                    kFwdBN);
+  if (!mapped) return cudaErrorInvalidValue;
+  s.o = p.o;
+  s.lse = p.lse;
+  for (int i = 0; i < 3; ++i) s.o_strides[i] = p.o_strides[i];
+  s.sq = p.sq;
+  s.sk = p.sk;
+  s.heads = p.heads;
+  s.group = p.group;
+  s.batch = batch;
+  s.n_q_tiles = (p.sq + kFwdBM - 1) / kFwdBM;
+  s.causal = p.causal;
+  s.scale = p.scale;
+  s.scale_log2 = p.scale * kLog2e;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFwdSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(s.n_q_tiles) * p.heads *
+                           batch;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_sm90_kernel<<<static_cast<unsigned>(blocks), kFwdThreads,
+                          kFwdSmem, stream>>>(s);
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, size_t smem, const Params& p,
                    int batch, cudaStream_t stream) {
@@ -406,9 +672,15 @@ template <int HD>
 cudaError_t launch_hd(int dtype, const Params& p, int batch,
                       cudaStream_t stream) {
   if (dtype == 1) {
-    const size_t smem = sizeof(__nv_bfloat16) *
-                        (kBK * (HD + 8) + HD * (kBK + 8));
-    return launch(flash_mma_kernel<HD>, kMmaThreads, smem, p, batch, stream);
+    // head dim 128: the Hopper kernel; 16, 32, 64: the mma.sync kernel
+    if constexpr (HD == 128) {
+      return launch_sm90(p, batch, p.heads / p.group, stream);
+    } else {
+      const size_t smem = sizeof(__nv_bfloat16) *
+                          (kBK * (HD + 8) + HD * (kBK + 8));
+      return launch(flash_mma_kernel<HD>, kMmaThreads, smem, p, batch,
+                    stream);
+    }
   }
   const size_t smem = sizeof(float) *
                       (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD +

@@ -11,17 +11,17 @@
 // src/repro_torch/kernels/flashattn.py::flash_attention_bwd_plain.
 //
 // What bounds it on this card: operations. At the training path's shape
-// (microbatch B = 4, H = 16, KV = 8, S = 4096, hd = 128, causal, bf16) the
+// (microbatch B = 2, H = 16, KV = 8, S = 4096, hd = 128, causal, bf16) the
 // five products over the unmasked pairs are 10 B H hd S (S + 1) / 2 =
-// 6.9e11 FLOP, 0.69 ms at 989 TFLOP/s, against q, k, v, o, do, lse, dq,
-// dk, dv = 0.60 GB, 0.18 ms at 3.35 TB/s.
+// 3.4e11 FLOP, 0.348 ms at 989 TFLOP/s, against q, k, v, o, do, lse, dq,
+// dk, dv = 0.20 GB, 0.060 ms at 3.35 TB/s.
 //
 // Design. Blocks run in no order, so each output gets the CTA that owns
 // it and a loop takes the place of the TPU's sequential grid axis:
-//   dq: one CTA per (64-row query tile, head, batch) walks the key tiles up
-//   to the diagonal, recomputes s = q k^T, p = exp(s * scale - lse) and
+//   dq: one CTA per (query tile, head, batch) walks the key tiles up to
+//   the diagonal, recomputes s = q k^T, p = exp(s * scale - lse) and
 //   dp = do v^T, and accumulates dq += ds k with ds = p (dp - delta) scale.
-//   dk / dv: one CTA per (64-key tile, key/value head, batch) walks the G
+//   dk / dv: one CTA per (key tile, key/value head, batch) walks the G
 //   query heads of its group and, for each, every query tile at or below
 //   the diagonal, accumulating dv += p^T do and dk += ds^T q. The group's
 //   sum stays in the CTA's registers, so there are no atomics, no
@@ -32,25 +32,44 @@
 // model's (B, S, heads, hd) layout through their strides (hd contiguous);
 // lse and delta are contiguous (B, H, Sq) float32. Query rows past Sq and
 // keys past Sk are masked (p = 0: no phantom gradients, as the reference's
-// +inf lse padding gives) and never stored.
+// +inf lse padding gives) and never stored. The masks, exp, p and ds are
+// float32, as in the reference. Rounded once to bf16, ds = p (dp - delta),
+// which cancels within a row, moves small dq elements of the first causal
+// rows by 2-4% of dq's RMS, and p moves dv of the first keys (which every
+// query sees) as far (measured on the card). So in bf16 both go in as two
+// parts, hi = bf16(x) and lo = bf16(x - hi), two products each for dq, dk
+// and dv, which keeps about 16 bits of p and ds. The launcher's switch on
+// the head dim and dtype picks the kernels; none falls back on another:
 //
-//   bf16: four warps on mma.sync.m16n8k16 with float32 accumulation; every
-//   operand tile is staged in shared memory, row-major where it is an A
-//   operand or the B operand of a product over hd, transposed where it is
-//   the B operand of a product over keys or queries. The masks, exp, p
-//   and ds are float32, as in the reference. Rounded once to bf16, ds =
-//   p (dp - delta), which cancels within a row, moves small dq elements
-//   of the first causal rows by 2-4% of dq's RMS, and p moves dv of the
-//   first keys (which every query sees) as far (measured on the card).
-//   So both go in as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi),
-//   two products each for dq, dk and dv (ten products in all where the
-//   algorithm has seven), which keeps about 16 bits of p and ds.
-//   float32: scalar FP32 FMAs, 256 threads, each owning a 4 x 4 block of
-//   the 64 x 64 score tile and a 4 x (hd / 16) block of its accumulators.
-//
-// A first design: no K/V or Q/dO pipelining, a block-wide barrier per
-// tile; wgmma, TMA and a ring of tiles are later work.
+//   bf16, head dim 128 (every dense config the port trains):
+//   flash_bwd_dq_sm90_kernel, then flash_bwd_dkv_sm90_kernel. Against
+//   the operation bound they keep the tensor cores fed: each CTA has two
+//   consumer warpgroups on wgmma and a producer that streams tiles by TMA
+//   (tensor maps over the model's layout, 128-byte swizzle) through a
+//   three-stage ring of full / empty mbarriers, and setmaxnreg gives the
+//   producer's registers to the consumers. The products over head dims
+//   (S, dP; S^T, dP^T) read both operands from shared memory, K-major; the
+//   products over keys or queries (dQ += dS K, dV += P^T dO, dK += dS^T Q)
+//   take dS, P^T, dS^T from registers (their accumulators are the A
+//   fragments) and read K, dO, Q in their natural [row][hd] layout through
+//   the descriptor's transpose bit, so nothing is staged transposed; the
+//   lo part of the split is one more product on the same descriptor. dq:
+//   128 query rows a CTA, 64-key tiles. dk / dv: 128 keys a CTA, K and V
+//   loaded once, 64-query tiles with their lse and delta rows, in two
+//   passes (dV, then dK) so that one accumulator of 64 registers a thread
+//   is live beside S^T and dP^T; with both live ptxas spilled. p is
+//   2^(s scale log2(e) - lse log2(e)).
+//   bf16, head dims 16, 32, 64: the first design, flash_bwd_dq_mma_kernel
+//   and flash_bwd_dkv_mma_kernel: four warps on mma.sync.m16n8k16 with
+//   float32 accumulation, 64 x 64 tiles staged in shared memory
+//   (row-major where they are an A operand or the B operand of a product
+//   over hd, transposed where they are the B operand of a product over
+//   keys or queries), the same hi + lo split.
+//   float32, every head dim: scalar FP32 FMAs, 256 threads, each owning a
+//   4 x 4 block of the 64 x 64 score tile and a 4 x (hd / 16) block of its
+//   accumulators.
 #include "flash_tiles.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -659,6 +678,484 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, head dim 128: TMA ring + wgmma (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 384;     // consumers: warpgroups 0, 1; producer: 2
+constexpr int kBwdStages = 3;        // tiles in flight
+constexpr int kRows128 = 128 * 256;  // bytes of 128 rows of 128 bf16
+constexpr int kRows64 = 64 * 256;    // bytes of 64 rows
+
+struct DqParams {
+  CUtensorMap q_map, do_map;        // boxes of 128 rows
+  CUtensorMap k_map, v_map;         // boxes of 64 rows
+  const float* lse;                 // (B, H, Sq)
+  const float* delta;               // (B, H, Sq)
+  void* dq;
+  long long dq_strides[3];
+  int sq, sk, heads, group, batch, n_q_tiles;
+  int causal;
+  float scale, scale_log2;
+};
+
+struct DkvParams {
+  CUtensorMap k_map, v_map;         // boxes of 128 rows
+  CUtensorMap q_map, do_map;        // boxes of 64 rows
+  const float* lse;
+  const float* delta;
+  void* dk;
+  void* dv;
+  long long dk_strides[3];
+  long long dv_strides[3];
+  int sq, sk, heads, group, batch, kv_heads;
+  int causal;
+  float scale, scale_log2;
+};
+
+constexpr int kDqSmem = 1024 + 2 * kRows128 + 2 * kBwdStages * kRows64 + 64;
+constexpr int kDkvSmem = 1024 + 2 * kRows128 + 2 * kBwdStages * kRows64 +
+                         2 * kBwdStages * 64 * 4 + 64;
+
+// Store a warpgroup's 64 x 128 float32 accumulator as bf16 rows row0 (and
+// row0 + 8) of x, those below `rows` only.
+__device__ __forceinline__ void store_acc_rows(__nv_bfloat16* x,
+                                               long long row_stride,
+                                               const float (&acc)[64],
+                                               int row0, int rows, int t) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 4) {
+    const int d = 8 * (i / 4) + 2 * t;
+    if (row0 < rows) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          x + static_cast<long long>(row0) * row_stride + d) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+    if (row0 + 8 < rows) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          x + static_cast<long long>(row0 + 8) * row_stride + d) =
+          __floats2bfloat162_rn(acc[i + 2], acc[i + 3]);
+    }
+  }
+}
+
+// dq: a CTA per (128-row query tile, head, batch), the heaviest (last,
+// when causal) first. Q and dO are loaded once; K and V tiles of 64 keys
+// stream through the ring up to the diagonal. Each consumer warpgroup
+// owns 64 query rows: S = Q K^T and dP = dO V^T from shared memory,
+// dS = P (dP - delta) scale in registers, dQ += dS K with K read N-major.
+// kSplit: dS enters as hi + lo bf16 parts (two products), else rounded
+// once.
+template <bool kSplit>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ DqParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sdO = sQ + kRows128;
+  unsigned char* sK = sdO + kRows128;                   // [stage]
+  unsigned char* sV = sK + kBwdStages * kRows64;        // [stage]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kBwdStages * kRows64);
+  uint64_t* q_full = bars;
+  uint64_t* kv_full = bars + 1;                         // [stage]
+  uint64_t* empty = kv_full + kBwdStages;               // [stage]
+
+  const int bh = p.heads * p.batch;
+  const int qt = p.n_q_tiles - 1 - static_cast<int>(blockIdx.x) / bh;
+  const int h = static_cast<int>(blockIdx.x) % bh % p.heads;
+  const int b = static_cast<int>(blockIdx.x) % bh / p.heads;
+  const int q0 = qt * 128;
+  int n_tiles = (p.sk + 63) / 64;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + 127) / 64 + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&empty[s], 8);        // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    regs_release<40>();
+    if (threadIdx.x == 256) {
+      const int kvh = h / p.group;
+      mbar_arrive_expect_tx(q_full, 2 * kRows128);
+      tma_load_rows(sQ, &p.q_map, q_full, 128, q0, h, b);
+      tma_load_rows(sdO, &p.do_map, q_full, 128, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kBwdStages;
+        if (j >= kBwdStages) mbar_wait(&empty[s], (j / kBwdStages - 1) & 1);
+        mbar_arrive_expect_tx(&kv_full[s], 2 * kRows64);
+        tma_load_rows(sK + s * kRows64, &p.k_map, &kv_full[s], 64, j * 64,
+                      kvh, b);
+        tma_load_rows(sV + s * kRows64, &p.v_map, &kv_full[s], 64, j * 64,
+                      kvh, b);
+      }
+    }
+  } else {
+    regs_claim<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int wg_row = q0 + 64 * wg;
+    const int row0 = wg_row + 16 * warp + g;          // and row0 + 8
+    const long long row_base =
+        (static_cast<long long>(b) * p.heads + h) * p.sq;
+    const float l0 = row0 < p.sq ? p.lse[row_base + row0] * kLog2e : 0.f;
+    const float l1 =
+        row0 + 8 < p.sq ? p.lse[row_base + row0 + 8] * kLog2e : 0.f;
+    const float d0 = row0 < p.sq ? p.delta[row_base + row0] : 0.f;
+    const float d1 = row0 + 8 < p.sq ? p.delta[row_base + row0 + 8] : 0.f;
+    const uint64_t q_desc = desc_k(sQ + wg * 64 * 128);
+    const uint64_t do_desc = desc_k(sdO + wg * 64 * 128);
+    const float c = p.scale_log2;
+
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kBwdStages;
+      const int k0 = j * 64;
+      const unsigned char* k_tile = sK + s * kRows64;
+      const unsigned char* v_tile = sV + s * kRows64;
+      mbar_wait(&kv_full[s], (j / kBwdStages) & 1);
+      if (!p.causal || k0 <= wg_row + 63) {   // else wholly masked here
+        float sc[32], dp[32];
+        wgmma_fence();
+        const uint64_t qd = opaque(q_desc), dod = opaque(do_desc);
+        const uint64_t kd = desc_k(k_tile), vd = desc_k(v_tile);
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          wgmma_ss_n64(sc, kstep_k(qd, 128, ks), kstep_k(kd, 64, ks), ks > 0);
+        }
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          wgmma_ss_n64(dp, kstep_k(dod, 128, ks), kstep_k(vd, 64, ks), ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // ds = p (dp - delta) scale with p = 2^(s c - lse log2 e), 0 where
+        // masked, in place of s
+        const bool mask = k0 + 64 > p.sk || (p.causal && k0 + 63 > wg_row);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const bool lower = (i & 2) != 0;
+          float pr = exp2f(fmaf(sc[i], c, -(lower ? l1 : l0)));
+          if (mask) {
+            const int kpos = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+            const int qpos = row0 + (lower ? 8 : 0);
+            if (kpos >= p.sk || (p.causal && kpos > qpos)) pr = 0.f;
+          }
+          sc[i] = pr * (dp[i] - (lower ? d1 : d0)) * p.scale;
+        }
+        uint32_t hi[16], lo[16];
+        if constexpr (kSplit) {
+          acc_to_split_frags(sc, hi, lo);
+        } else {
+          acc_to_frags(sc, hi);
+        }
+        // dQ += dS K: K read N-major in its [key][head dim] layout
+        const uint64_t kn = desc_n(k_tile, 64 * 128);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t ks_desc = kstep_n(kn, kk);
+          const uint32_t ah[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
+                                  hi[4 * kk + 3]};
+          wgmma_rs_n128(dq, ah, ks_desc, 1);
+          if constexpr (kSplit) {
+            const uint32_t al[4] = {lo[4 * kk], lo[4 * kk + 1],
+                                    lo[4 * kk + 2], lo[4 * kk + 3]};
+            wgmma_rs_n128(dq, al, ks_desc, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    auto* out = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_strides[0] +
+                h * p.dq_strides[2];
+    store_acc_rows(out, p.dq_strides[1], dq, row0, p.sq, t);
+  }
+}
+
+// dk / dv: a CTA per (128-key tile, key/value head, batch), the heaviest
+// (first, when causal) first. K and V are loaded once; the Q and dO tiles
+// of 64 query rows of every head in the GQA group, from the diagonal on,
+// stream through the ring with their lse and delta rows, twice: a first
+// pass accumulates dV += P^T dO, a second dK += dS^T Q. Each consumer
+// warpgroup owns 64 keys: S^T = K Q^T (and dP^T = V dO^T in the second
+// pass) from shared memory, p and ds in registers, dO and Q read N-major.
+// One accumulator a pass keeps dK and dV from being live together (128
+// registers a thread beside S^T and dP^T), which ptxas cannot fit without
+// spilling; the price is S^T computed twice and Q, dO streamed twice. The
+// group's sum stays in registers: no atomics, and the result is
+// deterministic. kSplit: p and ds enter as hi + lo bf16 parts.
+template <bool kSplit>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = sK + kRows128;
+  unsigned char* sQ = sV + kRows128;                    // [stage]
+  unsigned char* sdO = sQ + kBwdStages * kRows64;       // [stage]
+  float* sL = reinterpret_cast<float*>(sdO + kBwdStages * kRows64);
+  float* sD = sL + kBwdStages * 64;                     // [stage][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sD + kBwdStages * 64);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;                            // [stage]
+  uint64_t* empty = full + kBwdStages;                  // [stage]
+
+  const int bkv = p.kv_heads * p.batch;
+  const int k0 = static_cast<int>(blockIdx.x) / bkv * 128;
+  const int kvh = static_cast<int>(blockIdx.x) % bkv % p.kv_heads;
+  const int b = static_cast<int>(blockIdx.x) % bkv / p.kv_heads;
+  const int n_q = (p.sq + 63) / 64;
+  const int first = p.causal ? min(k0 / 64, n_q) : 0;
+  const int per_head = n_q - first;
+  const int n_iter = p.group * per_head;                // tiles a pass
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 32);        // the producer warp's lanes
+      mbar_init(&empty[s], 8);        // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    regs_release<40>();
+    if (threadIdx.x < 288) {          // one warp: TMA, lse and delta rows
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * kRows128);
+        tma_load_rows(sK, &p.k_map, kv_full, 128, k0, kvh, b);
+        tma_load_rows(sV, &p.v_map, kv_full, 128, k0, kvh, b);
+      }
+      for (int i = 0; i < 2 * n_iter; ++i) {
+        const int s = i % kBwdStages;
+        const int j = i < n_iter ? i : i - n_iter;
+        const int h = kvh * p.group + j / per_head;
+        const int q0 = (first + j % per_head) * 64;
+        if (i >= kBwdStages) mbar_wait(&empty[s], (i / kBwdStages - 1) & 1);
+        const long long row_base =
+            (static_cast<long long>(b) * p.heads + h) * p.sq;
+#pragma unroll
+        for (int r = lane; r < 64; r += 32) {
+          const int qpos = q0 + r;
+          // rows past the end: lse = +inf, so p = 0
+          sL[s * 64 + r] = qpos < p.sq ? p.lse[row_base + qpos] * kLog2e
+                                       : __int_as_float(0x7f800000);
+          sD[s * 64 + r] = qpos < p.sq ? p.delta[row_base + qpos] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], 2 * kRows64);
+          tma_load_rows(sQ + s * kRows64, &p.q_map, &full[s], 64, q0, h, b);
+          tma_load_rows(sdO + s * kRows64, &p.do_map, &full[s], 64, q0, h,
+                        b);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    regs_claim<232>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kw0 = k0 + 64 * wg;                     // the group's first key
+    const int key0 = kw0 + 16 * warp + g;             // and key0 + 8
+    const uint64_t k_desc = desc_k(sK + wg * 64 * 128);
+    const uint64_t v_desc = desc_k(sV + wg * 64 * 128);
+    const float c = p.scale_log2;
+
+    mbar_wait(kv_full, 0);
+    // unrolled, so that each pass is compiled on its own: dP^T exists in
+    // the second only
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {            // 0: dV, 1: dK
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int j = 0; j < n_iter; ++j) {
+        const int i = pass * n_iter + j;              // position in the ring
+        const int s = i % kBwdStages;
+        const int q0 = (first + j % per_head) * 64;
+        const unsigned char* q_tile = sQ + s * kRows64;
+        const unsigned char* do_tile = sdO + s * kRows64;
+        mbar_wait(&full[s], (i / kBwdStages) & 1);
+        if (!p.causal || q0 + 63 >= kw0) {    // else wholly masked here
+          float st[32], dpt[32];
+          const uint64_t kd = opaque(k_desc);
+          const uint64_t qd = desc_k(q_tile);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 8; ++ks) {
+            wgmma_ss_n64(st, kstep_k(kd, 128, ks), kstep_k(qd, 64, ks),
+                         ks > 0);
+          }
+          if (pass == 1) {
+            const uint64_t vd = opaque(v_desc);
+            const uint64_t dod = desc_k(do_tile);
+#pragma unroll
+            for (int ks = 0; ks < 8; ++ks) {
+              wgmma_ss_n64(dpt, kstep_k(vd, 128, ks), kstep_k(dod, 64, ks),
+                           ks > 0);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          if (pass == 1) fence_regs(dpt);
+
+          // p^T (pass 0) or ds^T (pass 1) in place of s^T; the columns
+          // are the tile's queries
+          const float* lrow = sL + s * 64;
+          const float* drow = sD + s * 64;
+          const bool mask = p.causal && q0 < kw0 + 63;
+#pragma unroll
+          for (int jb = 0; jb < 8; ++jb) {
+            const int col = 8 * jb + 2 * t;
+            const float2 lv = *reinterpret_cast<const float2*>(lrow + col);
+            const float2 dl = *reinterpret_cast<const float2*>(drow + col);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int x = 4 * jb + e;
+              float pr = exp2f(fmaf(st[x], c, -((e & 1) ? lv.y : lv.x)));
+              if (mask && key0 + ((e & 2) ? 8 : 0) > q0 + col + (e & 1)) {
+                pr = 0.f;
+              }
+              st[x] = pass == 0
+                  ? pr
+                  : pr * (dpt[x] - ((e & 1) ? dl.y : dl.x)) * p.scale;
+            }
+          }
+          uint32_t hi[16], lo[16];
+          if constexpr (kSplit) {
+            acc_to_split_frags(st, hi, lo);
+          } else {
+            acc_to_frags(st, hi);
+          }
+          // acc += P^T dO (pass 0) or dS^T Q (pass 1), read N-major
+          const uint64_t bn = desc_n(pass == 0 ? do_tile : q_tile, 64 * 128);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t bd = kstep_n(bn, kk);
+            const uint32_t ah[4] = {hi[4 * kk], hi[4 * kk + 1],
+                                    hi[4 * kk + 2], hi[4 * kk + 3]};
+            wgmma_rs_n128(acc, ah, bd, 1);
+            if constexpr (kSplit) {
+              const uint32_t al[4] = {lo[4 * kk], lo[4 * kk + 1],
+                                      lo[4 * kk + 2], lo[4 * kk + 3]};
+              wgmma_rs_n128(acc, al, bd, 1);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+      const long long* strides = pass == 0 ? p.dv_strides : p.dk_strides;
+      auto* out = static_cast<__nv_bfloat16*>(pass == 0 ? p.dv : p.dk) +
+                  b * strides[0] + kvh * strides[2];
+      store_acc_rows(out, strides[1], acc, key0, p.sk, t);
+    }
+  }
+}
+
+template <typename Kernel, typename P>
+cudaError_t launch_sm90(Kernel kernel, int smem, long long blocks,
+                        const P& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks > 0) {
+    kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// The head-dim-128 bf16 launch: a tensor map per operand and tile height,
+// then the dq kernel and the dk / dv kernel on `stream`.
+cudaError_t launch_bwd_sm90(const BwdParams& p, int batch, int kv_heads,
+                            bool split, cudaStream_t stream) {
+  DqParams dq;
+  DkvParams dkv;
+  const bool mapped =
+      make_tile_map(&dq.q_map, p.q, batch, p.sq, p.heads, p.q_strides,
+                    128) &&
+      make_tile_map(&dq.do_map, p.dout, batch, p.sq, p.heads, p.do_strides,
+                    128) &&
+      make_tile_map(&dq.k_map, p.k, batch, p.sk, kv_heads, p.k_strides,
+                    64) &&
+      make_tile_map(&dq.v_map, p.v, batch, p.sk, kv_heads, p.v_strides,
+                    64) &&
+      make_tile_map(&dkv.k_map, p.k, batch, p.sk, kv_heads, p.k_strides,
+                    128) &&
+      make_tile_map(&dkv.v_map, p.v, batch, p.sk, kv_heads, p.v_strides,
+                    128) &&
+      make_tile_map(&dkv.q_map, p.q, batch, p.sq, p.heads, p.q_strides,
+                    64) &&
+      make_tile_map(&dkv.do_map, p.dout, batch, p.sq, p.heads,
+                    p.do_strides, 64);
+  if (!mapped) return cudaErrorInvalidValue;
+  const float scale_log2 = p.scale * kLog2e;
+  dq.lse = dkv.lse = p.lse;
+  dq.delta = dkv.delta = p.delta;
+  dq.dq = p.dq;
+  dkv.dk = p.dk;
+  dkv.dv = p.dv;
+  for (int i = 0; i < 3; ++i) {
+    dq.dq_strides[i] = p.dq_strides[i];
+    dkv.dk_strides[i] = p.dk_strides[i];
+    dkv.dv_strides[i] = p.dv_strides[i];
+  }
+  dq.sq = dkv.sq = p.sq;
+  dq.sk = dkv.sk = p.sk;
+  dq.heads = dkv.heads = p.heads;
+  dq.group = dkv.group = p.group;
+  dq.batch = dkv.batch = batch;
+  dq.causal = dkv.causal = p.causal;
+  dq.scale = dkv.scale = p.scale;
+  dq.scale_log2 = dkv.scale_log2 = scale_log2;
+  dq.n_q_tiles = (p.sq + 127) / 128;
+  dkv.kv_heads = kv_heads;
+  const long long dq_blocks =
+      static_cast<long long>(dq.n_q_tiles) * p.heads * batch;
+  const long long dkv_blocks =
+      static_cast<long long>((p.sk + 127) / 128) * kv_heads * batch;
+  cudaError_t err =
+      split ? launch_sm90(flash_bwd_dq_sm90_kernel<true>, kDqSmem, dq_blocks,
+                          dq, stream)
+            : launch_sm90(flash_bwd_dq_sm90_kernel<false>, kDqSmem,
+                          dq_blocks, dq, stream);
+  if (err != cudaSuccess) return err;
+  return split ? launch_sm90(flash_bwd_dkv_sm90_kernel<true>, kDkvSmem,
+                             dkv_blocks, dkv, stream)
+               : launch_sm90(flash_bwd_dkv_sm90_kernel<false>, kDkvSmem,
+                             dkv_blocks, dkv, stream);
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid,
                    const BwdParams& p, cudaStream_t stream) {
@@ -672,19 +1169,24 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid,
 
 template <int HD>
 cudaError_t launch_hd(int dtype, const BwdParams& p, int batch,
-                      int kv_heads, cudaStream_t stream) {
+                      int kv_heads, bool split, cudaStream_t stream) {
   const dim3 dq_grid((p.sq + kBQ - 1) / kBQ, p.heads, batch);
   const dim3 dkv_grid((p.sk + kBK - 1) / kBK, kv_heads, batch);
   cudaError_t err;
   if (dtype == 1) {
-    const size_t rows = sizeof(__nv_bfloat16) * kBK * (HD + 8);
-    const size_t cols = sizeof(__nv_bfloat16) * HD * (kBK + 8);
-    err = launch(flash_bwd_dq_mma_kernel<HD>, kMmaThreads, 4 * rows + cols,
-                 dq_grid, p, stream);
-    if (err != cudaSuccess) return err;
-    return launch(flash_bwd_dkv_mma_kernel<HD>, kMmaThreads,
-                  4 * rows + 2 * cols + 2 * kBQ * sizeof(float), dkv_grid, p,
-                  stream);
+    // head dim 128: the Hopper kernels; 16, 32, 64: the mma.sync kernels
+    if constexpr (HD == 128) {
+      return launch_bwd_sm90(p, batch, kv_heads, split, stream);
+    } else {
+      const size_t rows = sizeof(__nv_bfloat16) * kBK * (HD + 8);
+      const size_t cols = sizeof(__nv_bfloat16) * HD * (kBK + 8);
+      err = launch(flash_bwd_dq_mma_kernel<HD>, kMmaThreads,
+                   4 * rows + cols, dq_grid, p, stream);
+      if (err != cudaSuccess) return err;
+      return launch(flash_bwd_dkv_mma_kernel<HD>, kMmaThreads,
+                    4 * rows + 2 * cols + 2 * kBQ * sizeof(float), dkv_grid,
+                    p, stream);
+    }
   }
   const size_t rows = sizeof(float) * kBK * (HD + 1);
   const size_t tile = sizeof(float) * kBQ * (kBK + 1);
@@ -704,8 +1206,11 @@ cudaError_t launch_hd(int dtype, const BwdParams& p, int batch,
 // delta: contiguous (B, H, Sq) float32. dtype: 0 float32, 1 bfloat16 (every
 // tensor but lse and delta alike). For bfloat16 every pointer must be
 // 16-byte aligned and every stride of q, k, v and dout a multiple of 8
-// elements (dq / dk / dv: of 2). Launches the dq kernel, then the dk / dv
-// kernel, on `stream`. Returns a cudaError_t.
+// elements (dq / dk / dv: of 2). split: bf16 at head dim 128 only, 1 to
+// enter p and ds as hi + lo bf16 parts (what the port runs), 0 to round
+// each once (to measure what the split costs); the other kernels always
+// split. Launches the dq kernel, then the dk / dv kernel, on `stream`.
+// Returns a cudaError_t.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, void* dk, void* dv,
@@ -714,7 +1219,7 @@ extern "C" int flash_attention_bwd_launch(
     const long long* dq_strides, const long long* dk_strides,
     const long long* dv_strides, int batch, int sq, int sk, int heads,
     int kv_heads, int head_dim, int causal, float scale, int dtype,
-    void* stream) {
+    int split, void* stream) {
   if (batch < 1 || sq < 1 || sk < 1 || kv_heads < 1 || heads < 1 ||
       heads % kv_heads != 0 || heads > 65535 || batch > 65535 ||
       (dtype != 0 && dtype != 1)) {
@@ -747,14 +1252,16 @@ extern "C" int flash_attention_bwd_launch(
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kv = kv_heads;
+  const bool sp = split != 0;
+  cudaError_t err;
   switch (head_dim) {
-    case 16: return static_cast<int>(launch_hd<16>(dtype, p, batch, kv, s));
-    case 32: return static_cast<int>(launch_hd<32>(dtype, p, batch, kv, s));
-    case 64: return static_cast<int>(launch_hd<64>(dtype, p, batch, kv, s));
-    case 128:
-      return static_cast<int>(launch_hd<128>(dtype, p, batch, kv, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: err = launch_hd<16>(dtype, p, batch, kv, sp, s); break;
+    case 32: err = launch_hd<32>(dtype, p, batch, kv, sp, s); break;
+    case 64: err = launch_hd<64>(dtype, p, batch, kv, sp, s); break;
+    case 128: err = launch_hd<128>(dtype, p, batch, kv, sp, s); break;
+    default: err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at the root of
 the checkout (the hash covers the source, the shared ``csrc/*.cuh``
-headers and the flags, so an edited source or header rebuilds) and
+headers and the flags, so an edited source or header rebuilds), with
+nvcc's ``-Xptxas -v`` report beside it in ``lib<name>-<hash>.log``, and
 loaded with `ctypes`. No PyTorch header is included, so one build takes
 seconds. Nothing here runs at import time: the CPU
 path never needs ``nvcc``.
@@ -81,10 +82,21 @@ def build(names: Sequence[str]) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current build of ``csrc/<name>.cu``, kept
+    beside the library so that a cached build still has it ("" if the
+    library is not built)."""
+    if name in BUILD_LOGS:
+        return BUILD_LOGS[name]
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

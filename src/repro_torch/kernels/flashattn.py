@@ -6,13 +6,18 @@ Port of the Pallas `repro.kernels.flashattn` kernels:
 - `flash_attention_kernel` (the serving forward) and
   `flash_attention_fwd_kernel` (the same forward that also returns ``lse
   (B, H, Sq)`` float32, the training forward) launch ``csrc/flashattn.cu``
-  (one CTA per 64-row query tile and head, an online softmax over 64-key
-  tiles; bf16 on ``mma.sync``, float32 on scalar FMAs; a null lse pointer
-  runs the serving kernel unchanged);
+  (a CTA per query tile and head, an online softmax over key tiles; a
+  null lse pointer runs the serving kernel unchanged);
 - `flash_attention_bwd_kernel` launches ``csrc/flashattn_bwd.cu`` (a dq
   CTA per query tile and head; a dk / dv CTA per key tile and key/value
   head that loops over its GQA group, so the group's sum needs no
   atomics; in bf16, p and ds enter the products as hi + lo bf16 parts).
+
+The C launchers pick the kernel by head dim and dtype: bf16 at head dim
+128 (every dense config served and trained) runs the Hopper kernels (TMA
+ring, wgmma, setmaxnreg; ``csrc/flash_sm90.cuh``), bf16 at 16, 32 and 64
+the first design on ``mma.sync``, float32 scalar FMAs. A kernel that
+fails to build or launch raises; nothing falls back on another.
 
 The kernel wrappers take the model's layout, q (B, Sq, H, hd) and k / v
 (B, Sk, KV, hd), and read it through its strides. For CPU tensors they run
@@ -22,7 +27,8 @@ head-major layout and blocking: ``block_q`` x ``block_k`` tiles, the tiles
 above the diagonal skipped when causal, float32 scores and softmax state;
 the forward rounds ``p`` to v's dtype before the PV product, the backward
 stays in float32 throughout. The CUDA kernels' tiles are fixed by the card
-(64 x 64), so ``block_q`` / ``block_k`` shape only the plain versions.
+(64 to 128 rows), so ``block_q`` / ``block_k`` shape only the plain
+versions.
 """
 from __future__ import annotations
 
@@ -59,7 +65,7 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_bwd_launch.argtypes = [
             p, p, p, p, p, p, p, p, p, s, s, s, s, s, s, s, i, i, i, i, i,
-            i, i, ctypes.c_float, i, p]
+            i, i, ctypes.c_float, i, i, p]
     return lib
 
 
@@ -339,8 +345,20 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
             do.transpose(1, 2), causal, block_q, block_k)
         return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
     _on_card("flash_attention_bwd_kernel", q)
+    grads = _launch_bwd(q, k, v, o, lse, do, causal)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return grads
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal: bool, split: bool = True):
+    """One launch of ``csrc/flashattn_bwd.cu`` after ``delta = rowsum(o
+    do)``. ``split=False`` rounds p and ds to bf16 once in the head-dim-128
+    bf16 kernels instead of entering them as hi + lo parts: it exists to
+    measure what the split costs, and the port never passes it."""
+    B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    # float32 products (do is promoted inside the multiply, not copied)
+    delta = (o.float() * do).sum(-1).transpose(1, 2).contiguous()
     q, k, v, do = (_readable(x) for x in (q, k, v, do))
     lse = lse.contiguous()
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -354,8 +372,7 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
             _build.ptr(dk), _build.ptr(dv), _strides(q), _strides(k),
             _strides(v), _strides(do), _strides(dq), _strides(dk),
             _strides(dv), B, Sq, Sk, H, KV, hd, int(causal),
-            float(1.0 / np.sqrt(hd)), _DTYPE_CODE[q.dtype],
+            float(1.0 / np.sqrt(hd)), _DTYPE_CODE[q.dtype], int(split),
             _build.stream_of(q))
     _build.check(lib, rc, "flash_attention_bwd_launch")
-    LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

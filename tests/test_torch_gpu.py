@@ -473,7 +473,10 @@ def test_arith_ops_on_the_card_match_the_host(cuda):
 
 # (B, Sq, Sk, H, KV, hd, causal, block_q, block_k): the JAX package's five
 # test shapes, ragged lengths that are not a multiple of the 64-row tile,
-# and Sq != Sk without the causal mask and with it (positions aligned at 0)
+# Sq != Sk without the causal mask and with it (positions aligned at 0),
+# and at head dim 128 (bf16 there runs the Hopper kernels, whose tiles are
+# 128 rows) GQA groups of 1 and 8, lengths of 130 and 1,000, and B H =
+# 144 query heads, more than the card's 132 SMs
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 32, True, 32, 32),
     (2, 128, 128, 4, 2, 32, False, 32, 32),
@@ -486,6 +489,10 @@ FLASH_CASES = [
     (2, 100, 1000, 8, 2, 128, False, 64, 128),
     (1, 100, 160, 4, 2, 64, True, 32, 32),
     (1, 160, 100, 4, 2, 64, True, 32, 32),
+    (1, 130, 130, 16, 16, 128, True, 64, 64),
+    (1, 1000, 1000, 16, 2, 128, True, 512, 512),
+    (1, 1000, 130, 16, 2, 128, True, 512, 128),
+    (9, 256, 256, 16, 8, 128, True, 128, 128),
 ]
 # the JAX package's bounds against its oracle, relative to each element
 # and to the plain output's RMS (an absolute bound of the same size as the
@@ -625,6 +632,24 @@ def test_flash_fwd_and_bwd_kernels_match_plain(cuda, B, Sq, Sk, H, KV, hd,
     for got, w, like in zip((dq, dk, dv), want, (q, k, v)):
         assert got.shape == like.shape and got.dtype == dtype
         _assert_flash_close(got, _hm(w), FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", [
+    (2, 1000, 1000, 16, 8, True), (2, 100, 1000, 8, 2, False)])
+def test_flash_bwd_kernel_is_deterministic(cuda, B, Sq, Sk, H, KV, causal):
+    """The backward sums in registers, never with atomics: two runs on
+    the same inputs give bit-identical dq, dk and dv (bf16, head dim 128:
+    the Hopper kernels)."""
+    from repro_torch.kernels import flashattn as F
+
+    q, k, v = _qkv(cuda, 11, torch.bfloat16, B, Sq, Sk, H, KV, 128)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(12), device=cuda).to(torch.bfloat16)
+    o, lse = F.flash_attention_fwd_kernel(q, k, v, causal)
+    first = F.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+    second = F.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_function_on_the_card_launches_fwd_and_bwd(cuda):

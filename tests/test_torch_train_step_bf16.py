@@ -1,7 +1,10 @@
-"""Port parity: the training step in bfloat16, on the CPU: the cases of
-`_torch_train_parity` (the reference's reduced Qwen3-0.6B, its parameters
-and batches; loss, gradients, and two steps of sgd / adamw / adafactor /
-signum at ``grad_accum`` 1 and 2, with the tolerances stated there)."""
+"""Port parity: the training step in bfloat16, on the CPU: the loss and every
+gradient leaf at ``grad_accum`` 1 and 2, and two steps of sgd at both (cases
+of `_torch_train_parity`: the reference's reduced Qwen3-0.6B, its parameters
+and batches, with the tolerances stated there). The bfloat16 cases are split
+by optimizer over this file, `test_torch_train_step_bf16_adaptive` and
+`test_torch_train_step_bf16_signum`, so that none holds a test worker for
+long."""
 import pytest
 
 pytest.importorskip("jax")
@@ -14,6 +17,6 @@ def test_loss_and_grads_match_reference(accum):
 
 
 @pytest.mark.parametrize("accum", [1, 2])
-@pytest.mark.parametrize("name", P.OPTS)
+@pytest.mark.parametrize("name", ["sgd"])
 def test_train_step_matches_reference(name, accum):
     P.train_step_case("bfloat16", name, accum)

@@ -1,0 +1,17 @@
+"""Port parity: the training step in bfloat16, on the CPU: two steps of adamw
+and adafactor at ``grad_accum`` 1 and 2 (cases of `_torch_train_parity`: the
+reference's reduced Qwen3-0.6B, its parameters and batches, with the
+tolerances stated there). The bfloat16 cases are split by optimizer over
+this file, `test_torch_train_step_bf16` and
+`test_torch_train_step_bf16_signum`, so that none holds a test worker for
+long."""
+import pytest
+
+pytest.importorskip("jax")
+import _torch_train_parity as P  # noqa: E402
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_train_step_matches_reference(name, accum):
+    P.train_step_case("bfloat16", name, accum)
