@@ -13,7 +13,12 @@ Phases; the first failure exits non-zero:
    tree, ``sum(col + col2)``, range scan, ``col < K & male``) at batch 1
    and 16, a word count that is not a multiple of the column block,
    popcount with a shared and with per-batch masks, materialize, fault
-   masks; the bit transpose on 2**24 values and on a ragged count; the
+   masks (add8 also at batch 16); random fused programs at word counts of
+   1 and 3 mod 4, with plane, masks and fault masks one word into their
+   storage (not 16-byte aligned), one slice narrower than a tile, 65,535
+   slices, and a 1,009-row program that forces the narrowest block; the
+   bit transpose on 2**24 values, at 1, 8, 13 and 32 planes, group counts
+   that are not a multiple of 32 and a base one word into its storage; the
    nine bitwise ops flat (ragged, aligned and misaligned word runs) and
    banked (1, 3 and 8 banks over a ragged width); popcount at ragged,
    misaligned and all-ones inputs; the BitWeaving scan at 1, 7, 12 and 32
@@ -23,9 +28,10 @@ Phases; the first failure exits non-zero:
    sub and lt at 1, 7, 8 and 32 bits, one and three rows of a ragged
    width; the bit untranspose with fewer than 32 planes, ragged group
    counts and a round trip through the bit transpose; ptxas's registers
-   and spill bytes of the head-dim-128 Hopper flash kernels (any spill
-   fails); flash attention in float32 and bf16 at the JAX package's five
-   test shapes, a cross-attention shape (64 queries over 100 keys), B = 2,
+   and spill bytes of the head-dim-128 Hopper flash kernels, the VM and
+   the bit transpose (any spill fails); flash attention in float32 and
+   bf16 at the JAX package's five test shapes, a cross-attention shape (64
+   queries over 100 keys), B = 2,
    S = 1,000 causal at hd 128, and the hd-128 kernels' edges (100 queries
    over 1,000 keys without the mask, GQA groups of 1 and 8, S = 130 and
    1,000, B H = 144), each within the JAX package's own tolerance (2e-3
@@ -107,7 +113,10 @@ Phases; the first failure exits non-zero:
    hold each to its plain version again (bit for bit, at the main path's
    shapes), time both with CUDA events, and print each kernel's total
    beside its bound (bytes over 3.35 TB/s or int32 operations over the
-   card's integer rate, whichever is larger) and, for the bitwise
+   card's integer rate, whichever is larger; for the VM also its design's
+   shared-memory floor, the decoded program's LDS + STS bytes over 128 B a
+   clock per SM, and its totals split into launches with and without
+   fault masks) and, for the bitwise
    launches whose op is one PyTorch call (and, or, xor, not), that call's
    time on the same operands. Of (e), every flash launch: held to its plain
    version within the phase-2 tolerance, whose reach is shown on the
@@ -151,6 +160,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: int32 lanes per Hopper SM (4 partitions x 16; Hopper white paper)
 INT32_LANES_PER_SM = 64
+#: shared-memory bytes per clock of one Hopper SM (32 banks x 4 bytes)
+SMEM_BYTES_PER_CLK = 128
 #: H100 SXM dense peaks by operand type (NVIDIA data sheet): bf16 on the
 #: tensor cores, float32 outside them
 FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
@@ -277,7 +288,8 @@ def phase_kernels(torch, svc, spec) -> int:
 
     rng = np.random.default_rng(1234)
     words = svc.catalog.mask().shape[0]
-    cols = vm.block_cols(35, 126, 8)
+    threads, per_thread = vm.block_cols(35, 800, 8)
+    cols = threads * per_thread
     check(words % cols != 0, f"{words} words is a multiple of {cols}")
     templates = {
         "week_or": lambda t: week_or(0, prefix=f"{t}/"),
@@ -306,25 +318,37 @@ def phase_kernels(torch, svc, spec) -> int:
                 _compare(f"vm {name} B={batch} {case}", got, want, errs)
                 n_cases += 1
         # fault masks: the four TRA classes per command, per batch slice
-        plan, data = _group(svc, [make("t0"), make("t1")])
-        n_cmds = plan.lowered.n_cmds
-        e = (rng.integers(0, 1 << 32, (n_cmds, 4, 2, words), dtype=np.uint32)
-             & rng.integers(0, 1 << 32, (n_cmds, 4, 2, words),
-                            dtype=np.uint32))
-        for reduce in (None, "popcount"):
-            call = lowering.vm_call(
-                plan.lowered, data, outputs=list(plan.outputs), errors=e,
-                mask=None if reduce is None else svc.catalog.mask())
-            _compare(f"vm {name} B=2 errors reduce={reduce}",
-                     call.run(vm.vm_megakernel, reduce),
-                     call.run(vm.vm_plain, reduce), errs)
-            n_cases += 1
-    for n, n_bits in ((1 << 24, 8), (1 << 24, 32), (32 * 1001, 8),
-                      (32 * 1001, 13)):
-        values = torch.from_numpy(rng.integers(0, 1 << n_bits, n,
-                                               dtype=np.uint32)
-                                  .view(np.int32)).to(svc.device)
-        _compare(f"bit_transpose n={n} n_bits={n_bits}",
+        for batch in (2, 16) if name == "add8" else (2,):
+            tenants = [f"t{i % spec.n_tenants}" for i in range(batch)]
+            plan, data = _group(svc, [make(t) for t in tenants])
+            n_cmds = plan.lowered.n_cmds
+            e = (rng.integers(0, 1 << 32, (n_cmds, 4, batch, words),
+                              dtype=np.uint32)
+                 & rng.integers(0, 1 << 32, (n_cmds, 4, batch, words),
+                                dtype=np.uint32))
+            for reduce in (None, "popcount"):
+                call = lowering.vm_call(
+                    plan.lowered, data, outputs=list(plan.outputs),
+                    errors=e,
+                    mask=None if reduce is None else svc.catalog.mask())
+                _compare(f"vm {name} B={batch} errors reduce={reduce}",
+                         call.run(vm.vm_megakernel, reduce),
+                         call.run(vm.vm_plain, reduce), errs)
+                n_cases += 1
+    n_cases += _vm_edge_cases(torch, svc.device, errs)
+    # the transpose: every plane count the main paths ask for and the
+    # extremes, group counts that leave a ragged last warp, and a base at
+    # an odd word offset (a slice one word into its storage)
+    for n, n_bits, offset in ((1 << 24, 8, 0), (1 << 24, 32, 0),
+                              (32 * 1001, 8, 0), (32 * 1001, 13, 0),
+                              (32 * 1001, 1, 0), (32 * 1001, 32, 0),
+                              (32, 13, 0), (32 * 33, 32, 0),
+                              (32 * 1001, 13, 1), (32 * 70, 1, 1)):
+        store = torch.from_numpy(rng.integers(0, 1 << n_bits, n + offset,
+                                              dtype=np.uint32)
+                                 .view(np.int32)).to(svc.device)
+        values = store[offset:]
+        _compare(f"bit_transpose n={n} n_bits={n_bits} offset={offset}",
                  bit_transpose(values, n_bits),
                  ref.bit_transpose(values, n_bits), errs)
         n_cases += 1
@@ -334,6 +358,101 @@ def phase_kernels(torch, svc, spec) -> int:
     print(f"[kernels] {n_cases} cases bit-identical to the plain versions "
           f"({words} words per row, {cols}-column blocks)")
     return max(errs)
+
+
+def _random_lowered(seed: int):
+    """A lowered random boolean program over D0..D5 (and, or, xor, not,
+    maj3), fused as the planner fuses."""
+    from repro_torch.core import compiler as tcomp
+    from repro_torch.core import lowering
+
+    r = np.random.default_rng(seed)
+    leaves = [tcomp.Expr.of(f"D{i}") for i in range(6)]
+    e = leaves[0]
+    for _ in range(10):
+        a = leaves[int(r.integers(6))]
+        op = ("and", "or", "xor", "not", "maj3")[int(r.integers(5))]
+        e = (~e if op == "not" else
+             tcomp.maj(e, a, leaves[int(r.integers(6))]) if op == "maj3"
+             else tcomp.Expr(op, (e, a)))
+    return lowering.lower(tcomp.compile_expr_fused(e, "OUT").program)
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` one word into its storage, so its data
+    pointer is 4 but not 16-byte aligned."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = store[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _vm_edge_cases(torch, device, errs) -> int:
+    """The VM at the shapes its tiles and block choice must take, each in
+    both modes, with a shared and a per-batch mask and with fault masks:
+    word counts of 1 and 3 mod 4, plane / masks / fault masks at an odd
+    word offset, one batch slice narrower than a tile, 65,535 slices, and
+    a 1,009-row program whose shared rows force the narrowest block (one
+    word a thread, 32 threads) with and without fault masks."""
+    from repro_torch.core import lowering
+    from repro_torch.kernels import vm
+
+    rng = np.random.default_rng(77)
+
+    def words(*shape):
+        return torch.from_numpy(rng.integers(0, 1 << 32, shape,
+                                             dtype=np.uint32)
+                                .view(np.int32)).to(device)
+
+    cases = []
+    for label, batch, width, odd in (("W%4=1", 3, 1001, False),
+                                     ("W%4=3", 3, 1003, False),
+                                     ("misaligned", 2, 1000, True),
+                                     ("B=1 W<tile", 1, 100, False),
+                                     ("B=65535", 65535, 3, False)):
+        lp = _random_lowered(len(cases))
+        call = lowering.vm_call(lp, {f"D{i}": words(batch, width)
+                                     for i in range(6)}, outputs=["OUT"])
+        plane = _misaligned(torch, call.plane) if odd else call.plane
+        cases.append((label, call.lay.table, plane, call.lay.out_idx,
+                      call.lay.n_rows, call.first_row, odd))
+    # a chain of TRAs over 1,000 seeded rows, every row an output, so
+    # every row holds a shared slot
+    n = 1000
+    rows = 9 + np.arange(n)
+    table = np.stack([np.ones(n), rows, np.roll(rows, -1), np.roll(rows, -2),
+                      rows << 16], 1).astype(np.int32)
+    cases.append(("narrowest block", table, words(1, n, 1001),
+                  tuple(rows.tolist()), 9 + n, 9, False))
+    n_cases = 0
+    for label, table, plane, out_idx, n_rows, first_row, odd in cases:
+        batch, _, width = plane.shape
+        shared, per_batch = words(1, width), words(batch, width)
+        errors = words(batch, 4 * table.shape[0], width) \
+            & words(batch, 4 * table.shape[0], width)
+        if odd:
+            shared, per_batch, errors = (_misaligned(torch, t) for t in
+                                         (shared, per_batch, errors))
+        if label == "narrowest block":
+            for faulty in (False, True):
+                prog = vm.program(table, out_idx, n_rows, first_row,
+                                  plane.shape[1], faulty, False, device)
+                check((prog.threads, prog.words) == (32, 1),
+                      f"vm {label}: block shape {prog.threads} x "
+                      f"{prog.words}, not the narrowest")
+        for reduce, mask, err in ((None, None, None), (None, None, errors),
+                                  ("popcount", shared, None),
+                                  ("popcount", per_batch, None),
+                                  ("popcount", shared, errors)):
+            kw = dict(n_rows=n_rows, first_row=first_row, errors=err,
+                      reduce=reduce, mask=mask)
+            _compare(f"vm {label} B={batch} W={width} reduce={reduce} "
+                     f"mask={None if mask is None else mask.shape[0]} "
+                     f"errors={err is not None}",
+                     vm.vm_megakernel(table, plane, out_idx, **kw),
+                     vm.vm_plain(table, plane, out_idx, **kw), errs)
+            n_cases += 1
+    return n_cases
 
 
 def _draw_words(torch, gen, *shape):
@@ -481,11 +600,15 @@ FLASH_CASES = (
     (1, 1000, 1000, 16, 2, 128, True, 512, 512),
     (9, 256, 256, 16, 8, 128, True, 128, 128),
 )
-#: the head-dim-128 bf16 kernels (sm_90a: TMA ring + wgmma) that
-#: `phase_sm90_report` holds to zero spills, by source
+#: the kernels redesigned for Hopper that `phase_sm90_report` holds to
+#: zero spills, by source: the head-dim-128 bf16 flash kernels (TMA ring +
+#: wgmma), the VM (pre-decoded program, cp.async tile ring) and the bit
+#: transpose (register butterfly)
 SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel",),
                 "flashattn_bwd": ("flash_bwd_dq_sm90_kernel",
-                                  "flash_bwd_dkv_sm90_kernel")}
+                                  "flash_bwd_dkv_sm90_kernel"),
+                "vm": ("vm_kernel",),
+                "bittranspose": ("bit_transpose_kernel",)}
 #: kernel vs plain version: the JAX package's own bounds against its
 #: oracle (tests/test_flashattn.py), relative to each element and to the
 #: plain output's RMS over the launch; the two sum in another order and
@@ -526,11 +649,14 @@ def _close(label, got, want, tol: float):
     return err, share
 
 
+SETMAXNREG = " (its consumer warpgroups take more with setmaxnreg)"
+
+
 def phase_sm90_report(build_mod) -> dict:
-    """Each head-dim-128 Hopper kernel's registers and spill bytes from
+    """Each `SM90_KERNELS` kernel's registers and spill bytes from
     ptxas's report of its build; fails if any of them spills. Returns
     ``{kernel: {"registers": r, "spill_stores": s, "spill_loads": l}}``
-    (template instances by their ``<true>`` / ``<false>`` argument)."""
+    (template instances by their arguments, as ``<true, 4>``)."""
     import re
 
     report = {}
@@ -541,12 +667,15 @@ def phase_sm90_report(build_mod) -> dict:
             if m is not None:
                 entry = None
                 for name in kernels:
-                    if name in m.group(1):
-                        arg = re.search(name + r"ILb([01])E", m.group(1))
-                        entry = name + ("" if arg is None else
-                                        ("<true>" if arg.group(1) == "1"
-                                         else "<false>"))
-                        report[entry] = {}
+                    hit = re.search(r"\d" + name + r"(I(?:L[bi]\d+E)+E)?",
+                                    m.group(1))
+                    if hit is None:
+                        continue
+                    args = [("true" if v == "1" else "false") if k == "b"
+                            else v for k, v in
+                            re.findall(r"L([bi])(\d+)E", hit.group(1) or "")]
+                    entry = name + (f"<{', '.join(args)}>" if args else "")
+                    report[entry] = {}
                 continue
             if entry is None:
                 continue
@@ -565,7 +694,7 @@ def phase_sm90_report(build_mod) -> dict:
     for name, r in report.items():
         check(len(r) == 3, f"ptxas's report of {name} is incomplete: {r}")
         print(f"[kernels] ptxas {name}: {r['registers']} registers at "
-              f"entry (its consumer warpgroups take more with setmaxnreg), "
+              f"entry{SETMAXNREG if name.startswith('flash') else ''}, "
               f"{r['spill_stores']} bytes spill stores, "
               f"{r['spill_loads']} bytes spill loads")
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
@@ -2039,6 +2168,21 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         shape = {"batch": plane.shape[0], "rows_in": plane.shape[1],
                  "n_rows": kw["n_rows"], "n_cmds": int(table.shape[0]),
                  "n_out": len(out_idx), "words": plane.shape[2]}
+        # the design's shared-memory floor: its LDS + STS bytes over every
+        # SM's 128 B a clock at the max SM clock (beside the bound, not
+        # in it)
+        masked = kw.get("reduce") is not None and kw.get("mask") is not None
+        prog = vm.program(np.asarray(table, np.int32), tuple(out_idx),
+                          kw["n_rows"], kw.get("first_row", 0),
+                          plane.shape[1], kw.get("errors") is not None,
+                          masked, plane.device)
+        smem_rate = SMEM_BYTES_PER_CLK * int_rate / INT32_LANES_PER_SM
+        shape.update(
+            block=[prog.threads, prog.words],
+            run_cmds=len(prog.dec.cmds),
+            smem_floor_ms=plane.shape[0] * plane.shape[2]
+            * prog.dec.shared_bytes_per_word(prog.words, masked)
+            / smem_rate * 1e3)
         if isinstance(draw, FaultDraw):
             shape["fault_key"] = list(draw.key)
             shape["fault_words_set"] = draw.fingerprint[1]
@@ -2515,6 +2659,27 @@ def kernel_rows(numbers: Numbers, launches):
     print(f"[numbers] majority: the replicas' torch.stack before each vote "
           f"took {sum(stack):.3f} ms on the device over {len(stack)} "
           f"launches")
+    for name in ("vm_popcount", "vm_materialize"):
+        for masked in (False, True):
+            calls = [c for c in per_kernel[name]["calls"]
+                     if ("fault_key" in c) == masked]
+            if not calls:
+                continue
+            big = max(calls, key=lambda c: c["ms"])
+            print(f"[numbers] {name}, "
+                  f"{'masked' if masked else 'unmasked'} launches: "
+                  f"{len(calls)}, kernel {sum(c['ms'] for c in calls):.3f} "
+                  f"ms, bound "
+                  f"{sum(max(c['bytes_ms'], c['ops_ms']) for c in calls):.3f}"
+                  f" ms, shared-memory floor "
+                  f"{sum(c['smem_floor_ms'] for c in calls):.3f} ms; the "
+                  f"slowest (B {big['batch']}, {big['rows_in']} rows in, "
+                  f"{big['n_rows']} rows, {big['n_cmds']} commands of which "
+                  f"{big['run_cmds']} run, {big['n_out']} out, "
+                  f"{big['words']} words, block {big['block']}) "
+                  f"{big['ms']:.4f} ms, bound "
+                  f"{max(big['bytes_ms'], big['ops_ms']):.4f} ms, floor "
+                  f"{big['smem_floor_ms']:.4f} ms")
     print("[numbers] kernel device ms by stage of the slice: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     rows = []

@@ -12,15 +12,17 @@
 // Convention (LSB-first): out[w, g] bit i == bit w of values[32*g + i].
 //
 // What bounds it on this card: bytes. Each value is read once (4 B) and
-// each plane word written once (n_bits/32 * 4 B per value); the work per
-// value is one warp vote per plane.
+// each plane word written once (n_bits/32 * 4 B per value).
 //
-// Design. A warp vote does the transpose: with lane i holding
-// values[32g + i], __ballot_sync(~0u, (v >> w) & 1) is exactly out[w, g].
-// Each warp walks 32 consecutive groups; after group k, lane k keeps that
-// group's n_bits ballots in registers. At the end lane i stores plane w of
-// group g0 + i, so every load and every store of the warp covers 32
-// consecutive words (128 B). No shared memory, no barrier.
+// Design (both directions): lane l of a warp owns group g0 + l of 32
+// consecutive groups, and the 32 x 32 bit block of a group is transposed
+// in registers with the 5-stage masked-swap butterfly (Hacker's Delight
+// 7-3, LSB-first): 80 swaps of about six instructions for 32 values, where
+// one warp vote per value and plane would issue about five warp
+// instructions a value. The 32 values of each group pass through a
+// 32 x 33 shared tile (the odd row length keeps both passes free of bank
+// conflicts), so every device access of the warp covers 128 consecutive
+// bytes.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -28,52 +30,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void bit_transpose_kernel(const uint32_t* __restrict__ values,
-                                     long long n_groups, int n_bits,
-                                     uint32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const long long g0 = warp * 32;
-  if (g0 >= n_groups) return;                  // uniform across the warp
-  uint32_t mine[32];
-#pragma unroll
-  for (int w = 0; w < 32; ++w) mine[w] = 0u;
-  for (int k = 0; k < 32; ++k) {
-    const long long g = g0 + k;
-    const uint32_t v = g < n_groups ? values[g * 32 + lane] : 0u;
-#pragma unroll
-    for (int w = 0; w < 32; ++w) {
-      if (w < n_bits) {
-        const uint32_t plane_word = __ballot_sync(0xffffffffu, (v >> w) & 1u);
-        if (lane == k) mine[w] = plane_word;
-      }
-    }
-  }
-  const long long g = g0 + lane;
-  if (g < n_groups) {
-#pragma unroll
-    for (int w = 0; w < 32; ++w) {
-      if (w < n_bits) out[w * n_groups + g] = mine[w];
-    }
-  }
-}
-
-// The inverse: n_bits <= 32 planes -> 32 values per group, the planes at
-// and above n_bits reading as zero. Bounded by bytes too (each of the
-// n_bits plane words read once, each value written once: (n_bits + 32) / 32
-// * 4 bytes a value).
-//
-// Design: lane l of a warp owns group g0 + l of 32 consecutive groups. It
-// loads that group's 32 plane words into registers (for each plane the
-// warp reads 32 consecutive words, 128 B) and transposes the 32 x 32 bit
-// block in place with the 5-stage masked-swap butterfly (Hacker's Delight
-// 7-3, LSB-first): 80 swaps of about six instructions for 32 values,
-// where one warp vote per value would issue about five warp instructions
-// a value. The 32 values of each group then go through a 32 x 33 shared
-// tile (the odd row length keeps both passes free of bank conflicts), so
-// each store of the warp writes one group's 32 values as 128 consecutive
-// bytes.
 template <int J, uint32_t M>
 __device__ __forceinline__ void swap_stage(uint32_t (&a)[32]) {
 #pragma unroll
@@ -95,6 +51,50 @@ __device__ __forceinline__ void transpose32(uint32_t (&a)[32]) {
   swap_stage<1, 0x55555555u>(a);
 }
 
+// values -> planes: the warp's 32 loads of 128 consecutive bytes (value
+// 32 (g0 + k) + lane, k = 0 .. 31) are all in flight before the first
+// lands in the tile; lane l then reads its group's 32 values, transposes
+// them (a[w] = out[w, g0 + l]) and stores the n_bits planes asked for.
+// 4-byte loads take a base at any word offset.
+__global__ void __launch_bounds__(kThreads)
+bit_transpose_kernel(const uint32_t* __restrict__ values,
+                     long long n_groups, int n_bits,
+                     uint32_t* __restrict__ out) {
+  __shared__ uint32_t tile[kThreads / 32][32][33];
+  const int lane = threadIdx.x & 31;
+  uint32_t(*t)[33] = tile[threadIdx.x >> 5];
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long g0 = warp * 32;
+  if (g0 >= n_groups) return;                  // uniform across the warp
+  const long long n_here = n_groups - g0 < 32 ? n_groups - g0 : 32;
+  const uint32_t* src = values + g0 * 32 + lane;
+  uint32_t a[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) a[k] = k < n_here ? __ldg(src + 32 * k) : 0u;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) t[k][lane] = a[k];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a[i] = t[lane][i];
+  transpose32(a);                              // a[w]: plane w of g0 + lane
+  const long long g = g0 + lane;
+  if (g < n_groups) {
+#pragma unroll
+    for (int w = 0; w < 32; ++w) {
+      if (w < n_bits) out[w * n_groups + g] = a[w];
+    }
+  }
+}
+
+// The inverse: n_bits <= 32 planes -> 32 values per group, the planes at
+// and above n_bits reading as zero. Bounded by bytes too (each of the
+// n_bits plane words read once, each value written once: (n_bits + 32) / 32
+// * 4 bytes a value).
+//
+// Planes -> values: lane l loads its group's n_bits plane words (each
+// load of the warp covers 128 consecutive bytes), transposes them, and the
+// tile turns each group's 32 values into one 128-byte store of the warp.
 __global__ void __launch_bounds__(kThreads)
 bit_untranspose_kernel(const uint32_t* __restrict__ planes,
                        long long n_groups, int n_bits,

@@ -2,8 +2,9 @@
 
 Port of the Pallas `repro.kernels.bittranspose.bit_transpose_kernel` and
 `bit_untranspose_kernel`. `bit_transpose` launches ``csrc/bittranspose.cu``
-(one warp vote per plane word) for a CUDA tensor and runs the plain
-version, `kernels.ref.bit_transpose`, for a CPU tensor. Only the
+(a register butterfly per group of 32 values, staged through a shared
+tile) for a CUDA tensor and runs the plain version,
+`kernels.ref.bit_transpose`, for a CPU tensor. Only the
 ``n_bits`` requested planes are computed — the same function as the
 reference's 32-plane transpose sliced to ``n_bits``. `bit_untranspose_kernel`
 is the inverse (a register butterfly per group; plain version

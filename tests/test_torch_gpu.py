@@ -87,6 +87,75 @@ def test_bit_transpose_kernel_matches_plain(cuda, n, n_bits):
     assert torch.equal(got, ref.bit_transpose(values, n_bits))
 
 
+def _at_word_offset(t, offset):
+    """A contiguous copy of ``t`` starting ``offset`` words into its
+    storage (offset 1: a data pointer 4 but not 16-byte aligned)."""
+    store = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = store[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("words,offset", [(1001, 0), (1003, 0), (1000, 1),
+                                          (1003, 1), (100, 0)])
+@pytest.mark.parametrize("mode", ["materialize", "shared-mask",
+                                  "per-batch-mask", "errors",
+                                  "errors-popcount"])
+def test_vm_kernel_takes_ragged_and_misaligned_operands(cuda, words, offset,
+                                                        mode):
+    """Word counts of 1 and 3 mod 4 (the 16-byte columns' ragged tail),
+    one slice narrower than a tile, and plane, mask and fault masks one
+    word into their storage, as a contiguous view may be."""
+    lp = tlow.lower(_program(words + offset))
+    rng = np.random.default_rng(words)
+    batch = 1 if words == 100 else 3
+    dev = {f"D{i}": as_words(rng.integers(0, 1 << 32, (batch, words),
+                                          dtype=np.uint32), cuda)
+           for i in range(6)}
+    call = tlow.vm_call(lp, dev, outputs=["OUT"])
+    reduce = None if mode in ("materialize", "errors") else "popcount"
+    mask = errors = None
+    if mode in ("shared-mask", "errors-popcount"):
+        mask = as_words(rng.integers(0, 1 << 32, (1, words),
+                                     dtype=np.uint32), cuda)
+    elif mode == "per-batch-mask":
+        mask = as_words(rng.integers(0, 1 << 32, (batch, words),
+                                     dtype=np.uint32), cuda)
+    if mode.startswith("errors"):
+        errors = as_words(rng.integers(0, 1 << 32, (batch, 4 * lp.n_cmds,
+                                                    words),
+                                       dtype=np.uint32)
+                          & rng.integers(0, 1 << 32, (batch, 4 * lp.n_cmds,
+                                                      words),
+                                         dtype=np.uint32), cuda)
+    plane, mask, errors = (None if t is None else _at_word_offset(t, offset)
+                           for t in (call.plane, mask, errors))
+    assert plane.data_ptr() % 16 == (4 if offset else 0)
+    kw = dict(n_rows=call.lay.n_rows, first_row=call.first_row,
+              errors=errors, reduce=reduce, mask=mask)
+    before = LAUNCHES["vm_popcount"] + LAUNCHES["vm_materialize"]
+    got = vm.vm_megakernel(call.lay.table, plane, call.lay.out_idx, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["vm_popcount"] + LAUNCHES["vm_materialize"] == before + 1
+    assert torch.equal(got, vm.vm_plain(call.lay.table, plane,
+                                        call.lay.out_idx, **kw))
+
+
+@pytest.mark.parametrize("groups,n_bits,offset", [(1001, 1, 0), (33, 32, 1),
+                                                  (1, 13, 1), (70, 8, 3)])
+def test_bit_transpose_kernel_takes_ragged_and_misaligned_values(
+        cuda, groups, n_bits, offset):
+    """Group counts that leave a ragged last warp, and values one or three
+    words into their storage."""
+    rng = np.random.default_rng(groups)
+    values = _at_word_offset(as_words(
+        rng.integers(0, 1 << n_bits, 32 * groups, dtype=np.uint64)
+        .astype(np.uint32), cuda), offset)
+    got = bit_transpose(values, n_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.bit_transpose(values, n_bits))
+
+
 def test_service_on_the_card_matches_its_oracle(cuda):
     from repro_torch.service import (WorkloadSpec, build_service,
                                      query_stream, run_queries_unbatched)

@@ -7,7 +7,10 @@ port's own interpreter, bit for bit: random TRA / copy / not / raw-AAP
 programs (the generator of tests/test_property_lowering.py, built in
 both packages), every reduce mode, shared and per-batch masks, batch
 axes, and TRA fault masks. One small case runs the reference's Pallas
-megakernel in interpret mode."""
+megakernel in interpret mode. The program the CUDA kernel runs
+(`kernels.vm.program`: the pre-decoded, encoded table) is run word for
+word by a numpy interpreter, `run_encoded`, and held to `vm_plain` on
+the raw table."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -264,12 +267,21 @@ def test_vm_argument_checks_and_block_choice():
             with pytest.raises(ValueError):
                 fn(case["table"], case["plane"], case["out_idx"],
                    **case["kw"])
-    # the widest column block whose plane tile fits shared memory
-    assert vm.block_cols(35, 126, 8) == 256
-    assert vm.block_cols(400, 10, 1) == 128
-    assert vm.block_cols(1800, 10, 1) == 32
-    with pytest.raises(ValueError):
-        vm.block_cols(2000, 10, 1)
+    # the first (threads, words a thread) whose shared rows, program and
+    # count slots fit as often per SM as the shape asks: two 16-byte quads
+    # a thread while two blocks fit an SM, then one quad, then one block,
+    # then one word; with fault masks one word a thread, the most threads
+    # that fit
+    assert vm.block_cols(12, 24, 1) == (128, 8)
+    assert vm.block_cols(32, 800, 8) == (128, 4)
+    assert vm.block_cols(100, 400, 1) == (64, 4)
+    assert vm.block_cols(400, 40, 1) == (32, 4)
+    assert vm.block_cols(1800, 40, 1) == (32, 1)
+    assert vm.block_cols(35, 956, 8, faulty=True) == (256, 1)
+    assert vm.block_cols(900, 40, 1, faulty=True) == (64, 1)
+    for faulty in (False, True):
+        with pytest.raises(ValueError):
+            vm.block_cols(2000, 40, 1, faulty)
     # words are the reference's bits
     assert np.array_equal(to_uint32(as_words(np.uint32([7]))), [7])
 
@@ -300,3 +312,170 @@ def test_row_lists_build_the_plane_in_one_copy():
     meta = {k: v.to("meta") for k, v in stacked.items()}
     with pytest.raises(ValueError, match="plain VM"):
         tlow.execute_lowered(lp, meta, backend="torch")
+
+
+def run_encoded(prog, plane, n_cmds, errors=None, mask=None, reduce=None,
+                seed=0):
+    """A numpy interpreter of the kernel's encoded program
+    (`kernels.vm.encode`), word for word as ``csrc/vm.cu`` reads it.
+    Every shared slot starts as random garbage, so a row the program reads
+    before a kept write (or a dropped write that was read) shows."""
+    dec, unit = prog.dec, prog.threads * prog.words
+    words = prog.buf.numpy().astype(np.int64) & 0xFFFFFFFF
+    ones = np.uint32(0xFFFFFFFF)
+    plane = to_uint32(plane)
+    batch, _, width = plane.shape
+    n_load, n_out = len(dec.loads), len(dec.outs)
+    out_at = (2 * n_load + 3) // 4 * 4
+    cmd_at = out_at + (n_out + 3) // 4 * 4
+    sh = np.random.default_rng(seed).integers(
+        0, 1 << 32, (dec.n_slots, batch, width), dtype=np.uint32)
+    for k in range(n_load):
+        off, row = words[2 * k], words[2 * k + 1]
+        assert off % unit == 0
+        sh[off // unit] = plane[:, row]
+    prev = None
+
+    def row(offset):
+        assert offset % unit == 0
+        return sh[offset // unit]
+
+    def fetch(w, first=None):
+        pol = ones if w & vm.POL else np.uint32(0)
+        if w & vm.CONST:
+            return np.full((batch, width), pol, dtype=np.uint32)
+        if w & vm.DUP:
+            assert first is not None
+            return first ^ pol
+        if w & vm.REG:
+            assert prev is not None
+            return prev ^ pol
+        return row(w & vm.SLOT) ^ pol
+
+    err = None if errors is None else to_uint32(errors)
+    c = cmd_at
+    while c < len(words):
+        header, s_words = words[c], words[c + 1:c + 4]
+        c += 4
+        if err is None:
+            assert not any(w & (vm.REG | vm.DUP) for w in s_words)
+            assert not (s_words[1] | s_words[2]) & vm.POL
+        s0 = fetch(s_words[0])
+        s1, s2 = fetch(s_words[1], s0), fetch(s_words[2], s0)
+        v = (s0 & s1) | (s1 & s2) | (s2 & s0)
+        if err is not None:
+            e = err[:, 4 * (header & vm.INDEX):4 * (header & vm.INDEX) + 4]
+            ones3, lit = s0 & s1 & s2, s0 | s1 | s2
+            v = v ^ ((e[:, 0] & ~lit) | (e[:, 1] & (lit & ~v))
+                     | (e[:, 2] & (v & ~ones3)) | (e[:, 3] & ones3))
+        n_writes = header >> vm.WRITES_SHIFT
+        for w in words[c:c + n_writes]:
+            row(w & vm.SLOT)[...] = v ^ (ones if w & vm.POL
+                                         else np.uint32(0))
+        c += (n_writes + 3) // 4 * 4
+        prev = v
+    rows = np.stack([fetch(words[out_at + k]) for k in range(n_out)], 1)
+    if reduce is None:
+        return rows
+    if mask is not None:
+        rows = rows & to_uint32(mask)[:, None, :]
+    return np.unpackbits(rows.view(np.uint8), axis=-1).sum(-1)
+
+
+def _decoded_matches_plain(lp_table, plane, out_idx, n_rows, first_row,
+                           errors, reduce, mask):
+    want = vm.vm_plain(lp_table, plane, out_idx, n_rows=n_rows,
+                       first_row=first_row, errors=errors, reduce=reduce,
+                       mask=mask)
+    prog = vm.program(np.asarray(lp_table, np.int32), tuple(out_idx),
+                      n_rows, first_row, plane.shape[1], errors is not None,
+                      reduce is not None and mask is not None,
+                      torch.device("cpu"))
+    got = run_encoded(prog, plane, lp_table.shape[0], errors, mask, reduce)
+    if reduce is None:
+        np.testing.assert_array_equal(got, to_uint32(want))
+    else:
+        np.testing.assert_array_equal(got, want.numpy())
+    return prog
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_decoded_program_matches_plain_vm(seed):
+    """The pre-decoded program, run by `run_encoded`, equals `vm_plain` on
+    the raw table: random programs, every output row or a few, seeded
+    fixed rows or not, fault masks, both modes and both masks."""
+    _, tprog = _programs(seed)
+    lp = tlow.lower(tprog)
+    rng = np.random.default_rng(seed + 500)
+    batch, width = 1 + seed % 3, int(rng.integers(1, 40))
+    data = {f"D{i}": rng.integers(0, 1 << 32, (batch, width),
+                                  dtype=np.uint32)
+            for i in range(int(rng.integers(1, N_ROWS + 1)))}
+    if seed % 4 == 1:
+        data["T1"] = rng.integers(0, 1 << 32, (batch, width),
+                                  dtype=np.uint32)
+    outs = [r for r in lp.writes if r != tlow.SINK] or ["D0"]
+    if seed % 2:
+        outs = outs[:2] + ["D0"]
+    call = tlow.vm_call(lp, data, outputs=outs)
+    lay = call.lay
+    errors = torch.from_numpy(
+        (rng.integers(0, 1 << 32, (batch, 4 * lay.table.shape[0], width),
+                      dtype=np.uint32)
+         & rng.integers(0, 1 << 32, (batch, 4 * lay.table.shape[0], width),
+                        dtype=np.uint32)).view(np.int32))
+    shared = as_words(rng.integers(0, 1 << 32, (1, width), dtype=np.uint32))
+    per_batch = as_words(rng.integers(0, 1 << 32, (batch, width),
+                                      dtype=np.uint32))
+    for err in (None, errors):
+        for reduce, mask in ((None, None), ("popcount", None),
+                             ("popcount", shared), ("popcount", per_batch)):
+            _decoded_matches_plain(lay.table, call.plane, lay.out_idx,
+                                   lay.n_rows, call.first_row, err, reduce,
+                                   mask)
+
+
+@pytest.mark.parametrize("faulty", [False, True])
+def test_decoded_program_matches_plain_vm_on_the_section8_stream(faulty):
+    """Every VM launch of the §8 multi-tenant stream (weekly OR trees,
+    ``sum(col + col2)`` adders, range scans, their shared planes, counts
+    and materialized rows), as the scheduler makes them on a small CPU
+    service: the decoded program equals `vm_plain`, without and with
+    fault masks."""
+    from repro_torch.apps.bitmap_index import week_or
+    from repro_torch.service import (MATERIALIZE, Query, WorkloadSpec,
+                                     build_service, query_stream)
+
+    calls = []
+    orig = vm.vm_megakernel
+
+    def record(table, plane, out_idx, **kw):
+        calls.append((np.asarray(table), plane, tuple(out_idx), kw))
+        return orig(table, plane, out_idx, **kw)
+
+    spec = WorkloadSpec(n_tenants=4, n_weeks=3, domain_bits=(1 << 12) + 37,
+                        n_queries=96)
+    svc = build_service(spec, device="cpu")
+    vm.vm_megakernel = record
+    try:
+        svc.query_batch(query_stream(spec, svc))
+        svc.query_batch([Query(week_or(1, prefix="t1/"), MATERIALIZE),
+                         Query("t2/col + t2/col2", MATERIALIZE)])
+    finally:
+        vm.vm_megakernel = orig
+    assert len(calls) > 20
+    assert any(kw.get("reduce") is None for *_, kw in calls)
+    assert any(kw.get("mask") is not None for *_, kw in calls)
+    assert max(t.shape[0] for t, *_ in calls) > 100     # the 8-bit adder
+    rng = np.random.default_rng(17)
+    for table, plane, out_idx, kw in calls:
+        errors = None
+        if faulty:
+            shape = (plane.shape[0], 4 * table.shape[0], plane.shape[2])
+            errors = torch.from_numpy(
+                (rng.integers(0, 1 << 32, shape, dtype=np.uint32)
+                 & rng.integers(0, 1 << 32, shape, dtype=np.uint32))
+                .view(np.int32))
+        _decoded_matches_plain(table, plane, out_idx, kw["n_rows"],
+                               kw["first_row"], errors, kw.get("reduce"),
+                               kw.get("mask"))
