@@ -36,13 +36,19 @@ Phases; the first failure exits non-zero:
    over 1,000 keys without the mask, GQA groups of 1 and 8, S = 130 and
    1,000, B H = 144), each within the JAX package's own tolerance (2e-3
    float32, 2e-2 bf16) of its plain version, relative to each element and
-   to the plain output's RMS; the training kernels at the same shapes and
+   to the plain output's RMS, and the MoE configs' heads: Llama-4
+   Maverick's 40 query heads over 8 (a group of 5) at S = 2,048 and Kimi
+   K2's 64 over 8 at head dim 112; the training kernels at the same shapes and
    at B = 1, S = 4,096 causal, both dtypes: the lse-emitting forward (its
    output equal to the serving kernel's, the lse within 1e-4) and the
    backward (dq, dk, dv; two runs bit-identical) against their plain
    versions within the same tolerance; sign
    pack / unpack bit for bit in float32 and bf16, with +-0, +-inf and NaNs
-   of either sign, on a ragged (3, 32,032) and a 2**26-lane input.
+   of either sign, on a ragged (3, 32,032) and a 2**26-lane input;
+   ``moe_ffn`` in float32 at reduced widths (d_model 1,024, 16 experts,
+   top-2, 2,048 tokens at a capacity that drops some) against the same
+   call on the CPU: the same routing, the output within 1e-4 of its
+   largest magnitude, the aux loss within 1e-5.
 3. slice   — (a) serve the §8 multi-tenant workload at full width (2**24-bit
    vectors) through ``build_service -> query_stream -> query_batch``, plus
    a batch of materialize queries. Every result must equal the unbatched
@@ -103,7 +109,24 @@ Phases; the first failure exits non-zero:
    the backward once, the compressed step also pack, unpack and the
    majority once each. It prints the cold and warm step, tokens/s, peak
    memory, and a warm step's device time by kind with the idle share.
-   Each of (a)-(f) starts with every launch count at 0 and must launch
+   (g) MoE serving at Llama-4 Maverick's published widths (d_model 5,120,
+   40 / 8 heads of 128, 128 experts of d_ff 8,192, top-1, one shared,
+   dense d_ff 16,384, vocab 202,048) in bf16, its depth cut from 48 layers
+   to 2 (one dense, one MoE: one super-layer; 37.4 GB of weights), through
+   ``build -> init -> generate`` with 3e's traffic: 2 flash launches; the
+   prefill's dropped slots (16,384 tokens at capacity 160) must equal a
+   host recount from the router's ids, every logit finite, ids in vocab;
+   it prints the cold and warm prefill wall, ms per decode step and tok/s,
+   peak memory, the dropped share and the experts' max / mean load, and
+   the warm prefill's device ms by kind and idle share. (h) the paper's
+   §3, §6.2 and §8.4 at real sizes, each against numpy on the host: Table
+   1 and ``monte_carlo_tra`` at 2**20 trials (sigma 0.06 and 0.25); five
+   ``bop``s over 8 KiB rows taking the Buddy and the CPU path; masked init
+   over 2**23 pixels; XOR encrypt / decrypt of 2**23 words; a 16-base read
+   in a 2**24-base genome, exact and within 2 mismatches; 16 Bloom filters
+   of 2**20 bits x 1,000 keys merged and queried; the bitmap filter over
+   2**24 documents and a 4,096-id sample.
+   Each of (a)-(h) starts with every launch count at 0 and must launch
    each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
@@ -137,8 +160,10 @@ Phases; the first failure exits non-zero:
    and q, k, v, o, do, lse, dq, dk, dv over 3.35 TB/s, and on the first
    training launch what its hi + lo split of p and ds costs (timed with
    and without it, each one's share of the gate printed); pack and unpack
-   bit for bit, bound by their bytes. Phase 4 runs for (a)-(e) before
-   (f) starts, so their recorded arguments are freed first.
+   bit for bit, bound by their bytes. Of (g), its 2 flash launches as
+   (e)'s; of (h), every launch. Phase 4 runs for (a)-(e) before (f)
+   starts and for (f) before (g), so their recorded arguments are freed
+   first.
 
 Output: the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as the last line ``{"ok": true, "device": {...}}``. ``--out DIR``
@@ -586,7 +611,9 @@ def _vote_arith_kernel_cases(torch, device, errs) -> int:
 #: edges of the head-dim-128 Hopper kernels: Sq != Sk without the mask
 #: (cross attention), GQA groups of 1 and 8, lengths that are not a
 #: multiple of their 128-row tiles (130, 1,000), and B H = 144 query heads,
-#: more than the card's 132 SMs
+#: more than the card's 132 SMs; then the MoE configs' heads: Llama-4
+#: Maverick's (40 query heads over 8, a group of 5, at S 2,048) and Kimi
+#: K2's (64 over 8 at head dim 112, the first design's instantiation)
 FLASH_CASES = (
     (2, 128, 128, 4, 2, 32, True, 32, 32),
     (2, 128, 128, 4, 2, 32, False, 32, 32),
@@ -599,6 +626,8 @@ FLASH_CASES = (
     (1, 130, 130, 16, 16, 128, True, 64, 64),
     (1, 1000, 1000, 16, 2, 128, True, 512, 512),
     (9, 256, 256, 16, 8, 128, True, 128, 128),
+    (1, 2048, 2048, 40, 8, 128, True, 512, 512),
+    (1, 1000, 1000, 64, 8, 112, True, 512, 512),
 )
 #: the kernels redesigned for Hopper that `phase_sm90_report` holds to
 #: zero spills, by source: the head-dim-128 bf16 flash kernels (TMA ring +
@@ -737,8 +766,9 @@ def phase_flash_kernels(torch) -> float:
 
 
 #: the training kernels' phase-2 shapes: FLASH_CASES (the JAX package's
-#: five, cross-attention, S = 1,000 causal at hd 128) and the training
-#: path's sequence length
+#: five, cross-attention, S = 1,000 causal at hd 128, the MoE configs'
+#: heads: head dim 112 has an lse forward and a backward instantiation too)
+#: and the training path's sequence length
 TRAIN_FLASH_CASES = FLASH_CASES + ((1, 4096, 4096, 16, 8, 128, True, 512,
                                     512),)
 
@@ -839,6 +869,62 @@ def phase_train_kernels(torch) -> dict:
           f"{worst['flash_attention_bwd']:.3g}); sign pack / unpack: "
           f"{n_sign} cases bit-identical")
     return dict(worst, pack_signs=0.0, unpack_signs=0.0)
+
+
+#: phase 2's MoE case: reduced widths (d_model 1,024, 16 experts, top-2,
+#: expert d_ff 2,048) in float32, capacity factor 1.0 so that a random
+#: router drops tokens; the card's output within 1e-4 of the host's
+#: largest magnitude (the CPU tests' float32 bound for the models), the
+#: aux loss within 1e-5 relative, the routing equal
+MOE_FFN_CFG = dict(d_model=1024, n_experts=16, top_k=2, d_ff=2048,
+                   capacity_factor=1.0, dtype="float32")
+MOE_FFN_TOL = 1e-4
+
+
+def phase_moe_ffn(torch) -> float:
+    """`moe_ffn` on the card against the same function on the CPU, at a
+    batch that drops tokens; returns the output's largest relative
+    difference."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(reduced(get_config(MOE_ARCH)), **MOE_FFN_CFG)
+    gen = torch.Generator(device="cuda").manual_seed(109)
+    p = moe.moe_init(gen, cfg, "cuda")
+    x = torch.randn(2, 1024, cfg.d_model, generator=gen, device="cuda")
+    y, aux = moe.moe_ffn(p, x, cfg)
+    host = copy.deepcopy(p).to("cpu")
+    y_host, aux_host = moe.moe_ffn(host, x.cpu(), cfg)
+    T = x.shape[0] * x.shape[1]
+    C = moe.expert_capacity(cfg, T)
+    probs, _, idx = moe.route(p.router, x.reshape(T, -1), cfg.top_k)
+    _, _, idx_host = moe.route(host.router, x.cpu().reshape(T, -1),
+                               cfg.top_k)
+    top = probs.topk(cfg.top_k + 1, dim=-1).values
+    gap = float((top[:, -2] - top[:, -1]).min())
+    check(torch.equal(idx.cpu(), idx_host),
+          f"moe_ffn: the card routes other experts than the host (the "
+          f"smallest gap between the kept and the next probability is "
+          f"{gap:.3g})")
+    d = moe.dispatch(idx, cfg.n_experts, C)
+    dropped = int((~d.keep).sum())
+    check(dropped > 0, "moe_ffn: the case drops no token")
+    err = float((y.cpu() - y_host).abs().max() / y_host.abs().max())
+    check(err <= MOE_FFN_TOL, f"moe_ffn on the card vs the CPU: {err:.3g} "
+          f"of the largest output (> {MOE_FFN_TOL})")
+    err_aux = abs(float(aux) - float(aux_host)) / abs(float(aux_host))
+    check(err_aux <= 1e-5, f"moe_ffn aux loss: {err_aux:.3g} relative")
+    print(f"[kernels] moe_ffn float32 (d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts, top-{cfg.top_k}, {T} tokens, capacity "
+          f"{C}, {dropped} of {T * cfg.top_k} slots dropped) on the card vs "
+          f"the CPU: output {err:.3g} of its largest magnitude (bound "
+          f"{MOE_FFN_TOL}), aux {err_aux:.3g} relative, routing equal "
+          f"(smallest kept-vs-next gap {gap:.3g})")
+    return err
+
 
 
 # ---------------------------------------------------------------------------
@@ -2077,6 +2163,492 @@ def phase_train(torch, rec):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: MoE serving
+# ---------------------------------------------------------------------------
+
+#: phase 3g: Llama-4 Maverick at its published widths, its depth cut from
+#: 48 layers to 2 (one dense and one MoE layer: one super-layer of the
+#: reference's scan; the 128 experts of one MoE layer alone hold 32.2 GB),
+#: served with 3e's traffic (LM_BATCH prompts of LM_PROMPT ids, LM_NEW new)
+MOE_ARCH, MOE_LAYERS, MOE_SEED = "llama4_maverick_400b_a17b", 2, 18
+MOE_KERNELS = ("flash_attention",)
+
+
+def phase_moe(torch, rec):
+    """MoE serving at Maverick's published widths (2 layers) through
+    ``build -> init -> generate`` on the card: the prefill's drops against
+    a host recount from the router's ids, finite logits, ids in vocab."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import build, moe
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serve import generate
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    check(layer_kinds(cfg) == ("dense", "moe"),
+          f"{cfg.name} at {MOE_LAYERS} layers is {layer_kinds(cfg)}")
+    torch.cuda.empty_cache()
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=bundle.device).manual_seed(MOE_SEED)
+    params = bundle.init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=bundle.device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+
+    seen = {"finite": torch.ones((), dtype=torch.bool, device=bundle.device),
+            "routed": None}
+
+    def prefill(p, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = bundle.prefill(p, batch)
+        torch.cuda.synchronize()
+        seen["prefill_s"] = time.perf_counter() - t
+        seen["logits"] = logits
+        seen["finite"] &= torch.isfinite(logits).all()
+        return logits, cache
+
+    def decode_step(p, token, cache, pos):
+        logits, cache = bundle.decode_step(p, token, cache, pos)
+        seen["finite"] &= torch.isfinite(logits).all()
+        return logits, cache
+
+    dispatch = moe.dispatch
+
+    def spy(idx, n_experts, capacity):
+        d = dispatch(idx, n_experts, capacity)
+        if seen["routed"] is not None:
+            seen["routed"].append((idx, d.keep, d.counts, capacity))
+        return d
+
+    served = dataclasses.replace(bundle, prefill=prefill,
+                                 decode_step=decode_step)
+    batch = {"tokens": prompts}
+    moe.dispatch = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        seen["routed"] = []
+        rec.stage, rec.only = "moe prefill", {"flash_attention"}
+        t0 = time.perf_counter()
+        toks = generate(served, params, batch, LM_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        rec.stage = rec.only = None
+        routed, seen["routed"] = seen["routed"], None
+        t_prefill = seen["prefill_s"]
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(seen["finite"]), "a logit of the MoE serving path is "
+              "not finite")
+        first_logits = seen.pop("logits")
+        # warm: the same call again, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(served, params, batch, LM_NEW)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        t_warm_prefill = seen["prefill_s"]
+        check(bool(seen["finite"]), "a logit of the warm MoE run is not "
+              "finite")
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            bundle.prefill(params, batch)
+            torch.cuda.synchronize()
+        device, events = _device_ms_by_kind(prof)
+    finally:
+        moe.dispatch = dispatch
+        rec.stage = rec.only = None
+    print(f"[moe] launches while generate ran: {launches}")
+    for name in MOE_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was never launched on the MoE serving path")
+    n_flash = launches.get("flash_attention", 0)
+    check(n_flash == cfg.n_layers,
+          f"{n_flash} flash launches in a {cfg.n_layers}-layer prefill")
+    check(tuple(toks.shape) == (LM_BATCH, LM_NEW) and toks.is_cuda
+          and toks.dtype == torch.int32, f"generate gave {tuple(toks.shape)} "
+          f"{toks.dtype} on {toks.device}")
+    check(0 <= int(toks.min()) and int(toks.max()) < cfg.padded_vocab,
+          f"ids outside [0, {cfg.padded_vocab})")
+    check(torch.equal(toks[:, 0], first_logits.argmax(-1).to(torch.int32)),
+          "the first id is not the prefill's argmax")
+    # the dispatch: one per MoE layer in the prefill and in each decode
+    # step; its drops against a host recount from the router's ids
+    check(len(routed) == LM_NEW, f"{len(routed)} MoE dispatches for one "
+          f"prefill and {LM_NEW - 1} decode steps")
+    T = LM_BATCH * LM_PROMPT
+    C = moe.expert_capacity(cfg, T)
+    for i, (idx, keep, counts, capacity) in enumerate(routed):
+        n_tok = T if i == 0 else LM_BATCH
+        check(tuple(idx.shape) == (n_tok, cfg.top_k)
+              and capacity == moe.expert_capacity(cfg, n_tok),
+              f"dispatch {i}: ids {tuple(idx.shape)}, capacity {capacity}")
+        host = np.bincount(idx.cpu().numpy().reshape(-1),
+                           minlength=cfg.n_experts)
+        want = int(np.maximum(host - capacity, 0).sum())
+        got = int((~keep).sum())
+        check(got == want and np.array_equal(counts.cpu().numpy(), host),
+              f"dispatch {i}: {got} slots dropped on the card, {want} by "
+              f"the host's recount at capacity {capacity}")
+    idx, keep, counts, _ = routed[0]
+    dropped = int((~keep).sum())
+    load = counts.float()
+    drop_share = dropped / (T * cfg.top_k)
+    decode_ms = (t_gen - t_prefill) / (LM_NEW - 1) * 1e3
+    warm_decode_ms = (t_warm - t_warm_prefill) / (LM_NEW - 1) * 1e3
+    busy = sum(device.values())
+    info = {"moe_arch": cfg.name, "moe_layers": cfg.n_layers,
+            "moe_params": n_params, "moe_weight_bytes": w_bytes,
+            "moe_init_s": t_init, "moe_generate_s": t_gen,
+            "moe_prefill_s": t_prefill, "moe_decode_ms": decode_ms,
+            "moe_tok_per_s": LM_BATCH * LM_NEW / t_gen,
+            "moe_prefill_tok_per_s": T / t_prefill,
+            "moe_warm_generate_s": t_warm,
+            "moe_warm_prefill_s": t_warm_prefill,
+            "moe_warm_decode_ms": warm_decode_ms,
+            "moe_warm_tok_per_s": LM_BATCH * LM_NEW / t_warm,
+            "moe_peak_device_bytes": peak, "moe_capacity": C,
+            "moe_dropped_slots": dropped, "moe_drop_share": drop_share,
+            "moe_load_max": float(load.max()),
+            "moe_load_mean": float(load.mean()),
+            "moe_prefill_device_ms": device,
+            "moe_prefill_device_events": events}
+    print(f"[moe] {cfg.name} at its published widths, depth cut from 48 to "
+          f"{cfg.n_layers} layers (one dense at d_ff {cfg.dense_d_ff}, one "
+          f"MoE: {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
+          f"{cfg.top_k}, {cfg.n_shared_experts} shared): d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim_}, vocab {cfg.padded_vocab} padded, "
+          f"{n_params / 1e9:.3f} B parameters ({w_bytes / 2**30:.2f} GiB) "
+          f"in bf16 (init {t_init:.2f} s)")
+    print(f"[moe] cold generate: {LM_BATCH} prompts of {LM_PROMPT} ids, "
+          f"{LM_NEW} new, greedy: {t_gen:.3f} s wall, prefill "
+          f"{t_prefill * 1e3:.1f} ms ({T / t_prefill:.0f} prompt tok/s), "
+          f"{decode_ms:.2f} ms per decode step (the cache extension "
+          f"included), {LM_BATCH * LM_NEW / t_gen:.1f} generated tok/s; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    print(f"[moe] warm generate: {t_warm:.3f} s wall, prefill "
+          f"{t_warm_prefill * 1e3:.1f} ms, {warm_decode_ms:.2f} ms per "
+          f"decode step, {LM_BATCH * LM_NEW / t_warm:.1f} generated tok/s")
+    print(f"[moe] prefill dispatch: {T} tokens, capacity {C}: {dropped} of "
+          f"{T * cfg.top_k} routed slots dropped ({drop_share:.2%}), equal "
+          f"to the host's recount; expert load max {float(load.max()):.0f} "
+          f"/ mean {float(load.mean()):.1f}; the {LM_NEW - 1} decode "
+          f"dispatches ({LM_BATCH} tokens, capacity "
+          f"{moe.expert_capacity(cfg, LM_BATCH)}) drop "
+          f"{sum(int((~k).sum()) for _, k, _, _ in routed[1:])}")
+    print(f"[moe] warm prefill under the profiler: device "
+          + (f"{busy:.2f} ms over {events} kernels and copies "
+             f"(torch.profiler: "
+             + ", ".join(f"{k} {v:.2f}" for k, v in device.items())
+             + f"), idle {1 - busy / (t_warm_prefill * 1e3):.1%} of the "
+             f"warm prefill's wall" if busy else
+             "time not measured (the profiler saw no device events)"))
+    del params, prof, routed, first_logits
+    torch.cuda.empty_cache()
+    return launches, info
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: the paper's §3, §6.2 and §8.4 at real sizes
+# ---------------------------------------------------------------------------
+
+#: phase 3h's sizes: the reference benchmark's (benchmarks/extra_apps.py:
+#: 2**23 pixels and words, 16 Bloom filters of 2**20 bits and 1,000 keys),
+#: the genome raised from 100 kb to 2**24 bases so that the card does real
+#: work, Monte-Carlo at 2**20 trials, bop over 8 KiB rows, the bitmap
+#: filter over 2**24 documents
+MC_TRIALS, MC_SIGMAS = 1 << 20, (0.06, 0.25)
+BOP_ROW_BITS = 65536
+PIXELS, CIPHER_WORDS, CIPHER_KEY = 1 << 23, 1 << 23, 0x1234567
+GENOME, READ_LEN, READ_AT = 1 << 24, 16, 5000
+BLOOM_FILTERS, BLOOM_BITS, BLOOM_KEYS, BLOOM_K = 16, 1 << 20, 1000, 4
+N_DOCS = 1 << 24
+PAPER_KERNELS = ("bitwise", "popcount", "bitweaving_scan", "majority",
+                 "vm_materialize", "bit_transpose")
+#: §6.2's bop sequence (op, dst, srcs, group of a new dst): one subarray
+#: (Buddy, no PSM copy), scattered operands (Buddy with PSM copies), three
+#: sources and the destination in four subarrays (the CPU path)
+PAPER_BOPS = (("and", "o1", ["a", "b"], "g0"), ("or", "o2", ["a", "c"],
+                                                "g3"),
+              ("maj3", "o3", ["a", "c", "d"], "g4"),
+              ("xnor", "o4", ["o1", "b"], "g0"),
+              ("maj3", "o5", ["o1", "o2", "o3"], None))
+
+
+def _np_keystream(key: int, n: int) -> np.ndarray:
+    """The §8.4.2 keystream in numpy uint32 (the independent oracle)."""
+    with np.errstate(over="ignore"):
+        x = np.arange(n, dtype=np.uint32) + np.uint32(
+            (key * 0x9E3779B9) & 0xFFFFFFFF)
+        x ^= x >> np.uint32(16)
+        x *= np.uint32(0x21F0AAAD)
+        x ^= x >> np.uint32(15)
+        x *= np.uint32(0x735A2D97)
+        x ^= x >> np.uint32(15)
+    return x
+
+
+def _np_bloom_slots(keys: np.ndarray, k: int, m_bits: int) -> np.ndarray:
+    """The §8.4.4 double hashing in numpy uint32 -> (n, k) slots."""
+    with np.errstate(over="ignore"):
+        h1 = keys * np.uint32(0x9E3779B1)
+        h1 = (h1 ^ (h1 >> np.uint32(15))) * np.uint32(0x85EBCA77)
+        h1 ^= h1 >> np.uint32(13)
+        h2 = keys * np.uint32(0xC2B2AE3D)
+        h2 = (h2 ^ (h2 >> np.uint32(16))) | np.uint32(1)
+        i = np.arange(k, dtype=np.uint32)
+        return ((h1[:, None] + i[None, :] * h2[:, None])
+                % np.uint32(m_bits)).astype(np.int64)
+
+
+def _np_bits(words: np.ndarray, n: int) -> np.ndarray:
+    """LSB-first uint32 words -> the first ``n`` bits, bool."""
+    return np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                         bitorder="little")[:n].astype(bool)
+
+
+def _np_tra(values: np.ndarray, caps: np.ndarray, p):
+    """§3's charge sharing in float64: (delta, sensed, expected)."""
+    v, c = values.astype(np.float64), caps.astype(np.float64)
+    delta = ((v * c).sum(-1) * p.vdd + p.c_bitline_ff * p.vdd / 2.0) \
+        / (c.sum(-1) + p.c_bitline_ff) - p.vdd / 2.0
+    return delta, delta + p.sense_offset_frac * p.vdd > 0, v.sum(-1) >= 2
+
+
+def phase_paper(torch, rec):
+    """The paper's §3 (Table 1, Monte-Carlo TRA), §6.2 (the bop dispatch)
+    and §8.4 (masked init, XOR cipher, DNA matching, Bloom filters) and the
+    bitmap data filter through their entry points on the card, every
+    result against numpy on the host."""
+    from repro_torch.core import spice
+    from repro_torch.core.bitplane import to_uint32
+    from repro_torch.core.isa import BuddyDevice
+    from repro_torch.data import bitmap_filter as bf
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.ops import bloom, crypto, dna
+    from repro_torch.ops.masked_init import (field_mask,
+                                             masked_fill_constant,
+                                             masked_init)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2017)
+    walls = {}
+
+    def timed(name, fn):
+        rec.stage = name
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t
+        rec.stage = None
+        return out
+
+    p = spice.DEFAULT_SPICE
+    # inputs, drawn before the counts start
+    rows = {n: _draw_words(torch, gen, BOP_ROW_BITS // 32) for n in "abcd"}
+    groups = {"a": "g0", "b": "g0", "c": "g1", "d": "g2"}
+    pixels = _draw_words(torch, gen, PIXELS)
+    values = _draw_words(torch, gen, PIXELS)
+    plain = _draw_words(torch, gen, CIPHER_WORDS)
+    genome = torch.randint(0, 4, (GENOME,), generator=gen, device=dev)
+    bloom_keys = [_draw_words(torch, gen, BLOOM_KEYS)
+                  for _ in range(BLOOM_FILTERS)]
+    probes = _draw_words(torch, gen, 1 << 16)
+    read = genome[READ_AT:READ_AT + READ_LEN].tolist()
+    mutated = list(read)
+    for j in (3, 11):
+        mutated[j] = (mutated[j] + 1) % 4
+    torch.cuda.synchronize()
+
+    LAUNCHES.clear()
+    table = timed("§3 table 1", lambda: spice.table1(device=dev))
+    mc = {s: timed(f"§3 monte carlo {s}", lambda s=s: spice.monte_carlo_tra(
+        torch.Generator(device=dev).manual_seed(int(s * 100)), MC_TRIALS, s))
+        for s in MC_SIGMAS}
+
+    def bops():
+        bd = BuddyDevice(row_bits=BOP_ROW_BITS, device=dev)
+        for name, words in rows.items():
+            bd.store(name, words, group=groups[name])
+        return [bd.bop(op, dst, srcs, group=g)
+                for op, dst, srcs, g in PAPER_BOPS]
+
+    bop_results = timed("§6.2 bop", bops)
+    mask = timed("§8.4.1 masked init", lambda: field_mask(
+        32, 24, 8, PIXELS, device=dev))
+    cleared, filled, put = (timed("§8.4.1 masked init", fn) for fn in (
+        lambda: masked_fill_constant(pixels, mask, 0),
+        lambda: masked_fill_constant(pixels, mask, 1),
+        lambda: masked_init(pixels, mask, values)))
+    cipher = timed("§8.4.2 xor", lambda: crypto.xor_encrypt(plain,
+                                                            CIPHER_KEY))
+    back = timed("§8.4.2 xor", lambda: crypto.xor_decrypt(cipher,
+                                                          CIPHER_KEY))
+    exact = timed("§8.4.3 dna", lambda: dna.find_matches(genome, read))
+    near = timed("§8.4.3 dna", lambda: dna.find_matches_with_mismatches(
+        genome, mutated, 2))
+
+    def blooms():
+        fs = [bloom.BloomFilter.create(BLOOM_BITS, BLOOM_K, device=dev)
+              .insert(k) for k in bloom_keys]
+        merged = fs[0].merge(*fs[1:])
+        return merged, merged.query(torch.cat(bloom_keys)), \
+            merged.query(probes), merged.fill_ratio()
+
+    merged, hits, probe_hits, fill = timed("§8.4.4 bloom", blooms)
+    cat = timed("bitmap filter", lambda: bf.CorpusCatalog.synthetic(
+        gen, N_DOCS))
+    spec = dict(require=("lang_en",), exclude=("toxic",),
+                ranges={"n_tokens": (128, 2048)})
+    bitmap, n_ok = timed("bitmap filter",
+                         lambda: bf.build_filter(cat, **spec))
+    ids = timed("bitmap filter",
+                lambda: bf.sample_eligible(gen, bitmap, N_DOCS, 4096))
+    launches = dict(LAUNCHES)
+    print(f"[paper] launches while §3, §6.2, §8.4 and the filter ran: "
+          f"{launches}")
+    for name in PAPER_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was never launched on the paper's path")
+
+    # §3 against numpy
+    for case, vals, _ in spice.TABLE1_CASES:
+        for v in spice.VARIATIONS:
+            caps = p.c_cell_ff * np.array([1 + v, 1 - v, 1 - v])
+            delta, sensed, want = _np_tra(np.array(vals), caps, p)
+            lat = p.tau_ns * np.log(p.vdd / 2 / max(abs(delta), 1e-6)) + (
+                p.t_restore_1_ns if sensed else p.t_restore_0_ns)
+            e = table[case][v]
+            check(e["fails"] == (bool(sensed) != bool(want))
+                  and abs(e["latency_ns"] - lat) <= 1e-5 * lat
+                  and abs(e["delta_v"] - delta) <= 1e-6,
+                  f"§3 Table 1 {case} at {v}: {e} vs numpy delta "
+                  f"{delta:.6g}, latency {lat:.6g}")
+    fails = [(c, v) for c, row in table.items() for v, e in row.items()
+             if e["fails"]]
+    check(fails == [("1s0w0w", 0.25)], f"§3 Table 1 fails at {fails}")
+    mc_rates = {}
+    for s, got in mc.items():
+        v_t, c_t = spice.draw_trials(
+            torch.Generator(device=dev).manual_seed(int(s * 100)),
+            MC_TRIALS, s)
+        delta, sensed, want = _np_tra(v_t.cpu().numpy(), c_t.cpu().numpy(),
+                                      p)
+        n_fail = int((sensed != want).sum())
+        # float32 on the card against float64 here: trials within 1e-6 V
+        # of the sense threshold may land either way
+        edge = int((np.abs(delta + p.sense_offset_frac * p.vdd)
+                    < 1e-6).sum())
+        lat = p.tau_ns * np.log(p.vdd / 2 / np.maximum(np.abs(delta), 1e-6)) \
+            + np.where(sensed, p.t_restore_1_ns, p.t_restore_0_ns)
+        check(abs(int(got["n_fail"]) - n_fail) <= edge
+              and abs(float(got["mean_latency_ns"]) - lat.mean())
+              <= 1e-4 * lat.mean(),
+              f"§3 Monte-Carlo at sigma {s}: {int(got['n_fail'])} fails, "
+              f"mean latency {float(got['mean_latency_ns']):.6g} vs numpy "
+              f"{n_fail} (+-{edge}), {lat.mean():.6g}")
+        mc_rates[s] = float(got["failure_rate"])
+    check(mc_rates[MC_SIGMAS[0]] == 0.0 < mc_rates[MC_SIGMAS[1]],
+          f"§3 Monte-Carlo failure rates {mc_rates}")
+    # §6.2 against numpy
+    host = {n: to_uint32(w) for n, w in rows.items()}
+    paths = []
+    for (op, dst, srcs, _), r in zip(PAPER_BOPS, bop_results):
+        host[dst] = _np_bitwise(op, *(host[s] for s in srcs))
+        check(np.array_equal(to_uint32(r.value), host[dst])
+              and r.value.is_cuda, f"§6.2 bop {op} -> {dst} ({r.path}) "
+              "differs from numpy")
+        paths.append(f"{op}:{r.path}/{r.n_psm}")
+    check({r.path for r in bop_results} == {"buddy", "cpu"}
+          and all((r.path == "cpu") == (r.n_psm >= 3) for r in bop_results),
+          f"§6.2 paths {paths}")
+    # §8.4.1 against numpy
+    px, vals_h = to_uint32(pixels), to_uint32(values)
+    m = np.uint32(0xFF000000)
+    check(np.array_equal(to_uint32(mask), np.full(PIXELS, m)),
+          "§8.4.1 field mask differs from numpy")
+    for label, got, want in (("clear", cleared, px & ~m),
+                             ("fill", filled, px | m),
+                             ("init", put, (px & ~m) | (vals_h & m))):
+        check(np.array_equal(to_uint32(got), want),
+              f"§8.4.1 masked {label} differs from numpy")
+    # §8.4.2 against numpy
+    pt = to_uint32(plain)
+    check(np.array_equal(to_uint32(cipher),
+                         pt ^ _np_keystream(CIPHER_KEY, CIPHER_WORDS))
+          and np.array_equal(to_uint32(back), pt),
+          "§8.4.2 XOR cipher differs from numpy")
+    # §8.4.3 against numpy
+    g = genome.cpu().numpy()
+    n_starts = GENOME - READ_LEN + 1
+    counts = {}
+    for label, r, t, bv in (("exact", read, 0, exact),
+                            ("<= 2 mismatches", mutated, 2, near)):
+        miss = np.zeros(n_starts, np.int8)
+        for j, b in enumerate(r):
+            miss += g[j:j + n_starts] != b
+        sel = miss <= t
+        check(bv.n_bits == n_starts
+              and np.array_equal(to_uint32(bv.words), _packed(sel)),
+              f"§8.4.3 DNA {label} differs from numpy")
+        check(bool(sel[READ_AT]), f"§8.4.3 DNA {label} misses the read")
+        counts[label] = int(sel.sum())
+    # §8.4.4 against numpy
+    bits = np.zeros(BLOOM_BITS, bool)
+    for k in bloom_keys:
+        bits[_np_bloom_slots(to_uint32(k), BLOOM_K, BLOOM_BITS).ravel()] = 1
+    slots = _np_bloom_slots(to_uint32(probes), BLOOM_K, BLOOM_BITS)
+    check(np.array_equal(to_uint32(merged.bits.words), _packed(bits))
+          and bool(hits.all())
+          and np.array_equal(probe_hits.cpu().numpy(), bits[slots].all(1))
+          and abs(float(fill) - bits.mean()) <= 1e-7,
+          "§8.4.4 merged Bloom filter differs from numpy")
+    # the bitmap filter against numpy on the catalog's own bits
+    attr = {n: _np_bits(to_uint32(w), N_DOCS) for n, w in cat.attrs.items()}
+    col = cat.columns["n_tokens"]
+    planes = to_uint32(col.planes)
+    tok = np.zeros(N_DOCS, np.int64)
+    for j in range(col.n_bits):
+        tok |= _np_bits(planes[j], N_DOCS).astype(np.int64) << j
+    sel = attr["lang_en"] & ~attr["toxic"] & (tok >= 128) & (tok <= 2048)
+    ids_h = ids.cpu().numpy()
+    check(n_ok == int(sel.sum())
+          and np.array_equal(to_uint32(bitmap), _packed(sel)),
+          f"bitmap filter: {n_ok} eligible vs numpy {int(sel.sum())}")
+    check(len(set(ids_h.tolist())) == ids_h.shape[0]
+          and bool(sel[ids_h].all()), "bitmap filter: the sample repeats "
+          "an id or holds an ineligible one")
+    print(f"[paper] §3: Table 1 fails only at {fails} and equals numpy; "
+          f"Monte-Carlo at {MC_TRIALS} trials: failure rates "
+          + ", ".join(f"sigma {s}: {r:.3g}" for s, r in mc_rates.items())
+          + "; all equal numpy")
+    print(f"[paper] §6.2: {len(PAPER_BOPS)} bops over "
+          f"{BOP_ROW_BITS // 8}-byte rows ({', '.join(paths)}) equal numpy")
+    print(f"[paper] §8.4: masked init of {PIXELS} pixels, XOR of "
+          f"{CIPHER_WORDS} words, DNA in {GENOME} bases ({counts}), "
+          f"{BLOOM_FILTERS} Bloom filters of {BLOOM_BITS} bits x "
+          f"{BLOOM_KEYS} keys merged (fill {float(fill):.4f}); bitmap "
+          f"filter over {N_DOCS} documents: {n_ok} eligible, 4096 sampled; "
+          f"all equal numpy")
+    print("[paper] wall s by part: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return launches, {"paper_wall_s": walls, "paper_mc_failure_rate":
+                      mc_rates, "paper_dna_matches": counts,
+                      "paper_filter_eligible": n_ok}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: numbers
 # ---------------------------------------------------------------------------
 
@@ -2755,6 +3327,7 @@ def main() -> int:
         sm90 = phase_sm90_report(_build)
         float_err = {"flash_attention": phase_flash_kernels(torch)}
         float_err.update(phase_train_kernels(torch))
+        phase_moe_ffn(torch)
         spec = WorkloadSpec(n_tenants=4, n_weeks=3, domain_bits=1 << 24,
                             n_queries=96)
         numbers = Numbers(max_err, float_err)
@@ -2772,6 +3345,13 @@ def main() -> int:
                           max_mhz * 1e6)
             rec.drop()
             later.append(phase_train(torch, rec))
+            # phase 4 for 3f, which frees its recorded arguments before
+            # the MoE model takes 37 GB of the card
+            phase_numbers(torch, rec.calls, numbers, int_rate,
+                          max_mhz * 1e6)
+            rec.drop()
+            later.append(phase_moe(torch, rec))
+            later.append(phase_paper(torch, rec))
         finally:
             rec.close()
         # each kernel's launches over every main-path run

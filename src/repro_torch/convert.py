@@ -52,6 +52,18 @@ def vertical_column_from_reference(col, device="cuda") -> VerticalColumn:
                           int(col.n_bits), int(col.n_values))
 
 
+def corpus_catalog_from_reference(cat, device="cuda"):
+    """A port `data.bitmap_filter.CorpusCatalog` with the same attribute
+    bitmaps and integer columns as a reference one."""
+    from repro_torch.data.bitmap_filter import CorpusCatalog
+
+    dev = resolve_device(device)
+    return CorpusCatalog(
+        {name: _words(w, dev) for name, w in cat.attrs.items()},
+        {name: vertical_column_from_reference(col, dev)
+         for name, col in cat.columns.items()}, int(cat.n_docs))
+
+
 def lowered_from_reference(lp) -> LoweredProgram:
     """A port `LoweredProgram` with the reference program's rows and
     opcode table."""
@@ -78,16 +90,37 @@ def _copy_tree(module, tree, index=None) -> None:
             dst.copy_(torch.from_numpy(x))
 
 
+def _stacked_blocks(cfg, params):
+    """(reference subtree, index) of each layer in the port's order: the
+    dense family's ``layers[i]``; the MoE family's ``lead[i]``, then per
+    super-layer g its ``groups.dense[g, j]`` and ``groups.moe[g]``."""
+    if cfg.family != "moe":
+        return [(params["layers"], i) for i in range(cfg.n_layers)]
+    out = [(params["lead"], i) for i in range(cfg.n_dense_layers)]
+    n_groups = (cfg.n_layers - cfg.n_dense_layers) // cfg.moe_every
+    for g in range(n_groups):
+        out += [(params["groups"]["dense"], (g, j))
+                for j in range(cfg.moe_every - 1)]
+        out.append((params["groups"]["moe"], g))
+    return out
+
+
 def model_params_from_reference(cfg, params, device="cuda") -> Transformer:
     """A port `models.transformer.Transformer` holding the reference's
-    dense-family parameters (``repro.models.build(cfg).init(key)``: a
-    pytree of arrays with the layers stacked on a leading axis), cast to
-    ``cfg.dtype`` on ``device``."""
+    parameters (``repro.models.build(cfg).init(key)``: a pytree of arrays
+    with the layers stacked on a leading axis; for the MoE family the
+    leading dense blocks under ``lead`` and the super-layers under
+    ``groups``), one block per layer, cast to ``cfg.dtype`` (the router
+    stays float32) on ``device``."""
     model = Transformer(cfg, resolve_device(device))
     _copy_tree(model.embed, params["embed"])
     _copy_tree(model, {"final_norm": params["final_norm"]})
-    for i, block in enumerate(model.layers):
-        _copy_tree(block, params["layers"], index=i)
+    blocks = _stacked_blocks(cfg, params)
+    if len(blocks) != len(model.layers):
+        raise ValueError(f"{len(blocks)} reference blocks for "
+                         f"{len(model.layers)} layers")
+    for block, (tree, index) in zip(model.layers, blocks):
+        _copy_tree(block, tree, index=index)
     return model
 
 

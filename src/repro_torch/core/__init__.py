@@ -10,6 +10,7 @@ from repro_torch.core.errors import (ReliabilityConfig, TRAErrorModel,
                                      error_planes, execute_ecc,
                                      execute_injected, execute_voted,
                                      single_fault_planes, vote_outputs)
+from repro_torch.core.isa import BopResult, BuddyDevice
 from repro_torch.core.timing import (DDR3_1600, DramTiming,
                                      program_latency_ns)
 
@@ -20,4 +21,4 @@ __all__ = ["BitVector", "as_words", "n_words", "pack_bits", "to_uint32",
            "DramTiming", "program_latency_ns", "TRAErrorModel",
            "ReliabilityConfig", "error_planes", "single_fault_planes",
            "execute_injected", "execute_voted", "execute_ecc",
-           "vote_outputs"]
+           "vote_outputs", "BuddyDevice", "BopResult"]

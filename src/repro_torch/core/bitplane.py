@@ -59,6 +59,12 @@ def as_words(x, device: Optional[torch.device] = None) -> torch.Tensor:
                         device=device)
 
 
+def shr(words: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift by ``0 < s < 32`` of int32 bit patterns: the
+    reference's uint32 ``>>`` (int32's is arithmetic)."""
+    return (words >> s) & ((1 << (32 - s)) - 1)
+
+
 def to_uint32(words: torch.Tensor) -> np.ndarray:
     """int32 bit-pattern tensor -> host numpy uint32 (same bits)."""
     return words.detach().cpu().numpy().view(np.uint32)

@@ -49,7 +49,7 @@
 //   in bf16 while the denominator sums it in float32; lse is written in
 //   natural log. Masking runs only on tiles that cross the diagonal or the
 //   keys' end, and the heaviest (last) query tiles launch first.
-//   bf16, head dims 16, 32, 64: the first design, flash_mma_kernel: four
+//   bf16, head dims 16, 32, 64, 112: the first design, flash_mma_kernel: four
 //   warps, 16 query rows each, on mma.sync.m16n8k16 with float32
 //   accumulation; Q's fragments stay in registers, each 64-key tile is
 //   staged in shared memory (K row-major, V transposed).
@@ -672,7 +672,7 @@ template <int HD>
 cudaError_t launch_hd(int dtype, const Params& p, int batch,
                       cudaStream_t stream) {
   if (dtype == 1) {
-    // head dim 128: the Hopper kernel; 16, 32, 64: the mma.sync kernel
+    // head dim 128: the Hopper kernel; 16, 32, 64, 112: the mma.sync kernel
     if constexpr (HD == 128) {
       return launch_sm90(p, batch, p.heads / p.group, stream);
     } else {
@@ -732,6 +732,7 @@ extern "C" int flash_attention_launch(
     case 16: return static_cast<int>(launch_hd<16>(dtype, p, batch, s));
     case 32: return static_cast<int>(launch_hd<32>(dtype, p, batch, s));
     case 64: return static_cast<int>(launch_hd<64>(dtype, p, batch, s));
+    case 112: return static_cast<int>(launch_hd<112>(dtype, p, batch, s));
     case 128: return static_cast<int>(launch_hd<128>(dtype, p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -59,9 +59,10 @@
 //   passes (dV, then dK) so that one accumulator of 64 registers a thread
 //   is live beside S^T and dP^T; with both live ptxas spilled. p is
 //   2^(s scale log2(e) - lse log2(e)).
-//   bf16, head dims 16, 32, 64: the first design, flash_bwd_dq_mma_kernel
-//   and flash_bwd_dkv_mma_kernel: four warps on mma.sync.m16n8k16 with
-//   float32 accumulation, 64 x 64 tiles staged in shared memory
+//   bf16, head dims 16, 32, 64, 112: the first design,
+//   flash_bwd_dq_mma_kernel and flash_bwd_dkv_mma_kernel: four warps on
+//   mma.sync.m16n8k16 with float32 accumulation, 64 x 64 tiles staged in
+//   shared memory
 //   (row-major where they are an A operand or the B operand of a product
 //   over hd, transposed where they are the B operand of a product over
 //   keys or queries), the same hi + lo split.
@@ -1174,7 +1175,7 @@ cudaError_t launch_hd(int dtype, const BwdParams& p, int batch,
   const dim3 dkv_grid((p.sk + kBK - 1) / kBK, kv_heads, batch);
   cudaError_t err;
   if (dtype == 1) {
-    // head dim 128: the Hopper kernels; 16, 32, 64: the mma.sync kernels
+    // head dim 128: the Hopper kernels; 16, 32, 64, 112: the mma.sync kernels
     if constexpr (HD == 128) {
       return launch_bwd_sm90(p, batch, kv_heads, split, stream);
     } else {
@@ -1258,6 +1259,7 @@ extern "C" int flash_attention_bwd_launch(
     case 16: err = launch_hd<16>(dtype, p, batch, kv, sp, s); break;
     case 32: err = launch_hd<32>(dtype, p, batch, kv, sp, s); break;
     case 64: err = launch_hd<64>(dtype, p, batch, kv, sp, s); break;
+    case 112: err = launch_hd<112>(dtype, p, batch, kv, sp, s); break;
     case 128: err = launch_hd<128>(dtype, p, batch, kv, sp, s); break;
     default: err = cudaErrorInvalidValue;
   }

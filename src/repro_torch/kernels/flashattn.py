@@ -15,8 +15,9 @@ Port of the Pallas `repro.kernels.flashattn` kernels:
 
 The C launchers pick the kernel by head dim and dtype: bf16 at head dim
 128 (every dense config served and trained) runs the Hopper kernels (TMA
-ring, wgmma, setmaxnreg; ``csrc/flash_sm90.cuh``), bf16 at 16, 32 and 64
-the first design on ``mma.sync``, float32 scalar FMAs. A kernel that
+ring, wgmma, setmaxnreg; ``csrc/flash_sm90.cuh``), bf16 at 16, 32, 64
+and 112 (Kimi K2's head) the first design on ``mma.sync``, float32 scalar
+FMAs. A kernel that
 fails to build or launch raises; nothing falls back on another.
 
 The kernel wrappers take the model's layout, q (B, Sq, H, hd) and k / v
@@ -41,7 +42,7 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -4,9 +4,13 @@ weights (the counterpart of `repro.launch.serve`).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0p6b \
         --batch 4 --prompt-len 64 --max-new 32            # reduced widths
     PYTHONPATH=src python -m repro_torch.launch.serve --full   # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4_maverick_400b_a17b                # MoE, reduced
 
 Runs on the card (``--device cuda``, the default) unless asked for the
-CPU; ``--full`` keeps the architecture's published widths and depth.
+CPU; ``--full`` keeps the architecture's published widths and depth. The
+dense and MoE families serve (``kimi_k2_1t_a32b``,
+``llama4_maverick_400b_a17b``); the other families raise at `build`.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ Runs on the card (``--device cuda``, the default) unless asked for the
 CPU; the reduced config unless ``--full``. One process trains on one
 device: ``--opt signum`` is then the local sign step, as the reference's
 is on one device. Checkpointing (``--ckpt-dir``) and model parallelism
-(``--model-parallel``) wait for ROADMAP §A10.
+(``--model-parallel``) wait for ROADMAP §A8.
 """
 from __future__ import annotations
 
@@ -43,10 +43,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir: checkpointing and resilient "
-                                  "runs wait for ROADMAP §A10")
+                                  "runs wait for ROADMAP §A8")
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel: sharded models wait "
-                                  "for ROADMAP §A10")
+                                  "for ROADMAP §A8")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -1,4 +1,4 @@
-"""The LM stack's models: the dense family so far (`registry.build`)."""
+"""The LM stack's models: the dense and MoE families (`registry.build`)."""
 from repro_torch.models.registry import ModelBundle, build
 
 __all__ = ["ModelBundle", "build"]

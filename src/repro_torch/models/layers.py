@@ -224,11 +224,13 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
 
 class MLP(nn.Module):
     """SwiGLU: ``wi (D, 2, F)`` (gate and up fused on the output dim),
-    ``wo (F, D)``; GELU: ``wi (D, F)``, ``wo (F, D)``."""
+    ``wo (F, D)``; GELU: ``wi (D, F)``, ``wo (F, D)``. ``F`` is ``d_ff``
+    where given (the MoE family's dense layers and shared experts), else
+    ``cfg.d_ff``."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, d_ff: Optional[int] = None):
         super().__init__()
-        D, F = cfg.d_model, cfg.d_ff
+        D, F = cfg.d_model, d_ff or cfg.d_ff
         dt = torch_dtype(cfg)
         wi_shape = (D, 2, F) if cfg.mlp_kind == "swiglu" else (D, F)
         self.wi = _param(wi_shape, dt, device)

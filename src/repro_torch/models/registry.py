@@ -1,4 +1,5 @@
-"""Model registry: the reference's `ModelBundle` API, dense family.
+"""Model registry: the reference's `ModelBundle` API, dense and MoE
+families.
 
     bundle = build(cfg)                     # device="cuda" unless asked
     params = bundle.init(torch.Generator("cuda").manual_seed(0))
@@ -11,8 +12,9 @@ The counterpart of `repro.models.registry`, with the same field names.
 Token tensors keep their device; host token arrays (numpy, lists) go to
 the model's device; tokens on another device than the model raise.
 ``abstract`` (shapes without allocating, for the dry run and the sharded
-cells) waits for ROADMAP §A10; the other families (MoE, SSM / hybrid,
-enc-dec, VLM) raise at `build`.
+cells) waits for ROADMAP §A8; the MoE family's ``loss`` waits for §A4b
+(MoE training); the other families (SSM / hybrid, enc-dec, VLM) raise at
+`build`.
 """
 from __future__ import annotations
 
@@ -29,16 +31,15 @@ from repro_torch.models import transformer as TF
 Params = Dict[str, Any]
 
 #: the ROADMAP item (queue A) that ports each family the port lacks
-_FAMILY_SLICE = {"moe": "A5 (models/moe.py)", "ssm": "A6 (SSM / hybrid)",
-                 "hybrid": "A6 (SSM / hybrid)", "encdec": "A7 (enc-dec)",
-                 "vlm": "A8 (VLM)"}
+_FAMILY_SLICE = {"ssm": "A5 (SSM / hybrid)", "hybrid": "A5 (SSM / hybrid)",
+                 "encdec": "A6 (enc-dec)", "vlm": "A7 (VLM)"}
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelConfig
     init: Callable            # generator -> params
-    abstract: Callable        # raises: ROADMAP §A10
+    abstract: Callable        # raises: ROADMAP §A8
     loss: Callable            # (params, batch) -> (loss, metrics)
     prefill: Callable         # (params, batch) -> (logits, cache)
     decode_step: Callable     # (params, token, cache, pos) -> (logits, cache)
@@ -65,16 +66,19 @@ def _batch(batch: Dict[str, Any], params: TF.Transformer
 
 def build(cfg: ModelConfig, device=None, remat: str = "block"
           ) -> ModelBundle:
-    """The bundle of ``cfg`` (dense family) on ``device`` (default
+    """The bundle of ``cfg`` (dense or MoE family) on ``device`` (default
     ``"cuda"``; asking for the card where there is none raises). ``remat``
     is the loss's rematerialisation policy: "block" or "full" (each block
     recomputed in the backward, the reference's ``nothing_saveable``);
-    "dots" waits for ROADMAP §A10."""
-    if cfg.family != "dense":
+    "dots" waits for ROADMAP §A8. The MoE family serves (``prefill``,
+    ``decode_step``, ``cache_init``); its ``loss`` raises until ROADMAP
+    §A4b ports MoE training."""
+    if cfg.family not in ("dense", "moe"):
         where = _FAMILY_SLICE.get(cfg.family, "a later slice")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP queue {where}); the port builds the dense family")
+            f"(ROADMAP queue {where}); the port builds the dense and MoE "
+            "families")
     TF.check_remat(remat)
     dev = resolve_device(DEFAULT_DEVICE if device is None else device)
 
@@ -84,7 +88,7 @@ def build(cfg: ModelConfig, device=None, remat: str = "block"
     def abstract():
         raise NotImplementedError(
             "bundle.abstract (parameter shapes without allocating) serves "
-            "the dry run and the sharded cells, which wait for ROADMAP §A10")
+            "the dry run and the sharded cells, which wait for ROADMAP §A8")
 
     def loss(params, batch):
         return TF.lm_loss(params, _batch(batch, params), cfg, remat=remat)
@@ -98,7 +102,8 @@ def build(cfg: ModelConfig, device=None, remat: str = "block"
                                           cache, int(pos), cfg)
 
     def cache_init(batch, max_len):
-        return L.kv_cache_init(cfg, cfg.n_layers, batch, max_len, dev)
+        return L.kv_cache_init(cfg, len(TF.layer_kinds(cfg)), batch, max_len,
+                               dev)
 
     return ModelBundle(cfg=cfg, init=init, abstract=abstract, loss=loss,
                        prefill=prefill, decode_step=decode_step,

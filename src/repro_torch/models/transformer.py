@@ -1,21 +1,25 @@
-"""Decoder-only transformer stack, dense family: the training forward and
-LM loss, prefill and one decode step.
+"""Decoder-only transformer stack, dense and MoE families: the training
+forward and LM loss (dense family), prefill and one decode step.
 
-The counterpart of the dense branches of `repro.models.transformer`. The
-reference scans over layers stacked on a leading axis; here a
-`Transformer` holds an `nn.ModuleList` of `DenseBlock`s and a Python loop
-walks them (PyTorch runs eagerly). The reference rematerialises each
+The counterpart of `repro.models.transformer`. The reference scans over
+layers stacked on a leading axis (the MoE family over super-layers of
+``moe_every - 1`` dense blocks and one MoE block, after ``n_dense_layers``
+leading dense blocks); here a `Transformer` holds an `nn.ModuleList` with
+one block per layer in that order (`layer_kinds`) and a Python loop walks
+them (PyTorch runs eagerly). The MoE family's dense blocks take
+``dense_d_ff`` where it is set. The reference rematerialises each
 scanned block (``jax.checkpoint`` with ``nothing_saveable`` for ``remat=
 "block"`` and ``"full"``); here each block runs under non-reentrant
 `torch.utils.checkpoint.checkpoint` while grad is on, so its forward runs
 again in the backward. Its ``"dots"`` policy (keep the matmul outputs)
-waits for ROADMAP §A10. The reference's sharding constraints are the
-identity on one card and are dropped. The MoE family waits for its slice
-(`models.registry.build` raises for it).
+waits for ROADMAP §A8. The reference's sharding constraints are the
+identity on one card and are dropped. Training the MoE family (its loss
+with the aux term) waits for ROADMAP §A4b: `transformer_apply` raises for
+it.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,18 +27,19 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 class DenseBlock(nn.Module):
     """``ln1``, ``attn``, ``ln2``, ``mlp``, as the reference's block."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, d_ff: Optional[int] = None):
         super().__init__()
         dt = L.torch_dtype(cfg)
         self.ln1 = L._param((cfg.d_model,), dt, device)
         self.attn = L.Attention(cfg, device)
         self.ln2 = L._param((cfg.d_model,), dt, device)
-        self.mlp = L.MLP(cfg, device)
+        self.mlp = L.MLP(cfg, device, d_ff=d_ff)
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator, cfg: ModelConfig) -> None:
@@ -44,18 +49,55 @@ class DenseBlock(nn.Module):
         self.mlp.init_(generator, cfg)
 
 
-class Transformer(nn.Module):
-    """``embed``, ``layers`` (one `DenseBlock` per layer), ``final_norm``."""
+class MoEBlock(nn.Module):
+    """``ln1``, ``attn``, ``ln2``, ``moe``, as the reference's MoE block."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.family != "dense":
+        dt = L.torch_dtype(cfg)
+        self.ln1 = L._param((cfg.d_model,), dt, device)
+        self.attn = L.Attention(cfg, device)
+        self.ln2 = L._param((cfg.d_model,), dt, device)
+        self.moe = M.MoE(cfg, device)
+
+    @torch.no_grad()
+    def init_(self, generator: torch.Generator, cfg: ModelConfig) -> None:
+        self.ln1.fill_(1)
+        self.ln2.fill_(1)
+        self.attn.init_(generator, cfg)
+        self.moe.init_(generator, cfg)
+
+
+def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """"dense" or "moe" per layer, in the reference's order: the dense
+    family's ``n_layers`` dense blocks; the MoE family's
+    ``n_dense_layers`` leading dense blocks, then ``(n_layers -
+    n_dense_layers) // moe_every`` super-layers of ``moe_every - 1``
+    dense blocks and one MoE block."""
+    if cfg.family != "moe":
+        return ("dense",) * cfg.n_layers
+    n_groups = (cfg.n_layers - cfg.n_dense_layers) // cfg.moe_every
+    group = ("dense",) * (cfg.moe_every - 1) + ("moe",)
+    return ("dense",) * cfg.n_dense_layers + group * n_groups
+
+
+class Transformer(nn.Module):
+    """``embed``, ``layers`` (one `DenseBlock` or `MoEBlock` per layer, by
+    `layer_kinds`), ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"the port's transformer holds the dense family; "
+                f"the port's transformer holds the dense and MoE families; "
                 f"{cfg.name} is {cfg.family!r}")
         self.embed = L.Embed(cfg, device)
-        self.layers = nn.ModuleList(DenseBlock(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        # the MoE family's dense blocks run at dense_d_ff where it is set
+        d_ff = (cfg.dense_d_ff or None) if cfg.family == "moe" else None
+        self.layers = nn.ModuleList(
+            MoEBlock(cfg, device) if kind == "moe"
+            else DenseBlock(cfg, device, d_ff=d_ff)
+            for kind in layer_kinds(cfg))
         self.final_norm = L._param((cfg.d_model,), L.torch_dtype(cfg),
                                    device)
 
@@ -93,13 +135,24 @@ def dense_block(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig,
     return h
 
 
-def dense_block_decode(p: DenseBlock, x: torch.Tensor, ck: torch.Tensor,
-                       cv: torch.Tensor, pos: int, cfg: ModelConfig):
+def _ffn(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's feed-forward on its normed input: the MLP of a
+    `DenseBlock`, the MoE of a `MoEBlock` (its aux loss dropped, as the
+    reference's serving paths drop it)."""
+    hn = L.rmsnorm(h, p.ln2, cfg.norm_eps)
+    if isinstance(p, MoEBlock):
+        return M.moe_ffn(p.moe, hn, cfg)[0]
+    return L.mlp(p.mlp, hn, cfg)
+
+
+def block_decode(p, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 pos: int, cfg: ModelConfig):
+    """One decode step of a `DenseBlock` or a `MoEBlock` (the reference's
+    ``dense_block_decode`` / ``moe_block_decode``)."""
     a, ck, cv = L.attention_decode(
         p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps), ck, cv, pos, cfg)
     h = x + a
-    h = h + L.mlp(p.mlp, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
-    return h, ck, cv
+    return h + _ffn(p, h, cfg), ck, cv
 
 
 def _chunks_for(seq: int) -> Tuple[int, int]:
@@ -118,7 +171,7 @@ def check_remat(remat: str) -> None:
     if remat == "dots":
         raise NotImplementedError(
             "remat='dots' (keep the matmul outputs, recompute the rest) "
-            "waits for ROADMAP §A10; the port runs 'block' / 'full'")
+            "waits for ROADMAP §A8; the port runs 'block' / 'full'")
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}; expected one of "
                          f"{REMAT_POLICIES}")
@@ -130,7 +183,14 @@ def transformer_apply(params: Transformer, tokens: torch.Tensor,
     """tokens: (B, S) -> (hidden (B, S, D), aux_loss). While grad is on,
     each block is checkpointed (``remat``: "block" or "full", the
     reference's ``nothing_saveable``): only its input is kept, and its
-    forward runs again in the backward."""
+    forward runs again in the backward. The MoE family raises: its
+    training (the aux loss in the loss and the trainer) waits for ROADMAP
+    §A4b."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: training the MoE family waits for ROADMAP §A4b "
+            "(MoE training: bundle.loss, the aux loss in the trainer); the "
+            "port serves it (bundle.prefill / bundle.decode_step)")
     check_remat(remat)
     qc, kc = _chunks_for(tokens.shape[1])
     x = L.embed(params.embed, tokens)
@@ -179,7 +239,7 @@ def transformer_prefill(params: Transformer, tokens: torch.Tensor,
         o = L.chunked_attention(q, k, v, causal=True, q_chunk=qc,
                                 kv_chunk=kc)
         h = x + torch.einsum("bshk,hkd->bsd", o, p.attn.wo)
-        x = h + L.mlp(p.mlp, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
+        x = h + _ffn(p, h, cfg)
         cache["k"][i] = k.reshape(B, S, -1)
         cache["v"][i] = v.reshape(B, S, -1)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
@@ -197,8 +257,8 @@ def transformer_decode_step(params: Transformer, token: torch.Tensor,
     the cache)."""
     x = L.embed(params.embed, token[:, None])
     for i, p in enumerate(params.layers):
-        x, _, _ = dense_block_decode(p, x, cache["k"][i], cache["v"][i],
-                                     pos, cfg)
+        x, _, _ = block_decode(p, x, cache["k"][i], cache["v"][i], pos,
+                               cfg)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = L.lm_logits(params.embed, x)[:, 0]
     return logits, cache

@@ -545,7 +545,8 @@ def test_arith_ops_on_the_card_match_the_host(cuda):
 # Sq != Sk without the causal mask and with it (positions aligned at 0),
 # and at head dim 128 (bf16 there runs the Hopper kernels, whose tiles are
 # 128 rows) GQA groups of 1 and 8, lengths of 130 and 1,000, and B H =
-# 144 query heads, more than the card's 132 SMs
+# 144 query heads, more than the card's 132 SMs; the MoE configs' heads:
+# a group of 5 (Llama-4 Maverick's 40 over 8) and head dim 112 (Kimi K2's)
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 32, True, 32, 32),
     (2, 128, 128, 4, 2, 32, False, 32, 32),
@@ -562,6 +563,9 @@ FLASH_CASES = [
     (1, 1000, 1000, 16, 2, 128, True, 512, 512),
     (1, 1000, 130, 16, 2, 128, True, 512, 128),
     (9, 256, 256, 16, 8, 128, True, 128, 128),
+    (1, 256, 256, 40, 8, 128, True, 128, 128),
+    (1, 200, 200, 64, 8, 112, True, 64, 64),
+    (2, 100, 160, 8, 2, 112, False, 32, 32),
 ]
 # the JAX package's bounds against its oracle, relative to each element
 # and to the plain output's RMS (an absolute bound of the same size as the
@@ -663,6 +667,42 @@ def test_serving_path_on_the_card_launches_flash_per_layer(cuda):
     assert err < 0.05, err
     with pytest.raises(ValueError, match="different devices"):
         bundle.prefill(params, {"tokens": torch.from_numpy(toks)})
+
+
+def test_moe_serving_on_the_card_matches_the_host(cuda):
+    """Reduced Llama-4 Maverick (dense and MoE layers) in float32 on the
+    card: one flash launch per prefill layer; prefill and decode logits
+    agree with the same weights on the host, at the config's capacity and
+    at one that drops tokens."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import build
+    from repro_torch.serve import extend_cache
+
+    for cf in (1.25, 0.25):
+        cfg = dataclasses.replace(reduced(get_config(
+            "llama4_maverick_400b_a17b")), dtype="float32",
+            capacity_factor=cf)
+        bundle, host = build(cfg), build(cfg, device="cpu")
+        params = bundle.init(torch.Generator(device=cuda).manual_seed(1))
+        host_params = copy.deepcopy(params).to("cpu")
+        toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 65))
+        LAUNCHES.clear()
+        got, cache = bundle.prefill(params, {"tokens": toks[:, :64]})
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] == cfg.n_layers
+        want, host_cache = host.prefill(host_params,
+                                        {"tokens": toks[:, :64]})
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert err < 1e-4, (cf, err)
+        got, _ = bundle.decode_step(params, toks[:, 64],
+                                    extend_cache(cache, 1), 64)
+        want, _ = host.decode_step(host_params, toks[:, 64],
+                                   extend_cache(host_cache, 1), 64)
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert err < 1e-4, (cf, err)
 
 
 # ---------------------------------------------------------------------------

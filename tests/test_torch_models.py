@@ -247,8 +247,10 @@ def test_sampling_is_deterministic_per_generator():
 
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_build_takes_the_dense_family_only(arch):
+    """The dense and MoE families build (MoE serves only); the others
+    raise."""
     cfg = TC.reduced(TC.get_config(arch))
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build(cfg, device="cpu")
         return
@@ -261,10 +263,14 @@ def test_build_takes_the_dense_family_only(arch):
         cfg.n_kv_heads * cfg.head_dim_ * 2
     # the loss runs; the abstract shapes wait for the sharded cells
     toks = _prompts()[:, :9]
-    loss, metrics = bundle.loss(params, {"tokens": toks[:, :8],
-                                         "labels": toks[:, 1:]})
-    assert bool(torch.isfinite(loss)) and set(metrics) == {"xent", "aux"}
-    with pytest.raises(NotImplementedError, match="§A10"):
+    batch = {"tokens": toks[:, :8], "labels": toks[:, 1:]}
+    if cfg.family == "moe":
+        with pytest.raises(NotImplementedError, match="ROADMAP §A4b"):
+            bundle.loss(params, batch)
+    else:
+        loss, metrics = bundle.loss(params, batch)
+        assert bool(torch.isfinite(loss)) and set(metrics) == {"xent", "aux"}
+    with pytest.raises(NotImplementedError, match="§A8"):
         bundle.abstract()
 
 
@@ -301,7 +307,7 @@ def test_serve_cli_runs_on_the_cpu(capsys):
 def test_loss_remat_policies():
     """"block" and "full" rematerialise each block (the same loss and
     gradients, the loss equal to the forward without grad); "dots" waits
-    for ROADMAP §A10; other names raise."""
+    for ROADMAP §A8; other names raise."""
     cfg = dataclasses.replace(TC.reduced(TC.get_config("qwen3_0p6b")),
                               dtype="float32")
     toks = _prompts()
@@ -318,7 +324,7 @@ def test_loss_remat_policies():
     with torch.no_grad():
         loss, _ = build(cfg, device="cpu").loss(params, batch)
     assert torch.equal(loss, out["block"][0].detach())
-    with pytest.raises(NotImplementedError, match="§A10"):
+    with pytest.raises(NotImplementedError, match="§A8"):
         build(cfg, device="cpu", remat="dots")
     with pytest.raises(ValueError, match="remat"):
         build(cfg, device="cpu", remat="none")
