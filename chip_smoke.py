@@ -38,7 +38,12 @@ Phases; the first failure exits non-zero:
    float32, 2e-2 bf16) of its plain version, relative to each element and
    to the plain output's RMS, and the MoE configs' heads: Llama-4
    Maverick's 40 query heads over 8 (a group of 5) at S = 2,048 and Kimi
-   K2's 64 over 8 at head dim 112; the training kernels at the same shapes and
+   K2's 64 over 8 at head dim 112; the serving families' shapes, also
+   through the lse forward: Zamba2's head dim 80 (32 heads over 32,
+   1,000 queries, causal and not), SeamlessM4T's non-causal head dim 64
+   at 2,048 queries over 1,024 keys and 1,024 over 1,024, and the VLM's
+   cross-attention on the hd-128 Hopper kernel (2,048 queries over 1,600
+   keys, 64 heads over 8); the training kernels at the same shapes and
    at B = 1, S = 4,096 causal, both dtypes: the lse-emitting forward (its
    output equal to the serving kernel's, the lse within 1e-4) and the
    backward (dq, dk, dv; two runs bit-identical) against their plain
@@ -126,7 +131,30 @@ Phases; the first failure exits non-zero:
    in a 2**24-base genome, exact and within 2 mismatches; 16 Bloom filters
    of 2**20 bits x 1,000 keys merged and queried; the bitmap filter over
    2**24 documents and a 4,096-id sample.
-   Each of (a)-(h) starts with every launch count at 0 and must launch
+   (i) the SSM and hybrid families at their published widths and depth:
+   Mamba2-1.3B (48 layers, d_model 2,048, 64 SSM heads of 64, state 128,
+   chunk 256, vocab 50,280; no kernel: its mixer is plain PyTorch, as
+   the reference's is plain jnp) and Zamba2-2.7B (54 layers as 9 groups
+   of 6 SSM blocks and one shared attention block, d_model 2,560, 80 SSM
+   heads of 64, state 64, attention 32 heads of 80, d_ff 10,240; 9 flash
+   launches at head dim 80 a prefill); (j) SeamlessM4T-medium at its
+   published widths and depth (12 encoder and 12 decoder layers, d_model
+   1,024, 16 heads of 64, GELU d_ff 4,096, vocab 256,206, 1,024 stub
+   frames a sample; 36 flash launches a prefill: 12 encoder non-causal,
+   12 decoder causal, 12 cross); (k) Llama-3.2-Vision-90B at its
+   published widths (d_model 8,192, 64 / 8 heads of 128, d_ff 28,672,
+   vocab 128,256, 1,600 stub patches, cross-attention every 5th layer),
+   its depth cut from 100 layers to 10 (two groups of 4 self-attention
+   layers and one self + cross layer; 21.9 GB of weights): 12 flash
+   launches a prefill, 2 of them cross-attention over 1,600 keys. Each of
+   (i)-(k) serves 3e's traffic through ``build -> init -> generate`` and
+   checks: every logit finite, ids in the vocabulary, the exact flash
+   launches of a prefill and nothing else, and prefill(S) +
+   ``decode_step`` against prefill(S + 1) within 0.05 of the largest
+   logit; it prints the cold and warm prefill wall, ms per decode step,
+   generated tok/s, peak memory, the cache's bytes and the warm
+   prefill's device ms by kind with the idle share.
+   Each of (a)-(k) starts with every launch count at 0 and must launch
    each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
@@ -160,9 +188,10 @@ Phases; the first failure exits non-zero:
    and q, k, v, o, do, lse, dq, dk, dv over 3.35 TB/s, and on the first
    training launch what its hi + lo split of p and ds costs (timed with
    and without it, each one's share of the gate printed); pack and unpack
-   bit for bit, bound by their bytes. Of (g), its 2 flash launches as
-   (e)'s; of (h), every launch. Phase 4 runs for (a)-(e) before (f)
-   starts and for (f) before (g), so their recorded arguments are freed
+   bit for bit, bound by their bytes. Of (g) and (i)-(k), every flash
+   launch as (e)'s, with each stage's totals by shape; of (h), every
+   launch. Phase 4 runs for (a)-(e) before (f) starts, for (f) before
+   (g) and for (g)-(h) before (i), so their recorded arguments are freed
    first.
 
 Output: the card's name and power limit, one ``{"kernels": [...]}`` JSON
@@ -629,6 +658,21 @@ FLASH_CASES = (
     (1, 2048, 2048, 40, 8, 128, True, 512, 512),
     (1, 1000, 1000, 64, 8, 112, True, 512, 512),
 )
+#: the serving families' new flash shapes, forward and lse forward only
+#: (their backward comes with training them): Zamba2's shared attention at
+#: head dim 80 (32 query heads over 32, the first design's instantiation)
+#: with a ragged Sq, causal and not; SeamlessM4T's head dim 64 non-causal,
+#: its cross-attention (2,048 queries over 1,024 frames) and its encoder
+#: (1,024 over 1,024); the VLM's cross-attention on the Hopper kernel at
+#: head dim 128 (2,048 queries over 1,600 patches, not a multiple of the
+#: key tile, a GQA group of 8)
+SERVE_FLASH_CASES = (
+    (2, 1000, 1000, 32, 32, 80, True, 512, 512),
+    (2, 1000, 1000, 32, 32, 80, False, 512, 512),
+    (2, 2048, 1024, 16, 16, 64, False, 512, 512),
+    (2, 1024, 1024, 16, 16, 64, False, 512, 512),
+    (1, 2048, 1600, 64, 8, 128, False, 512, 512),
+)
 #: the kernels redesigned for Hopper that `phase_sm90_report` holds to
 #: zero spills, by source: the head-dim-128 bf16 flash kernels (TMA ring +
 #: wgmma), the VM (pre-decoded program, cp.async tile ring) and the bit
@@ -732,36 +776,53 @@ def phase_sm90_report(build_mod) -> dict:
     return report
 
 
+def _hm(x):
+    """Model layout (B, S, heads, hd) -> head-major (B, heads, S, hd)."""
+    return x.transpose(1, 2)
+
+
 def phase_flash_kernels(torch) -> float:
-    """The flash kernel against its plain version in both dtypes; returns
-    the largest absolute difference."""
-    from repro_torch.kernels.flashattn import (flash_attention_kernel,
-                                               flash_attention_plain)
+    """The flash kernel against its plain version in both dtypes, and on
+    `SERVE_FLASH_CASES` also the lse forward (its output equal to the
+    serving kernel's, the lse within 1e-4); returns the largest absolute
+    difference."""
+    from repro_torch.kernels.flashattn import (flash_attention_fwd_kernel,
+                                               flash_attention_fwd_plain,
+                                               flash_attention_kernel)
 
     gen = torch.Generator(device="cuda").manual_seed(103)
-    worst, most, n_cases = 0.0, 0.0, 0
+    worst, most, n_cases, n_lse = 0.0, 0.0, 0, 0
     for name, tol in FLASH_TOL.items():
         dt = getattr(torch, name)
-        for B, Sq, Sk, H, KV, hd, causal, bq, bk in FLASH_CASES:
+        for case in FLASH_CASES + SERVE_FLASH_CASES:
+            B, Sq, Sk, H, KV, hd, causal, bq, bk = case
             q, k, v = (torch.randn(B, n, h, hd, generator=gen,
                                    device="cuda").to(dt)
                        for n, h in ((Sq, H), (Sk, KV), (Sk, KV)))
+            label = (f"flash_attention {name} B={B} Sq={Sq} Sk={Sk} H={H} "
+                     f"KV={KV} hd={hd} causal={causal}")
             got = flash_attention_kernel(q, k, v, causal=causal, block_q=bq,
                                          block_k=bk)
-            want = flash_attention_plain(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal, bq, bk).transpose(1, 2)
-            err, share = _close(
-                f"flash_attention {name} B={B} Sq={Sq} Sk={Sk} H={H} "
-                f"KV={KV} hd={hd} causal={causal}", got, want, tol)
+            want, lse_want = flash_attention_fwd_plain(
+                _hm(q), _hm(k), _hm(v), causal, bq, bk)
+            err, share = _close(label, got, _hm(want), tol)
+            if case in SERVE_FLASH_CASES:
+                o, lse = flash_attention_fwd_kernel(q, k, v, causal)
+                check(torch.equal(o, got), f"{label}: the lse forward's "
+                      "output differs from the serving kernel's")
+                share = max(share, _close(f"{label} lse", lse, lse_want,
+                                          1e-4)[1])
+                n_lse += 1
             worst, most = max(worst, err), max(most, share)
             n_cases += 1
     torch.cuda.synchronize()
     print(f"[kernels] flash attention: {n_cases} cases within the "
           f"tolerance of the plain version (float32 {FLASH_TOL['float32']}, "
           f"bf16 {FLASH_TOL['bfloat16']}, of the output's RMS plus each "
-          f"element's magnitude); largest max abs err {worst:.3g}, "
-          f"largest share of the tolerance {most:.3g}")
+          f"element's magnitude), {n_lse} of them (the serving families' "
+          f"head dims 80, 64 and 128 with Sq != Sk) also through the lse "
+          f"forward (its output equal, the lse within 1e-4); largest max "
+          f"abs err {worst:.3g}, largest share of the tolerance {most:.3g}")
     return worst
 
 
@@ -771,11 +832,6 @@ def phase_flash_kernels(torch) -> float:
 #: and the training path's sequence length
 TRAIN_FLASH_CASES = FLASH_CASES + ((1, 4096, 4096, 16, 8, 128, True, 512,
                                     512),)
-
-
-def _hm(x):
-    """Model layout (B, S, heads, hd) -> head-major (B, heads, S, hd)."""
-    return x.transpose(1, 2)
 
 
 def _close_all(label, got, want, tol):
@@ -2649,6 +2705,225 @@ def phase_paper(torch, rec):
 
 
 # ---------------------------------------------------------------------------
+# phases 3i-3k: the SSM, hybrid, enc-dec and VLM families served
+# ---------------------------------------------------------------------------
+
+#: phases 3i-3k: (phase, arch, depth or None for the published one, seed,
+#: flash launches a prefill). Each serves 3e's traffic (LM_BATCH prompts
+#: of LM_PROMPT ids, LM_NEW new, greedy, bf16, weights drawn on the card
+#: one matrix at a time). Mamba2 has no attention, so no kernel; Zamba2
+#: runs its shared block 54 / 6 = 9 times at head dim 80; SeamlessM4T's
+#: 12 encoder layers attend non-causally over 1,024 frames, its 12 decoder
+#: layers causally and across to the frames; the VLM is cut from 100
+#: layers to 10 (two groups of 4 self-attention layers and one self +
+#: cross layer, about 22 GB of weights; all 100 hold 181 GB),
+#: 10 self and 2 cross launches over 1,600 patches.
+FAMILY_PHASES = (
+    ("3i", "mamba2_1p3b", None, 19, 0),
+    ("3i", "zamba2_2p7b", None, 20, 9),
+    ("3j", "seamless_m4t_medium", None, 21, 36),
+    ("3k", "llama_3p2_vision_90b", 10, 22, 12),
+)
+
+
+def _flash_per_prefill(cfg) -> int:
+    """The flash launches one prefill of ``cfg`` makes by its layout."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family == "vlm":
+        return cfg.n_layers + cfg.n_layers // cfg.cross_attn_every
+    return cfg.n_layers
+
+
+def phase_family(torch, rec, tag, arch, n_layers, seed, n_flash):
+    """One model of phases 3i-3k at its published widths through ``build
+    -> init -> generate`` on the card: finite logits, ids in the
+    vocabulary, the exact flash launches of a prefill, and prefill(S) +
+    ``decode_step`` against prefill(S + 1); prints the cold and warm
+    walls, tok/s, peak memory, the cache's bytes and a warm prefill's
+    device ms by kind with its idle share (the profiled run's device time
+    against that run's own wall)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import frontend_name
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import build
+    from repro_torch.serve import cache_bytes, extend_cache, generate
+
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    check(_flash_per_prefill(cfg) == n_flash,
+          f"{cfg.name}: {_flash_per_prefill(cfg)} flash launches a prefill "
+          f"by its layout, {n_flash} expected")
+    torch.cuda.empty_cache()
+    bundle = build(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    params = bundle.init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT + 1),
+                            generator=gen, device=bundle.device)
+    batch = {"tokens": prompts[:, :LM_PROMPT]}
+    front = frontend_name(cfg)
+    if front:
+        batch[front] = torch.randn(
+            (LM_BATCH, cfg.n_frontend_tokens, cfg.frontend_dim or
+             cfg.d_model), generator=gen, device=bundle.device).to(
+                torch.bfloat16)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(bundle.device.type == "cuda" and all(
+        p.dtype == torch.bfloat16 for n, p in params.named_parameters()
+        if n.rsplit(".", 1)[-1] not in ("a_log", "d_skip", "dt_bias")),
+        f"{cfg.name} is not in bf16 on the card")
+
+    seen = {"finite": torch.ones((), dtype=torch.bool,
+                                 device=bundle.device)}
+
+    def prefill(p, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = bundle.prefill(p, b)
+        torch.cuda.synchronize()
+        seen["prefill_s"] = time.perf_counter() - t
+        seen["logits"] = logits
+        seen["finite"] &= torch.isfinite(logits).all()
+        return logits, cache
+
+    def decode_step(p, token, cache, pos):
+        logits, cache = bundle.decode_step(p, token, cache, pos)
+        seen["finite"] &= torch.isfinite(logits).all()
+        return logits, cache
+
+    served = dataclasses.replace(bundle, prefill=prefill,
+                                 decode_step=decode_step)
+    stage = f"{cfg.name} prefill"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    rec.stage, rec.only = stage, {"flash_attention"}
+    try:
+        t0 = time.perf_counter()
+        toks = generate(served, params, batch, LM_NEW)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        rec.stage = rec.only = None
+    t_prefill = seen["prefill_s"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {cfg.name}: launches while generate ran: {launches}"
+          + ("" if n_flash else " (the SSM family launches no kernel: its "
+             "mixer is plain PyTorch, as the reference's is plain jnp)"))
+    check(launches == ({"flash_attention": n_flash} if n_flash else {}),
+          f"{cfg.name}: launches {launches}, expected {n_flash} flash "
+          f"launches of one prefill and nothing else")
+    check(tuple(toks.shape) == (LM_BATCH, LM_NEW) and toks.is_cuda
+          and toks.dtype == torch.int32, f"generate gave {tuple(toks.shape)} "
+          f"{toks.dtype} on {toks.device}")
+    check(0 <= int(toks.min()) and int(toks.max()) < cfg.padded_vocab,
+          f"ids outside [0, {cfg.padded_vocab})")
+    check(bool(seen["finite"]), f"a logit of {cfg.name}'s serving path is "
+          f"not finite")
+    check(torch.equal(toks[:, 0], seen.pop("logits").argmax(-1).to(
+        torch.int32)), "the first id is not the prefill's argmax")
+    # prefill(S) + decode_step == prefill(S + 1): the SSM state and conv
+    # window, the self KV sheets and the cross keys / values carry the
+    # prompt
+    longer = dict(batch, tokens=prompts)
+    want, _ = bundle.prefill(params, longer)
+    _, cache = bundle.prefill(params, batch)
+    n_cache = cache_bytes(cache)
+    got, _ = bundle.decode_step(params, prompts[:, LM_PROMPT],
+                                extend_cache(cache, 1), LM_PROMPT)
+    err_decode = _max_rel(got, want)
+    check(bool(torch.isfinite(want).all() and torch.isfinite(got).all()),
+          "non-finite logits in the decode check")
+    check(err_decode < LM_TOL, f"{cfg.name}: prefill(S) + decode_step vs "
+          f"prefill(S + 1): {err_decode:.3g} of the largest logit (>= "
+          f"{LM_TOL})")
+    del cache, got, want, longer
+    # warm: the same call again, timed; then one prefill under the
+    # profiler for its device time by kind
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(served, params, batch, LM_NEW)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t_warm_prefill = seen["prefill_s"]
+    check(bool(seen["finite"]), "a logit of the warm run is not finite")
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle.prefill(params, batch)
+        torch.cuda.synchronize()
+        t_profiled = time.perf_counter() - t0
+    device, events = _device_ms_by_kind(prof)
+    del params, prof
+    torch.cuda.empty_cache()
+    decode_ms = (t_gen - t_prefill) / (LM_NEW - 1) * 1e3
+    warm_decode_ms = (t_warm - t_warm_prefill) / (LM_NEW - 1) * 1e3
+    busy = sum(device.values())
+    key = arch.split("_")[0]
+    info = {f"{key}_arch": cfg.name, f"{key}_layers": cfg.n_layers,
+            f"{key}_published_layers": published,
+            f"{key}_params": n_params, f"{key}_weight_bytes": w_bytes,
+            f"{key}_init_s": t_init, f"{key}_generate_s": t_gen,
+            f"{key}_prefill_s": t_prefill, f"{key}_decode_ms": decode_ms,
+            f"{key}_tok_per_s": LM_BATCH * LM_NEW / t_gen,
+            f"{key}_warm_generate_s": t_warm,
+            f"{key}_warm_prefill_s": t_warm_prefill,
+            f"{key}_warm_decode_ms": warm_decode_ms,
+            f"{key}_warm_tok_per_s": LM_BATCH * LM_NEW / t_warm,
+            f"{key}_peak_device_bytes": peak, f"{key}_cache_bytes": n_cache,
+            f"{key}_flash_per_prefill": n_flash,
+            f"{key}_err_decode_vs_prefill": err_decode,
+            f"{key}_profiled_prefill_s": t_profiled,
+            f"{key}_prefill_device_ms": device,
+            f"{key}_prefill_device_events": events}
+    depth = (f"{cfg.n_layers} layers" if n_layers is None else
+             f"depth cut from {published} to {cfg.n_layers} layers")
+    print(f"[{tag}] {cfg.name} at its published widths, {depth}: d_model "
+          f"{cfg.d_model}, vocab {cfg.padded_vocab} padded, "
+          f"{n_params / 1e9:.3f} B parameters ({w_bytes / 2**30:.2f} GiB) "
+          f"in bf16 (init {t_init:.2f} s)"
+          + (f"; frontend {front} {tuple(batch[front].shape)}" if front
+             else ""))
+    print(f"[{tag}] {cfg.name} cold generate: {LM_BATCH} prompts of "
+          f"{LM_PROMPT} ids, {LM_NEW} new, greedy: {t_gen:.3f} s wall, "
+          f"prefill {t_prefill * 1e3:.1f} ms, {decode_ms:.2f} ms per decode "
+          f"step (the cache extension included), "
+          f"{LM_BATCH * LM_NEW / t_gen:.1f} generated tok/s; peak device "
+          f"memory {peak / 2**30:.2f} GiB, cache at S "
+          f"{n_cache / 2**30:.3f} GiB")
+    print(f"[{tag}] {cfg.name} warm generate: {t_warm:.3f} s wall, prefill "
+          f"{t_warm_prefill * 1e3:.1f} ms, {warm_decode_ms:.2f} ms per "
+          f"decode step, {LM_BATCH * LM_NEW / t_warm:.1f} generated tok/s")
+    print(f"[{tag}] {cfg.name} warm prefill under the profiler: device "
+          + (f"{busy:.2f} ms over {events} kernels and copies "
+             f"(torch.profiler: "
+             + ", ".join(f"{k} {v:.2f}" for k, v in device.items())
+             + f"), idle {1 - busy / (t_profiled * 1e3):.1%} of its own "
+             f"wall, {t_profiled * 1e3:.1f} ms" if busy else
+             "time not measured (the profiler saw no device events)"))
+    print(f"[{tag}] {cfg.name}: {n_flash} flash launches a prefill, exact; "
+          f"decode vs prefill(S + 1) {err_decode:.3g} of the largest logit "
+          f"(bound {LM_TOL}); ids {tuple(toks.shape)} in range, every "
+          f"logit finite")
+    return launches, info
+
+
+# ---------------------------------------------------------------------------
 # phase 4: numbers
 # ---------------------------------------------------------------------------
 
@@ -3252,6 +3527,19 @@ def kernel_rows(numbers: Numbers, launches):
                   f"{big['ms']:.4f} ms, bound "
                   f"{max(big['bytes_ms'], big['ops_ms']):.4f} ms, floor "
                   f"{big['smem_floor_ms']:.4f} ms")
+    by_stage = {}
+    for c in per_kernel["flash_attention"]["calls"]:
+        key = (c["stage"], c["hd"], c["Sq"], c["Sk"], c["H"], c["KV"],
+               c["causal"])
+        by_stage.setdefault(key, []).append(c)
+    for (stage, hd, sq, sk, h, kv, causal), calls in by_stage.items():
+        print(f"[numbers] flash_attention ({stage}) hd {hd}, Sq {sq}, Sk "
+              f"{sk}, H {h} / KV {kv}, "
+              f"{'causal' if causal else 'not causal'}: {len(calls)} "
+              f"launches, kernel {sum(c['ms'] for c in calls):.3f} ms, "
+              f"bound {sum(max(c['bytes_ms'], c['ops_ms']) for c in calls):.3f}"
+              f" ms, plain {sum(c['plain_ms'] for c in calls):.3f} ms, "
+              f"library {sum(c['library_ms'] for c in calls):.3f} ms")
     print("[numbers] kernel device ms by stage of the slice: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     rows = []
@@ -3352,6 +3640,13 @@ def main() -> int:
             rec.drop()
             later.append(phase_moe(torch, rec))
             later.append(phase_paper(torch, rec))
+            # phase 4 for 3g-3h, which frees their recorded arguments
+            # before the serving families take the card
+            phase_numbers(torch, rec.calls, numbers, int_rate,
+                          max_mhz * 1e6)
+            rec.drop()
+            for spec in FAMILY_PHASES:
+                later.append(phase_family(torch, rec, *spec))
         finally:
             rec.close()
         # each kernel's launches over every main-path run

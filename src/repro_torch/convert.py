@@ -105,22 +105,83 @@ def _stacked_blocks(cfg, params):
     return out
 
 
-def model_params_from_reference(cfg, params, device="cuda") -> Transformer:
-    """A port `models.transformer.Transformer` holding the reference's
-    parameters (``repro.models.build(cfg).init(key)``: a pytree of arrays
-    with the layers stacked on a leading axis; for the MoE family the
-    leading dense blocks under ``lead`` and the super-layers under
-    ``groups``), one block per layer, cast to ``cfg.dtype`` (the router
-    stays float32) on ``device``."""
-    model = Transformer(cfg, resolve_device(device))
-    _copy_tree(model.embed, params["embed"])
-    _copy_tree(model, {"final_norm": params["final_norm"]})
+def _copy_blocks(blocks, tree, n: int) -> None:
+    """Copy the ``n`` blocks stacked on ``tree``'s leading axis into
+    ``blocks`` in order."""
+    if len(blocks) != n:
+        raise ValueError(f"{n} reference blocks for {len(blocks)} layers")
+    for i, block in enumerate(blocks):
+        _copy_tree(block, tree, index=i)
+
+
+def _copy_transformer(model, cfg, params) -> None:
     blocks = _stacked_blocks(cfg, params)
     if len(blocks) != len(model.layers):
         raise ValueError(f"{len(blocks)} reference blocks for "
                          f"{len(model.layers)} layers")
     for block, (tree, index) in zip(model.layers, blocks):
         _copy_tree(block, tree, index=index)
+
+
+def _copy_hybrid(model, cfg, params) -> None:
+    """Mamba2's ``layers[i]``; Zamba2's ``groups[g, j]`` (doubly stacked)
+    and the unstacked ``shared`` block."""
+    if cfg.family == "hybrid":
+        n_groups = cfg.n_layers // cfg.attn_every
+        for g in range(n_groups):
+            for j, block in enumerate(model.groups[g]):
+                _copy_tree(block, params["groups"], index=(g, j))
+        _copy_tree(model.shared, params["shared"])
+    else:
+        _copy_blocks(model.layers, params["layers"], cfg.n_layers)
+
+
+def _copy_encdec(model, cfg, params) -> None:
+    _copy_tree(model, {k: params[k] for k in ("frontend_proj", "enc_norm")})
+    _copy_blocks(model.enc, params["enc"], cfg.n_enc_layers)
+    _copy_blocks(model.dec, params["dec"], cfg.n_layers)
+
+
+def _copy_vlm(model, cfg, params) -> None:
+    """Per group g: ``groups.self[g, j]`` (doubly stacked) and
+    ``groups.cross[g]``."""
+    _copy_tree(model, {"frontend_proj": params["frontend_proj"]})
+    groups = params["groups"]
+    for g, group in enumerate(model.groups):
+        for j, block in enumerate(group.self_blocks()):
+            _copy_tree(block, groups["self"], index=(g, j))
+        _copy_tree(group.cross, groups["cross"], index=g)
+
+
+def model_params_from_reference(cfg, params, device="cuda"):
+    """The port's model of ``cfg`` holding the reference's parameters
+    (``repro.models.build(cfg).init(key)``: a pytree of arrays with the
+    layers stacked on leading axes), cast to ``cfg.dtype`` (the MoE router
+    and the SSM's ``a_log`` / ``d_skip`` / ``dt_bias`` stay float32) on
+    ``device``: a `transformer.Transformer` (dense: ``layers``; MoE: the
+    leading dense blocks under ``lead`` and the super-layers under
+    ``groups``), a `hybrid.Hybrid` (Mamba2: ``layers``; Zamba2: ``groups
+    (n_groups, attn_every, ...)`` and ``shared``), an `encdec.EncDec`
+    (``enc``, ``dec``) or a `vision.VLM` (``groups.self (n_groups,
+    n_self, ...)``, ``groups.cross``), one module per block."""
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.hybrid import Hybrid
+    from repro_torch.models.vision import VLM
+
+    dev = resolve_device(device)
+    family = {"dense": (Transformer, _copy_transformer),
+              "moe": (Transformer, _copy_transformer),
+              "ssm": (Hybrid, _copy_hybrid),
+              "hybrid": (Hybrid, _copy_hybrid),
+              "encdec": (EncDec, _copy_encdec),
+              "vlm": (VLM, _copy_vlm)}
+    if cfg.family not in family:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    cls, copy = family[cfg.family]
+    model = cls(cfg, dev)
+    _copy_tree(model.embed, params["embed"])
+    _copy_tree(model, {"final_norm": params["final_norm"]})
+    copy(model, cfg, params)
     return model
 
 

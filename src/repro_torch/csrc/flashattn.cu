@@ -49,10 +49,14 @@
 //   in bf16 while the denominator sums it in float32; lse is written in
 //   natural log. Masking runs only on tiles that cross the diagonal or the
 //   keys' end, and the heaviest (last) query tiles launch first.
-//   bf16, head dims 16, 32, 64, 112: the first design, flash_mma_kernel: four
-//   warps, 16 query rows each, on mma.sync.m16n8k16 with float32
+//   bf16, head dims 16, 32, 64, 80, 112: the first design, flash_mma_kernel:
+//   four warps, 16 query rows each, on mma.sync.m16n8k16 with float32
 //   accumulation; Q's fragments stay in registers, each 64-key tile is
-//   staged in shared memory (K row-major, V transposed).
+//   staged in shared memory (K row-major, V transposed). At head dim 80
+//   (Zamba2's shared attention) a row is 160 bytes, ten 16-byte copies,
+//   and the padded shared row of HD + 8 = 88 elements (176 bytes) keeps
+//   every copy 16-byte aligned; S = Q K^T takes HD / 16 = 5 k-steps and the
+//   accumulator HD / 8 = 10 fragments.
 //   float32, every head dim: flash_simt_kernel, scalar FP32 FMAs, 256
 //   threads, each owning a 4 x 4 block of the 64 x 64 score tile and a
 //   4 x (hd / 16) block of the accumulator.
@@ -672,7 +676,8 @@ template <int HD>
 cudaError_t launch_hd(int dtype, const Params& p, int batch,
                       cudaStream_t stream) {
   if (dtype == 1) {
-    // head dim 128: the Hopper kernel; 16, 32, 64, 112: the mma.sync kernel
+    // head dim 128: the Hopper kernel; 16, 32, 64, 80, 112: the mma.sync
+    // kernel
     if constexpr (HD == 128) {
       return launch_sm90(p, batch, p.heads / p.group, stream);
     } else {
@@ -732,6 +737,7 @@ extern "C" int flash_attention_launch(
     case 16: return static_cast<int>(launch_hd<16>(dtype, p, batch, s));
     case 32: return static_cast<int>(launch_hd<32>(dtype, p, batch, s));
     case 64: return static_cast<int>(launch_hd<64>(dtype, p, batch, s));
+    case 80: return static_cast<int>(launch_hd<80>(dtype, p, batch, s));
     case 112: return static_cast<int>(launch_hd<112>(dtype, p, batch, s));
     case 128: return static_cast<int>(launch_hd<128>(dtype, p, batch, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -34,13 +34,19 @@ class SyntheticLM:
     """Markov-ish synthetic LM stream: token t + 1 is token t plus a
     step-keyed drift in [0, 7) (mod the vocabulary), so a model can lower
     its loss on it. Tokens and labels are int32 (B, S), labels are the
-    tokens shifted left by one, and the mask zeroes the last position."""
+    tokens shifted left by one, and the mask zeroes the last position.
+    With a ``frontend_name`` ("frames" or "patches") the batch also holds
+    standard-normal stub embeddings ``(B, n_frontend_tokens,
+    frontend_dim)`` in bf16 under that name."""
 
     vocab_size: int
     seq_len: int
     global_batch: int
     seed: int = 0
     device: Any = DEFAULT_DEVICE
+    n_frontend_tokens: int = 0
+    frontend_dim: int = 0
+    frontend_name: str = ""
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         dev = resolve_device(self.device)
@@ -51,18 +57,30 @@ class SyntheticLM:
         toks = ((base + torch.cumsum(drift, dim=1)) % V).to(torch.int32)
         mask = torch.ones((B, S), dtype=torch.float32, device=dev)
         mask[:, -1] = 0.0
-        return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1),
-                "mask": mask}
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1),
+                 "mask": mask}
+        if self.frontend_name:
+            batch[self.frontend_name] = torch.randn(
+                (B, self.n_frontend_tokens, self.frontend_dim), generator=g,
+                device=dev).to(torch.bfloat16)
+        return batch
 
     @classmethod
     def for_cell(cls, cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
                  device: Any = DEFAULT_DEVICE) -> "SyntheticLM":
-        if cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: batches with a {cfg.frontend} frontend wait "
-                f"for the enc-dec / VLM slices (ROADMAP A7 / A8)")
         return cls(vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
-                   global_batch=shape.global_batch, seed=seed, device=device)
+                   global_batch=shape.global_batch, seed=seed, device=device,
+                   n_frontend_tokens=cfg.n_frontend_tokens,
+                   frontend_dim=cfg.frontend_dim or cfg.d_model,
+                   frontend_name=frontend_name(cfg))
+
+
+def frontend_name(cfg: ModelConfig) -> str:
+    """The batch key of ``cfg``'s stub frontend embeddings: "frames"
+    (audio), "patches" (vision), or "" without a frontend."""
+    if not cfg.frontend:
+        return ""
+    return "frames" if cfg.frontend == "audio" else "patches"
 
 
 def host_shard(batch: Dict[str, Any], host_id: int = 0, n_hosts: int = 1

@@ -15,10 +15,12 @@ Port of the Pallas `repro.kernels.flashattn` kernels:
 
 The C launchers pick the kernel by head dim and dtype: bf16 at head dim
 128 (every dense config served and trained) runs the Hopper kernels (TMA
-ring, wgmma, setmaxnreg; ``csrc/flash_sm90.cuh``), bf16 at 16, 32, 64
-and 112 (Kimi K2's head) the first design on ``mma.sync``, float32 scalar
-FMAs. A kernel that
-fails to build or launch raises; nothing falls back on another.
+ring, wgmma, setmaxnreg; ``csrc/flash_sm90.cuh``), bf16 at 16, 32, 64,
+80 (Zamba2's shared attention; forward only) and 112 (Kimi K2's head)
+the first design on ``mma.sync``, float32 scalar FMAs. The backward
+launcher takes every head dim but 80, whose backward comes with training
+the hybrid family (ROADMAP §A10). A kernel that fails to build or launch
+raises; nothing falls back on another.
 
 The kernel wrappers take the model's layout, q (B, Sq, H, hd) and k / v
 (B, Sk, KV, hd), and read it through its strides. For CPU tensors they run
@@ -42,7 +44,9 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+#: the backward's: head dim 80 waits for training the hybrid family
+BWD_HEAD_DIMS = (16, 32, 64, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -245,12 +249,12 @@ def _strides(x: torch.Tensor):
     return (ctypes.c_longlong * 3)(*x.stride()[:3])
 
 
-def _on_card(name: str, q: torch.Tensor) -> None:
+def _on_card(name: str, q: torch.Tensor, head_dims=HEAD_DIMS) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"the flash attention kernels take head_dim in "
-                         f"{HEAD_DIMS}, got {q.shape[3]}")
+    if q.shape[3] not in head_dims:
+        raise ValueError(f"{name} takes head_dim in {head_dims}, got "
+                         f"{q.shape[3]}")
 
 
 def _launch_fwd(q, k, v, causal: bool, lse) -> torch.Tensor:
@@ -345,7 +349,7 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
             *(x.transpose(1, 2) for x in (q, k, v, o)), lse,
             do.transpose(1, 2), causal, block_q, block_k)
         return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
-    _on_card("flash_attention_bwd_kernel", q)
+    _on_card("flash_attention_bwd_kernel", q, BWD_HEAD_DIMS)
     grads = _launch_bwd(q, k, v, o, lse, do, causal)
     LAUNCHES["flash_attention_bwd"] += 1
     return grads

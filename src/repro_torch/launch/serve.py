@@ -7,10 +7,16 @@ weights (the counterpart of `repro.launch.serve`).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama4_maverick_400b_a17b                # MoE, reduced
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mamba2_1p3b|zamba2_2p7b|seamless_m4t_medium|llama_3p2_vision_90b
+
 Runs on the card (``--device cuda``, the default) unless asked for the
-CPU; ``--full`` keeps the architecture's published widths and depth. The
-dense and MoE families serve (``kimi_k2_1t_a32b``,
-``llama4_maverick_400b_a17b``); the other families raise at `build`.
+CPU; ``--full`` keeps the architecture's published widths and depth.
+Every family serves: dense, MoE (``kimi_k2_1t_a32b``,
+``llama4_maverick_400b_a17b``), SSM, hybrid, enc-dec and VLM. The enc-dec
+and VLM configs' prompts come with seeded standard-normal stub frontend
+embeddings (``frames`` / ``patches``, ``n_frontend_tokens`` x
+``frontend_dim`` a sample, bf16), as `repro.launch.serve` draws them.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import time
 import torch
 
 from repro_torch.configs.base import get_config, reduced
+from repro_torch.data.pipeline import frontend_name
 from repro_torch.models import build
 from repro_torch.serve.step import generate
 
@@ -45,6 +52,11 @@ def main(argv=None):
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
         device=bundle.device)}
+    if cfg.frontend:
+        batch[frontend_name(cfg)] = torch.randn(
+            (args.batch, cfg.n_frontend_tokens,
+             cfg.frontend_dim or cfg.d_model), generator=gen,
+            device=bundle.device).to(torch.bfloat16)
 
     on_card = bundle.device.type == "cuda"
     if on_card:

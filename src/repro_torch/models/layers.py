@@ -47,6 +47,15 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def check_generator(generator: torch.Generator,
+                    device: torch.device) -> None:
+    """Raise unless ``generator`` lives on ``device``'s type: an init
+    draws on the model's device."""
+    if torch.device(generator.device).type != device.type:
+        raise ValueError(f"the generator lives on {generator.device}, the "
+                         f"model on {device}")
+
+
 @torch.no_grad()
 def dense_init_(p: torch.Tensor, generator: torch.Generator,
                 std: float = INIT_STD) -> None:
@@ -176,6 +185,25 @@ def attention_train(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _project_qkv(p, x, cfg, positions)
     o = chunked_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                           kv_chunk=kv_chunk)
+    return torch.einsum("bshk,hkd->bsd", o, p.wo)
+
+
+def cross_attention(p: Attention, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig, kv=None) -> torch.Tensor:
+    """x: (B, Sq, D) queries; memory: (B, Sm, D) keys and values. No RoPE,
+    not causal; the flash kernel at the reference's 512 x 512 blocks.
+    ``kv``: the projections ``(memory wk, memory wv)`` where the caller
+    has them already (the serving prefill caches them), else computed
+    here."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    if kv is None:
+        kv = (torch.einsum("bsd,dhk->bshk", memory, p.wk),
+              torch.einsum("bsd,dhk->bshk", memory, p.wv))
+    k, v = kv
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    o = chunked_attention(q, k, v, causal=False)
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
 

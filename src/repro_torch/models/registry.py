@@ -1,5 +1,4 @@
-"""Model registry: the reference's `ModelBundle` API, dense and MoE
-families.
+"""Model registry: the reference's `ModelBundle` API over every family.
 
     bundle = build(cfg)                     # device="cuda" unless asked
     params = bundle.init(torch.Generator("cuda").manual_seed(0))
@@ -8,32 +7,34 @@ families.
     logits, cache = bundle.decode_step(params, token, cache, pos)
 
 The counterpart of `repro.models.registry`, with the same field names.
-``params`` is a `models.transformer.Transformer` on the bundle's device.
-Token tensors keep their device; host token arrays (numpy, lists) go to
-the model's device; tokens on another device than the model raise.
-``abstract`` (shapes without allocating, for the dry run and the sharded
-cells) waits for ROADMAP §A8; the MoE family's ``loss`` waits for §A4b
-(MoE training); the other families (SSM / hybrid, enc-dec, VLM) raise at
-`build`.
+``params`` is the family's `nn.Module` on the bundle's device: a
+`transformer.Transformer` (dense, MoE), `hybrid.Hybrid` (SSM, hybrid),
+`encdec.EncDec` or `vision.VLM`. The enc-dec and VLM prefills take the
+frontend's stub embeddings from the batch (``frames`` / ``patches``).
+Token tensors and frontend embeddings keep their device; host arrays
+(numpy, lists) go to the model's device; tensors on another device than
+the model raise. ``abstract`` (shapes without allocating, for the dry run
+and the sharded cells) waits for ROADMAP §A8; ``loss`` runs for the dense
+family only: the MoE family's waits for §A4b (in §A8), the SSM, hybrid,
+enc-dec and VLM families' for §A10.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from repro_torch._device import DEFAULT_DEVICE, operand_device, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
+from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
+from repro_torch.models import vision as VI
 
 Params = Dict[str, Any]
-
-#: the ROADMAP item (queue A) that ports each family the port lacks
-_FAMILY_SLICE = {"ssm": "A5 (SSM / hybrid)", "hybrid": "A5 (SSM / hybrid)",
-                 "encdec": "A6 (enc-dec)", "vlm": "A7 (VLM)"}
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
@@ -47,14 +48,26 @@ class ModelBundle:
     device: torch.device      # where init puts the weights
 
 
-def _tokens(x, params: TF.Transformer) -> torch.Tensor:
+def _tokens(x, params) -> torch.Tensor:
     """Token ids as an int64 tensor on the model's device."""
     dev = operand_device([x], params.device)
     return torch.as_tensor(x, device=dev).long()
 
 
-def _batch(batch: Dict[str, Any], params: TF.Transformer
-           ) -> Dict[str, torch.Tensor]:
+def _frontend(batch: Dict[str, Any], name: str, params) -> torch.Tensor:
+    """The batch's frontend embeddings ``batch[name]`` as a tensor on the
+    model's device (their dtype kept; the model casts them)."""
+    if batch.get(name) is None:
+        raise ValueError(f"this model's prefill reads batch[{name!r}], the "
+                         "frontend's stub embeddings")
+    x = batch[name]
+    dev = operand_device([x], params.device)
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+
+
+def _batch(batch: Dict[str, Any], params) -> Dict[str, torch.Tensor]:
     """A training batch's tokens and labels as int64 and its mask as
     float32, on the model's device."""
     out = {k: _tokens(batch[k], params) for k in ("tokens", "labels")}
@@ -64,26 +77,54 @@ def _batch(batch: Dict[str, Any], params: TF.Transformer
     return out
 
 
+def _family(cfg: ModelConfig, dev: torch.device):
+    """(init, prefill, decode_step, cache_init) over the family's
+    functions, each taking the bundle's arguments."""
+    if cfg.family in ("dense", "moe"):
+        return (lambda g: TF.transformer_init(g, cfg, dev),
+                lambda p, b: TF.transformer_prefill(
+                    p, _tokens(b["tokens"], p), cfg),
+                TF.transformer_decode_step,
+                lambda batch, max_len: L.kv_cache_init(
+                    cfg, len(TF.layer_kinds(cfg)), batch, max_len, dev))
+    if cfg.family in ("ssm", "hybrid"):
+        return (lambda g: HY.hybrid_init(g, cfg, dev),
+                lambda p, b: HY.hybrid_prefill(
+                    p, _tokens(b["tokens"], p), cfg),
+                HY.hybrid_decode_step,
+                lambda batch, max_len: HY.hybrid_cache_init(
+                    cfg, batch, max_len, dev))
+    if cfg.family == "encdec":
+        return (lambda g: ED.encdec_init(g, cfg, dev),
+                lambda p, b: ED.encdec_prefill(
+                    p, _tokens(b["tokens"], p), cfg,
+                    frames=_frontend(b, "frames", p)),
+                ED.encdec_decode_step,
+                lambda batch, max_len: ED.encdec_cache_init(
+                    cfg, batch, max_len, dev))
+    if cfg.family == "vlm":
+        return (lambda g: VI.vlm_init(g, cfg, dev),
+                lambda p, b: VI.vlm_prefill(
+                    p, _tokens(b["tokens"], p), cfg,
+                    patches=_frontend(b, "patches", p)),
+                VI.vlm_decode_step,
+                lambda batch, max_len: VI.vlm_cache_init(
+                    cfg, batch, max_len, dev))
+    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+
+
 def build(cfg: ModelConfig, device=None, remat: str = "block"
           ) -> ModelBundle:
-    """The bundle of ``cfg`` (dense or MoE family) on ``device`` (default
-    ``"cuda"``; asking for the card where there is none raises). ``remat``
-    is the loss's rematerialisation policy: "block" or "full" (each block
-    recomputed in the backward, the reference's ``nothing_saveable``);
-    "dots" waits for ROADMAP §A8. The MoE family serves (``prefill``,
-    ``decode_step``, ``cache_init``); its ``loss`` raises until ROADMAP
-    §A4b ports MoE training."""
-    if cfg.family not in ("dense", "moe"):
-        where = _FAMILY_SLICE.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP queue {where}); the port builds the dense and MoE "
-            "families")
+    """The bundle of ``cfg`` on ``device`` (default ``"cuda"``; asking for
+    the card where there is none raises). Every family serves
+    (``prefill``, ``decode_step``, ``cache_init``). ``loss`` trains the
+    dense family, with ``remat`` "block" or "full" (each block recomputed
+    in the backward, the reference's ``nothing_saveable``; "dots" waits
+    for ROADMAP §A8); for the other families it raises, naming the ROADMAP
+    item that ports their training."""
     TF.check_remat(remat)
     dev = resolve_device(DEFAULT_DEVICE if device is None else device)
-
-    def init(generator: torch.Generator) -> TF.Transformer:
-        return TF.transformer_init(generator, cfg, dev)
+    init, prefill, decode, cache_init = _family(cfg, dev)
 
     def abstract():
         raise NotImplementedError(
@@ -91,19 +132,16 @@ def build(cfg: ModelConfig, device=None, remat: str = "block"
             "the dry run and the sharded cells, which wait for ROADMAP §A8")
 
     def loss(params, batch):
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family!r} family waits for "
+                "ROADMAP §A10 (its *_apply, bundle.loss and, at head dim "
+                "80, the flash backward); the port serves it "
+                "(bundle.prefill / bundle.decode_step)")
         return TF.lm_loss(params, _batch(batch, params), cfg, remat=remat)
 
-    def prefill(params, batch):
-        return TF.transformer_prefill(params, _tokens(batch["tokens"], params),
-                                      cfg)
-
     def decode_step(params, token, cache, pos):
-        return TF.transformer_decode_step(params, _tokens(token, params),
-                                          cache, int(pos), cfg)
-
-    def cache_init(batch, max_len):
-        return L.kv_cache_init(cfg, len(TF.layer_kinds(cfg)), batch, max_len,
-                               dev)
+        return decode(params, _tokens(token, params), cache, int(pos), cfg)
 
     return ModelBundle(cfg=cfg, init=init, abstract=abstract, loss=loss,
                        prefill=prefill, decode_step=decode_step,

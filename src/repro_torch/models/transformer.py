@@ -112,9 +112,7 @@ def transformer_init(generator: torch.Generator, cfg: ModelConfig,
     ``generator`` (which must live on that device): N(0, 0.02^2) matrices,
     output projections scaled by 1/sqrt(2 n_layers), unit norms."""
     model = Transformer(cfg, device)
-    if torch.device(generator.device).type != model.device.type:
-        raise ValueError(f"the generator lives on {generator.device}, the "
-                         f"model on {model.device}")
+    L.check_generator(generator, model.device)
     with torch.no_grad():
         model.embed.init_(generator, cfg)
         model.final_norm.fill_(1)
@@ -221,6 +219,18 @@ def lm_loss(params: Transformer, batch: Dict[str, torch.Tensor],
 # serving: prefill + decode
 # --------------------------------------------------------------------------
 
+def attention_prefill(p, x: torch.Tensor, cfg: ModelConfig,
+                      positions: torch.Tensor):
+    """A block's causal self-attention over the prompt, through the flash
+    kernel: (x + attention, k, v), the keys and values for the cache; the
+    caller adds the rest of the block."""
+    qc, kc = _chunks_for(x.shape[1])
+    xn = L.rmsnorm(x, p.ln1, cfg.norm_eps)
+    q, k, v = L._project_qkv(p.attn, xn, cfg, positions)
+    o = L.chunked_attention(q, k, v, causal=True, q_chunk=qc, kv_chunk=kc)
+    return x + torch.einsum("bshk,hkd->bsd", o, p.attn.wo), k, v
+
+
 @torch.no_grad()
 def transformer_prefill(params: Transformer, tokens: torch.Tensor,
                         cfg: ModelConfig
@@ -228,17 +238,12 @@ def transformer_prefill(params: Transformer, tokens: torch.Tensor,
     """Prefill: (last-position logits (B, V), KV cache filled up to S).
     The cache is layer-major ``(L, B, S, KV * hd)``, as `kv_cache_init`
     lays it out."""
-    qc, kc = _chunks_for(tokens.shape[1])
     B, S = tokens.shape
     x = L.embed(params.embed, tokens)
     positions = torch.arange(S, device=x.device)[None, :]
     cache = L.kv_cache_init(cfg, len(params.layers), B, S, x.device)
     for i, p in enumerate(params.layers):
-        xn = L.rmsnorm(x, p.ln1, cfg.norm_eps)
-        q, k, v = L._project_qkv(p.attn, xn, cfg, positions)
-        o = L.chunked_attention(q, k, v, causal=True, q_chunk=qc,
-                                kv_chunk=kc)
-        h = x + torch.einsum("bshk,hkd->bsd", o, p.attn.wo)
+        h, k, v = attention_prefill(p, x, cfg, positions)
         x = h + _ffn(p, h, cfg)
         cache["k"][i] = k.reshape(B, S, -1)
         cache["v"][i] = v.reshape(B, S, -1)

@@ -10,7 +10,9 @@ import torch
 def extend_cache(cache: Dict[str, Any], extra: int) -> Dict[str, Any]:
     """Pad the sequence axis of the attention KV sheets by ``extra`` zero
     slots so a prefill-produced cache (length S) can absorb ``extra``
-    decoded tokens. Other entries pass through untouched."""
+    decoded tokens. The SSM state / conv caches and the cross-attention
+    caches (``cross_k``, ``cross_v``) are fixed-size and pass through
+    untouched."""
     out: Dict[str, Any] = {}
     for k, v in cache.items():
         if isinstance(v, dict):

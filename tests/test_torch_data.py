@@ -65,9 +65,14 @@ def test_for_cell_takes_the_shape():
                                 device="cpu")
     assert (data.vocab_size, data.seq_len, data.global_batch) == \
         (cfg.vocab_size, 4096, 256)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        SyntheticLM.for_cell(get_config("seamless_m4t_medium"),
-                             SHAPES["train_4k"], device="cpu")
+    # a frontend config's batches carry its stub embeddings
+    for arch, name in (("seamless_m4t_medium", "frames"),
+                       ("llama_3p2_vision_90b", "patches")):
+        cfg = get_config(arch)
+        data = SyntheticLM.for_cell(cfg, SHAPES["train_4k"], device="cpu")
+        assert (data.frontend_name, data.n_frontend_tokens,
+                data.frontend_dim) == (name, cfg.n_frontend_tokens,
+                                       cfg.d_model)
 
 
 @pytest.mark.parametrize("n_hosts", [1, 2, 3])

@@ -705,6 +705,93 @@ def test_moe_serving_on_the_card_matches_the_host(cuda):
         assert err < 1e-4, (cf, err)
 
 
+# the serving families' flash shapes, forward and lse forward: Zamba2's
+# head dim 80 (32 heads over 32) causal and not at a ragged length,
+# SeamlessM4T's non-causal head dim 64 with Sq != Sk, and the VLM's
+# cross-attention on the head-dim-128 Hopper kernel (Sk not a multiple of
+# the 128-key tile, a GQA group of 8)
+SERVE_FLASH_CASES = [
+    (2, 300, 300, 32, 32, 80, True),
+    (2, 300, 300, 32, 32, 80, False),
+    (1, 77, 200, 4, 4, 80, False),
+    (2, 512, 256, 16, 16, 64, False),
+    (1, 512, 400, 64, 8, 128, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", SERVE_FLASH_CASES)
+def test_serving_family_flash_shapes_match_plain(cuda, B, Sq, Sk, H, KV, hd,
+                                                 causal, dtype):
+    from repro_torch.kernels import flashattn as F
+
+    q, k, v = _qkv(cuda, Sq * hd + Sk + 1, dtype, B, Sq, Sk, H, KV, hd)
+    got = F.flash_attention_kernel(q, k, v, causal)
+    o, lse = F.flash_attention_fwd_kernel(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, got)
+    want, plse = F.flash_attention_fwd_plain(q.transpose(1, 2),
+                                             k.transpose(1, 2),
+                                             v.transpose(1, 2), causal)
+    _assert_flash_close(got, want.transpose(1, 2), FLASH_TOL[dtype])
+    _assert_flash_close(lse, plse, 1e-4)
+
+
+def test_flash_bwd_kernel_rejects_head_dim_80(cuda):
+    """Head dim 80 has a forward only; its backward comes with training
+    the hybrid family."""
+    from repro_torch.kernels import flashattn as F
+
+    q, k, v = _qkv(cuda, 2, torch.bfloat16, 1, 64, 64, 2, 2, 80)
+    o, lse = F.flash_attention_fwd_kernel(q, k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        F.flash_attention_bwd_kernel(q, k, v, o, lse, o)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "zamba2_2p7b",
+                                  "seamless_m4t_medium",
+                                  "llama_3p2_vision_90b"])
+def test_serving_families_on_the_card_match_the_host(cuda, arch):
+    """Reduced SSM, hybrid, enc-dec and VLM configs in float32 on the card:
+    the exact flash launches of a prefill (none for Mamba2), and prefill
+    and decode logits within 1e-4 of the same weights on the host."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data.pipeline import frontend_name
+    from repro_torch.models import build
+    from repro_torch.serve import extend_cache
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    bundle, host = build(cfg), build(cfg, device="cpu")
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(2))
+    host_params = copy.deepcopy(params).to("cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 41))
+    batch = {"tokens": toks[:, :40]}
+    if cfg.frontend:
+        batch[frontend_name(cfg)] = rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    flash = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+             "encdec": cfg.n_enc_layers + 2 * cfg.n_layers,
+             "vlm": cfg.n_layers + cfg.n_layers // max(cfg.cross_attn_every,
+                                                       1)}[cfg.family]
+    LAUNCHES.clear()
+    got, cache = bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == ({"flash_attention": flash} if flash else {})
+    want, host_cache = host.prefill(host_params, batch)
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err < 1e-4, err
+    got, _ = bundle.decode_step(params, toks[:, 40], extend_cache(cache, 1),
+                                40)
+    want, _ = host.decode_step(host_params, toks[:, 40],
+                               extend_cache(host_cache, 1), 40)
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err < 1e-4, err
+
+
 # ---------------------------------------------------------------------------
 # the training path: flash forward with lse, its backward, sign packing
 # ---------------------------------------------------------------------------
