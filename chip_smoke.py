@@ -28,8 +28,10 @@ Phases; the first failure exits non-zero:
    sub and lt at 1, 7, 8 and 32 bits, one and three rows of a ragged
    width; the bit untranspose with fewer than 32 planes, ragged group
    counts and a round trip through the bit transpose; ptxas's registers
-   and spill bytes of the head-dim-128 Hopper flash kernels, the VM and
-   the bit transpose (any spill fails); flash attention in float32 and
+   and spill bytes of the Hopper flash kernels (the forward's instances
+   at head dims 64, 80 and 128 each required; the first design's bf16
+   instances at 64 and 80 must be gone), the VM and the bit transpose
+   (any spill fails); flash attention in float32 and
    bf16 at the JAX package's five test shapes, a cross-attention shape (64
    queries over 100 keys), B = 2,
    S = 1,000 causal at hd 128, and the hd-128 kernels' edges (100 queries
@@ -41,9 +43,12 @@ Phases; the first failure exits non-zero:
    K2's 64 over 8 at head dim 112; the serving families' shapes, also
    through the lse forward: Zamba2's head dim 80 (32 heads over 32,
    1,000 queries, causal and not), SeamlessM4T's non-causal head dim 64
-   at 2,048 queries over 1,024 keys and 1,024 over 1,024, and the VLM's
+   at 2,048 queries over 1,024 keys and 1,024 over 1,024, the VLM's
    cross-attention on the hd-128 Hopper kernel (2,048 queries over 1,600
-   keys, 64 heads over 8); the training kernels at the same shapes and
+   keys, 64 heads over 8), and the Hopper route's edges at head dims 64
+   and 80 (100 keys, under one key tile, and 1,000; 130 and 300
+   queries; GQA groups of 2; B H = 144 and 160); the training kernels at
+   the same shapes and
    at B = 1, S = 4,096 causal, both dtypes: the lse-emitting forward (its
    output equal to the serving kernel's, the lse within 1e-4) and the
    backward (dq, dk, dv; two runs bit-identical) against their plain
@@ -189,7 +194,10 @@ Phases; the first failure exits non-zero:
    training launch what its hi + lo split of p and ds costs (timed with
    and without it, each one's share of the gate printed); pack and unpack
    bit for bit, bound by their bytes. Of (g) and (i)-(k), every flash
-   launch as (e)'s, with each stage's totals by shape; of (h), every
+   launch as (e)'s, with each stage's totals and per-launch times by
+   shape beside the bound and scaled_dot_product_attention, and the
+   totals by the launcher's route (Hopper at each head dim, first
+   design); of (h), every
    launch. Phase 4 runs for (a)-(e) before (f) starts, for (f) before
    (g) and for (g)-(h) before (i), so their recorded arguments are freed
    first.
@@ -665,23 +673,37 @@ FLASH_CASES = (
 #: its cross-attention (2,048 queries over 1,024 frames) and its encoder
 #: (1,024 over 1,024); the VLM's cross-attention on the Hopper kernel at
 #: head dim 128 (2,048 queries over 1,600 patches, not a multiple of the
-#: key tile, a GQA group of 8)
+#: key tile, a GQA group of 8); then the edges of the Hopper route at
+#: head dims 64 and 80: Sk 100 (under one 128-key tile) and 1,000, Sq 130
+#: and 300 (ragged query tiles), a GQA group of 2, and B H = 144 and 160
+#: query heads, more than the card's 132 SMs
 SERVE_FLASH_CASES = (
     (2, 1000, 1000, 32, 32, 80, True, 512, 512),
     (2, 1000, 1000, 32, 32, 80, False, 512, 512),
     (2, 2048, 1024, 16, 16, 64, False, 512, 512),
     (2, 1024, 1024, 16, 16, 64, False, 512, 512),
     (1, 2048, 1600, 64, 8, 128, False, 512, 512),
+    (1, 130, 100, 16, 8, 64, True, 64, 64),
+    (9, 130, 1000, 16, 8, 64, False, 128, 512),
+    (1, 130, 100, 16, 8, 80, True, 64, 64),
+    (5, 300, 100, 32, 16, 80, False, 128, 128),
 )
 #: the kernels redesigned for Hopper that `phase_sm90_report` holds to
-#: zero spills, by source: the head-dim-128 bf16 flash kernels (TMA ring +
-#: wgmma), the VM (pre-decoded program, cp.async tile ring) and the bit
-#: transpose (register butterfly)
-SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel",),
+#: zero spills, by source: the bf16 flash kernels (TMA ring + wgmma; the
+#: forward at head dims 64, 80 and 128, each instance required by name),
+#: the VM (pre-decoded program, cp.async tile ring) and the bit transpose
+#: (register butterfly)
+SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel<64>",
+                              "flash_fwd_sm90_kernel<80>",
+                              "flash_fwd_sm90_kernel<128>"),
                 "flashattn_bwd": ("flash_bwd_dq_sm90_kernel",
                                   "flash_bwd_dkv_sm90_kernel"),
                 "vm": ("vm_kernel",),
                 "bittranspose": ("bit_transpose_kernel",)}
+#: the first design's bf16 instances that the Hopper route replaced: a
+#: build that still holds one fails
+RETIRED_KERNELS = {"flashattn": ("flash_mma_kernel<64>",
+                                 "flash_mma_kernel<80>")}
 #: kernel vs plain version: the JAX package's own bounds against its
 #: oracle (tests/test_flashattn.py), relative to each element and to the
 #: plain output's RMS over the launch; the two sum in another order and
@@ -725,45 +747,62 @@ def _close(label, got, want, tol: float):
 SETMAXNREG = " (its consumer warpgroups take more with setmaxnreg)"
 
 
-def phase_sm90_report(build_mod) -> dict:
-    """Each `SM90_KERNELS` kernel's registers and spill bytes from
-    ptxas's report of its build; fails if any of them spills. Returns
-    ``{kernel: {"registers": r, "spill_stores": s, "spill_loads": l}}``
-    (template instances by their arguments, as ``<true, 4>``)."""
+def _ptxas_entries(log: str, bases) -> dict:
+    """The entry functions of ptxas's report whose names are in ``bases``,
+    with their registers and spill bytes: ``{"name<args>": {"registers":
+    r, "spill_stores": s, "spill_loads": l}}`` (template instances by
+    their arguments, as ``<true, 4>``)."""
     import re
 
+    report, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m is not None:
+            entry = None
+            for name in bases:
+                hit = re.search(r"\d" + name + r"(I(?:L[bi]\d+E)+E)?",
+                                m.group(1))
+                if hit is None:
+                    continue
+                args = [("true" if v == "1" else "false") if k == "b"
+                        else v for k, v in
+                        re.findall(r"L([bi])(\d+)E", hit.group(1) or "")]
+                entry = name + (f"<{', '.join(args)}>" if args else "")
+                report[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m is not None:
+            report[entry]["spill_stores"] = int(m.group(1))
+            report[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m is not None:
+            report[entry]["registers"] = int(m.group(1))
+    return report
+
+
+def phase_sm90_report(build_mod) -> dict:
+    """Each `SM90_KERNELS` kernel's registers and spill bytes from
+    ptxas's report of its build; fails if any of them spills, if a named
+    template instance is missing, or if a `RETIRED_KERNELS` instance was
+    built. Returns `_ptxas_entries`' report."""
     report = {}
     for source, kernels in SM90_KERNELS.items():
-        entry = None
-        for line in build_mod.build_log(source).splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m is not None:
-                entry = None
-                for name in kernels:
-                    hit = re.search(r"\d" + name + r"(I(?:L[bi]\d+E)+E)?",
-                                    m.group(1))
-                    if hit is None:
-                        continue
-                    args = [("true" if v == "1" else "false") if k == "b"
-                            else v for k, v in
-                            re.findall(r"L([bi])(\d+)E", hit.group(1) or "")]
-                    entry = name + (f"<{', '.join(args)}>" if args else "")
-                    report[entry] = {}
-                continue
-            if entry is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m is not None:
-                report[entry]["spill_stores"] = int(m.group(1))
-                report[entry]["spill_loads"] = int(m.group(2))
-            m = re.search(r"Used (\d+) registers", line)
-            if m is not None:
-                report[entry]["registers"] = int(m.group(1))
-    for source, kernels in SM90_KERNELS.items():
+        log = build_mod.build_log(source)
+        report.update(_ptxas_entries(
+            log, sorted({n.split("<")[0] for n in kernels})))
         for name in kernels:
-            check(any(k.startswith(name) for k in report),
+            check(name in report if "<" in name
+                  else any(k.startswith(name) for k in report),
                   f"ptxas reported nothing for {name} ({source}.cu)")
+        retired = RETIRED_KERNELS.get(source, ())
+        built = _ptxas_entries(log, sorted({n.split("<")[0]
+                                            for n in retired}))
+        for name in retired:
+            check(name not in built, f"{source}.cu still builds {name}, "
+                  "which the Hopper route replaced")
     for name, r in report.items():
         check(len(r) == 3, f"ptxas's report of {name} is incomplete: {r}")
         print(f"[kernels] ptxas {name}: {r['registers']} registers at "
@@ -3498,6 +3537,20 @@ def phase_numbers(torch, calls, numbers: Numbers, int_rate, clock_hz):
     check(dict(LAUNCHES) != before, "replays launched no kernel")
 
 
+def _flash_routes(calls) -> dict:
+    """Replayed flash launches by route: bf16 at a head dim of one of
+    `SM90_KERNELS`' `flash_fwd_sm90_kernel<HD>` instances is the Hopper
+    kernel at that head dim, every other launch the first design."""
+    hopper = {int(k[k.index("<") + 1:-1]) for k in SM90_KERNELS["flashattn"]
+              if k.startswith("flash_fwd_sm90_kernel<")}
+    routes = {}
+    for c in calls:
+        route = (f"Hopper hd {c['hd']}" if c["dtype"] == "torch.bfloat16"
+                 and c["hd"] in hopper else "first design")
+        routes.setdefault(route, []).append(c)
+    return routes
+
+
 def kernel_rows(numbers: Numbers, launches):
     """Print phase 4's totals; returns the ``{"kernels": [...]}`` rows."""
     per_kernel, stages = numbers.per_kernel, numbers.stages
@@ -3533,12 +3586,25 @@ def kernel_rows(numbers: Numbers, launches):
                c["causal"])
         by_stage.setdefault(key, []).append(c)
     for (stage, hd, sq, sk, h, kv, causal), calls in by_stage.items():
+        n = len(calls)
+        ms = sum(c["ms"] for c in calls)
+        bound = sum(max(c["bytes_ms"], c["ops_ms"]) for c in calls)
+        lib = sum(c["library_ms"] for c in calls)
         print(f"[numbers] flash_attention ({stage}) hd {hd}, Sq {sq}, Sk "
               f"{sk}, H {h} / KV {kv}, "
-              f"{'causal' if causal else 'not causal'}: {len(calls)} "
-              f"launches, kernel {sum(c['ms'] for c in calls):.3f} ms, "
-              f"bound {sum(max(c['bytes_ms'], c['ops_ms']) for c in calls):.3f}"
-              f" ms, plain {sum(c['plain_ms'] for c in calls):.3f} ms, "
+              f"{'causal' if causal else 'not causal'}: {n} "
+              f"launches, kernel {ms:.3f} ms, bound {bound:.3f} ms, plain "
+              f"{sum(c['plain_ms'] for c in calls):.3f} ms, library "
+              f"{lib:.3f} ms; per launch kernel {ms / n:.4f} ms, bound "
+              f"{bound / n:.4f} ms ({ms / bound:.2f}x), "
+              f"scaled_dot_product_attention {lib / n:.4f} ms "
+              f"({ms / lib:.2f}x)")
+    for route, calls in _flash_routes(
+            per_kernel["flash_attention"]["calls"]).items():
+        print(f"[numbers] flash_attention, {route}: {len(calls)} launches, "
+              f"kernel {sum(c['ms'] for c in calls):.3f} ms, bound "
+              f"{sum(max(c['bytes_ms'], c['ops_ms']) for c in calls):.3f} "
+              f"ms, plain {sum(c['plain_ms'] for c in calls):.3f} ms, "
               f"library {sum(c['library_ms'] for c in calls):.3f} ms")
     print("[numbers] kernel device ms by stage of the slice: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))

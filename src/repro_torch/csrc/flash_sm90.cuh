@@ -1,23 +1,26 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels for head
-// dim 128 in bf16 (flashattn.cu: the forward; flashattn_bwd.cu: the
-// backward): TMA tensor maps built on the host, mbarriers, the bulk tensor
-// copy, warpgroup register hand-over (setmaxnreg) and wgmma with its
-// shared-memory descriptors. Everything has internal linkage: each source
-// that includes this builds into its own library.
+// Hopper (sm_90a) building blocks of the flash-attention kernels in bf16
+// (flashattn.cu: the forward at head dims 64, 80 and 128; flashattn_bwd.cu:
+// the backward at head dim 128): TMA tensor maps built on the host,
+// mbarriers, the bulk tensor copy, warpgroup register hand-over
+// (setmaxnreg) and wgmma with its shared-memory descriptors. Everything has
+// internal linkage: each source that includes this builds into its own
+// library.
 //
-// Layout convention. Every operand tile is a run of rows of 128 head-dim
-// values in bf16 (256 bytes), brought in by TMA as two "halves" of 64
-// columns (128 bytes a row), each half stored row after row with the
-// 128-byte swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)).
-// A half of R rows takes R * 128 bytes and starts on a 1024-byte boundary.
-// wgmma reads a half in one of two ways:
+// Layout convention. Every operand tile is a run of rows of head-dim
+// values in bf16, brought in by TMA as ceil(hd / 64) "halves" of 64
+// columns (128 bytes a row; one half at hd 64, two at 80 and 128), each
+// half stored row after row with the 128-byte swizzle (16-byte chunk c of
+// row r lands at chunk c ^ (r % 8)). At hd 80 the second half's columns
+// 80-127 lie past the tensor and TMA fills them with zeros. A half of R
+// rows takes R * 128 bytes and starts on a 1024-byte boundary. wgmma reads
+// a half in one of two ways:
 //   K-major (the product runs over head dims: Q K^T, dO V^T, K Q^T, ...):
-//   8-row groups 1024 bytes apart (SBO); the 16-deep k-step s of a half
-//   starts 32 s bytes into it.
+//   8-row groups 1024 bytes apart (SBO); the 16-deep k-step s of a tile
+//   starts 32 (s % 4) bytes into half s / 4.
 //   N-major (the product runs over rows, the head dim is the output
 //   column: P V, dS K, P^T dO, dS^T Q): the transpose bit is set, the
 //   16-deep k-step s starts 16 rows (2048 bytes) in, 8-row groups are
-//   1024 bytes apart (SBO) and the second 64 output columns are the other
+//   1024 bytes apart (SBO) and output columns 64 onwards are the other
 //   half (LBO = its distance).
 #pragma once
 #include <cstdint>
@@ -59,18 +62,22 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map over a bf16 operand in the model's layout (B, S, heads, 128),
-// given by its base and (batch, sequence, head) strides in elements: 4-D,
-// innermost first (head dim, sequence, head, batch), read in boxes of 64
-// head-dim columns by `rows` sequence rows of one head, 128-byte swizzle.
-// Rows past `seq` read as zeros. Returns false if the encoding is refused
-// (TMA needs a 16-byte aligned base and strides that are multiples of 16
-// bytes: `_readable` in kernels/flashattn.py guarantees both).
+// A map over a bf16 operand in the model's layout (B, S, heads,
+// head_dim), given by its base and (batch, sequence, head) strides in
+// elements: 4-D, innermost first (head dim, sequence, head, batch), read
+// in boxes of 64 head-dim columns by `rows` sequence rows of one head,
+// 128-byte swizzle. Rows past `seq` and columns past `head_dim` read as
+// zeros (a box still completes its barrier with its full byte count).
+// Returns false if the encoding is refused (TMA needs a 16-byte aligned
+// base and strides that are multiples of 16 bytes: `_readable` in
+// kernels/flashattn.py guarantees both).
 bool make_tile_map(CUtensorMap* map, const void* base, int batch, int seq,
-                   int heads, const long long* strides, int rows) {
+                   int heads, int head_dim, const long long* strides,
+                   int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(seq),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
+                              static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[1]) * 2,
@@ -146,13 +153,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Both 64-column halves of `rows` rows of one head (2 * rows * 128 bytes).
+// The `Halves` 64-column halves of `rows` rows of one head (Halves * rows
+// * 128 bytes).
+template <int Halves = 2>
 __device__ __forceinline__ void tma_load_rows(unsigned char* dst,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int rows,
                                               int row, int head, int batch) {
-  tma_load(dst, map, bar, 0, row, head, batch);
-  tma_load(dst + rows * 128, map, bar, 64, row, head, batch);
+#pragma unroll
+  for (int h = 0; h < Halves; ++h) {
+    tma_load(dst + h * rows * 128, map, bar, 64 * h, row, head, batch);
+  }
 }
 
 template <int N>
@@ -292,6 +303,60 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, float32) = A B, or += where `accumulate`, for N = 64, 80:
+// A 64 x 16 bf16 from registers (each warp's 16 rows in the mma.sync A
+// fragment layout), B 16 x N bf16 from shared memory, N-major (the
+// transpose bit set). Columns 64 onwards (n80) are read from the other
+// half, LBO bytes on.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 // d (64 x 128, float32) = A B, or += where `accumulate`: A 64 x 16 bf16

@@ -17,7 +17,9 @@
 // products are 4 B H hd S (S + 1) / 2 = 1.37e11 FLOP, 0.139 ms at 989
 // TFLOP/s (dense bf16), against q + k + v + o = 201 MB, 0.060 ms at 3.35
 // TB/s; the training path's lse forward (B = 2, S = 4096) has the same
-// 0.139 ms bound.
+// 0.139 ms bound. Zamba2's shared attention (hd 80, B = 8, H = 32, S =
+// 2048, causal) is bound at 0.174 ms, SeamlessM4T's hd-64 launches (B =
+// 8, H = 16) at 0.035-0.070 ms.
 //
 // Design. Blocks run in no order, so the TPU's sequential key axis becomes
 // a loop inside the block: a CTA per (query tile, head, batch) walks the
@@ -34,29 +36,49 @@
 // The launcher's switch on the head dim and dtype picks the kernel; none
 // falls back on another:
 //
-//   bf16, head dim 128 (every dense config the port serves and trains):
-//   flash_fwd_sm90_kernel. Against the operation bound it keeps the
-//   tensor cores fed: a CTA of 128 query rows, two consumer warpgroups of
-//   64 rows on wgmma and one producer thread that streams 128-key K and V
-//   tiles by TMA (a tensor map per operand, built on the host over the
-//   model's layout; 128-byte swizzle) through a two-stage ring of full /
-//   empty mbarriers; setmaxnreg gives the producer's registers to the
-//   consumers. S = Q K^T reads both operands from shared memory, K-major;
-//   O += P V takes P from registers (the S accumulator rounded to bf16 is
-//   the A fragment) and reads V in its [key][hd] layout through the
-//   descriptor's transpose bit, so nothing is staged transposed. The
-//   online softmax runs in exp2 with scale log2(e) folded in; p enters P V
-//   in bf16 while the denominator sums it in float32; lse is written in
-//   natural log. Masking runs only on tiles that cross the diagonal or the
-//   keys' end, and the heaviest (last) query tiles launch first.
-//   bf16, head dims 16, 32, 64, 80, 112: the first design, flash_mma_kernel:
-//   four warps, 16 query rows each, on mma.sync.m16n8k16 with float32
-//   accumulation; Q's fragments stay in registers, each 64-key tile is
-//   staged in shared memory (K row-major, V transposed). At head dim 80
-//   (Zamba2's shared attention) a row is 160 bytes, ten 16-byte copies,
-//   and the padded shared row of HD + 8 = 88 elements (176 bytes) keeps
-//   every copy 16-byte aligned; S = Q K^T takes HD / 16 = 5 k-steps and the
-//   accumulator HD / 8 = 10 fragments.
+//   bf16, head dims 64, 80 and 128 (every dense config the port serves
+//   and trains at 128; SeamlessM4T at 64, Zamba2's shared attention at
+//   80): flash_fwd_sm90_kernel<HD>. Against the operation bound it keeps
+//   the tensor cores fed: a CTA of 128 query rows, two consumer
+//   warpgroups of 64 rows on wgmma and one producer thread that streams
+//   128-key K and V tiles by TMA (a tensor map per operand, built on the
+//   host over the model's layout; 128-byte swizzle) through a ring of
+//   full / empty mbarriers (two stages at hd 128, three at 80, four at
+//   64: as deep as shared memory allows at 80, and at 64 never slower
+//   than two or three; times below); setmaxnreg gives the producer's
+//   registers to the consumers. S = Q K^T reads both operands from
+//   shared memory, K-major, in HD / 16 k-steps; O += P V takes P from
+//   registers (the S accumulator rounded to bf16 is the A fragment) and
+//   reads V in its [key][hd] layout through the descriptor's transpose
+//   bit, so nothing is staged transposed. A tile row is ceil(HD / 64)
+//   64-column boxes: one at hd 64 (16 KB tiles), two at 80 and 128 (32
+//   KB). At hd 80 the second box's columns 80-127 lie past the tensor and
+//   TMA fills them with zeros; S's fifth k-step reads columns 64-79 of
+//   the second box, and P V is one m64n80k16 wgmma across both boxes
+//   (LBO = the second box's distance), which writes exactly the 40
+//   accumulator floats a thread that the output has. The variants timed
+//   while choosing, each in turns in one call on an H100 80GB HBM3 at
+//   700 W (ms a launch; only the chosen ones were kept): at hd 80, B 8,
+//   32 heads, causal 2,048, P V as one n80 0.608, as n64 + n16 0.613, as
+//   n128 over the zeros 0.627, and a ring of three 0.608 against two
+//   0.625; at hd 64, B 8, 16 heads, over 1,024 x 1,024 / causal 2,048 /
+//   2,048 x 1,024 keys, a ring of four 0.118 / 0.238 / 0.223, of three
+//   0.123 / 0.247 / 0.230, of two 0.118 / 0.250 / 0.223. The epilogue
+//   stores the HD real columns only. The online softmax runs in exp2 with scale
+//   log2(e) folded in; p enters P V in bf16 while the denominator sums it
+//   in float32; lse is written in natural log. Masking runs only on
+//   tiles that cross the diagonal or the keys' end, and the heaviest
+//   (last) query tiles launch first. A refused tensor map or launch
+//   returns its error. Not done yet: the two consumer warpgroups wait on
+//   the same barriers and so run in lockstep, and at hd 64 / 80 the
+//   softmax's exp2 work, about as long as a tile's products, is never
+//   hidden under the other warpgroup's wgmma (FlashAttention-3's
+//   ping-pong would order them).
+//   bf16, head dims 16, 32 (test shapes) and 112 (Kimi K2's head): the
+//   first design, flash_mma_kernel: four warps, 16 query rows each, on
+//   mma.sync.m16n8k16 with float32 accumulation; Q's fragments stay in
+//   registers, each 64-key tile is staged in shared memory (K row-major,
+//   V transposed), S = Q K^T in HD / 16 k-steps.
 //   float32, every head dim: flash_simt_kernel, scalar FP32 FMAs, 256
 //   threads, each owning a 4 x 4 block of the 64 x 64 score tile and a
 //   4 x (hd / 16) block of the accumulator.
@@ -409,15 +431,42 @@ flash_simt_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dim 128: TMA ring + wgmma (sm_90a)
+// bf16, head dims 64, 80, 128: TMA ring + wgmma (sm_90a)
 // ---------------------------------------------------------------------------
 
 constexpr int kFwdBM = 128;          // query rows per CTA (two warpgroups)
 constexpr int kFwdBN = 128;          // keys per tile
-constexpr int kFwdStages = 2;        // K / V tiles in flight
 constexpr int kFwdThreads = 384;     // consumers: warpgroups 0, 1; producer: 2
-constexpr int kFwdTile = 128 * 256;  // bytes of a 128-row tile (two halves)
-constexpr int kFwdSmem = 1024 + (1 + 2 * kFwdStages) * kFwdTile + 64;
+
+// The forward's shape at head dim HD: a tile of 128 rows is ceil(HD / 64)
+// halves of 128 x 128 bytes; O's accumulator is HD / 2 floats a thread.
+// The ring is as deep as was measured fastest (times in the header).
+template <int HD>
+struct Fwd {
+  static constexpr int kHalves = (HD + 63) / 64;
+  static constexpr int kTile = 128 * 128 * kHalves;
+  static constexpr int kStages = HD == 64 ? 4 : HD == 80 ? 3 : 2;
+  static constexpr int kBars = 1 + 3 * kStages;    // q, k / v full, empty
+  static constexpr int kSmem = 1024 + (1 + 2 * kStages) * kTile + 8 * kBars;
+  static_assert(HD == 64 || HD == 80 || HD == 128, "head dim");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// O (64 x HD) += P V over one 16-key step: P's bf16 A fragments, V's
+// N-major descriptor at that step (its halves LBO = 128 rows x 128 bytes
+// apart).
+template <int HD>
+__device__ __forceinline__ void pv_step(float (&o)[HD / 2],
+                                        const uint32_t (&a)[4],
+                                        uint64_t vd) {
+  if constexpr (HD == 64) {
+    wgmma_rs_n64(o, a, vd, 1);
+  } else if constexpr (HD == 80) {
+    wgmma_rs_n80(o, a, vd, 1);
+  } else {
+    wgmma_rs_n128(o, a, vd, 1);
+  }
+}
 
 struct Sm90Params {
   CUtensorMap q_map, k_map, v_map;
@@ -430,18 +479,21 @@ struct Sm90Params {
   float scale_log2;               // scale * log2(e)
 };
 
+template <int HD>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
+  using F = Fwd<HD>;
+  constexpr int kStages = F::kStages, kTile = F::kTile;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sQ = smem;
-  unsigned char* sK = smem + kFwdTile;                    // [stage]
-  unsigned char* sV = sK + kFwdStages * kFwdTile;         // [stage]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kFwdStages * kFwdTile);
+  unsigned char* sK = smem + kTile;                       // [stage]
+  unsigned char* sV = sK + kStages * kTile;               // [stage]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;                            // [stage]
-  uint64_t* v_full = k_full + kFwdStages;                 // [stage]
-  uint64_t* empty = v_full + kFwdStages;                  // [stage]
+  uint64_t* v_full = k_full + kStages;                    // [stage]
+  uint64_t* empty = v_full + kStages;                     // [stage]
 
   // the heaviest (last, when causal) query tiles first
   const int bh = p.heads * p.batch;
@@ -454,7 +506,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], 8);        // one arrival per consumer warp
@@ -469,17 +521,17 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
     regs_release<40>();
     if (threadIdx.x == 256) {
       const int kvh = h / p.group;
-      mbar_arrive_expect_tx(q_full, kFwdTile);
-      tma_load_rows(sQ, &p.q_map, q_full, kFwdBM, q0, h, b);
+      mbar_arrive_expect_tx(q_full, kTile);
+      tma_load_rows<F::kHalves>(sQ, &p.q_map, q_full, kFwdBM, q0, h, b);
       for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kFwdStages;
-        if (j >= kFwdStages) mbar_wait(&empty[s], (j / kFwdStages - 1) & 1);
-        mbar_arrive_expect_tx(&k_full[s], kFwdTile);
-        tma_load_rows(sK + s * kFwdTile, &p.k_map, &k_full[s], kFwdBN,
-                      j * kFwdBN, kvh, b);
-        mbar_arrive_expect_tx(&v_full[s], kFwdTile);
-        tma_load_rows(sV + s * kFwdTile, &p.v_map, &v_full[s], kFwdBN,
-                      j * kFwdBN, kvh, b);
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&k_full[s], kTile);
+        tma_load_rows<F::kHalves>(sK + s * kTile, &p.k_map, &k_full[s],
+                                  kFwdBN, j * kFwdBN, kvh, b);
+        mbar_arrive_expect_tx(&v_full[s], kTile);
+        tma_load_rows<F::kHalves>(sV + s * kTile, &p.v_map, &v_full[s],
+                                  kFwdBN, j * kFwdBN, kvh, b);
       }
     }
   } else {
@@ -493,27 +545,29 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
     const uint64_t q_desc = desc_k(sQ + wg * 64 * 128);
     const float c = p.scale_log2;
 
-    float o[64];
+    constexpr int kO = HD / 2;
+    float o[kO];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < kO; ++i) o[i] = 0.f;
     float m0 = kNegInf, m1 = kNegInf;   // running max of the raw scores
     float l0 = 0.f, l1 = 0.f;           // this thread's part of the sums
 
     mbar_wait(q_full, 0);
     for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kFwdStages;
-      const uint32_t parity = (j / kFwdStages) & 1;
-      const unsigned char* k_tile = sK + s * kFwdTile;
-      const unsigned char* v_tile = sV + s * kFwdTile;
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const unsigned char* k_tile = sK + s * kTile;
+      const unsigned char* v_tile = sV + s * kTile;
       const int k0 = j * kFwdBN;
 
-      // S = Q K^T over the two halves of the head dim
+      // S = Q K^T over the head dim's HD / 16 k-steps (k-step 4 onwards in
+      // the second half)
       float sc[64];
       mbar_wait(&k_full[s], parity);
       wgmma_fence();
       const uint64_t qd = opaque(q_desc), kd = desc_k(k_tile);
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
+      for (int ks = 0; ks < HD / 16; ++ks) {
         wgmma_ss_n128(sc, kstep_k(qd, kFwdBM, ks), kstep_k(kd, kFwdBN, ks),
                       ks > 0);
       }
@@ -566,7 +620,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
       uint32_t pf[32];
       acc_to_frags(sc, pf);
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < kO; i += 4) {
         o[i] *= alpha0;
         o[i + 1] *= alpha0;
         o[i + 2] *= alpha1;
@@ -581,7 +635,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
       for (int kk = 0; kk < kFwdBN / 16; ++kk) {
         const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
                                pf[4 * kk + 3]};
-        wgmma_rs_n128(o, a, kstep_n(vd, kk), 1);
+        pv_step<HD>(o, a, kstep_n(vd, kk));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -604,10 +658,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
         lse[row0 + 8] = m1 * p.scale + logf(fmaxf(l1, 1e-30f));
       }
     }
+    // only the HD real columns: the output's rows are HD wide
     auto* out = static_cast<__nv_bfloat16*>(p.o) + b * p.o_strides[0] +
                 h * p.o_strides[2];
 #pragma unroll
-    for (int i = 0; i < 64; i += 4) {
+    for (int i = 0; i < HD / 2; i += 4) {
       const int d = 8 * (i / 4) + 2 * t;
       if (row0 < p.sq) {
         *reinterpret_cast<__nv_bfloat162*>(
@@ -623,17 +678,19 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
   }
 }
 
-// The head-dim-128 bf16 launch: a tensor map per operand, a CTA per
-// (query tile, head, batch).
+// The bf16 launch at head dims 64, 80 and 128: a tensor map per operand,
+// a CTA per (query tile, head, batch). A refused map or launch returns its
+// error; nothing retries on another kernel.
+template <int HD>
 cudaError_t launch_sm90(const Params& p, int batch, int kv_heads,
                         cudaStream_t stream) {
   Sm90Params s;
   const bool mapped =
-      make_tile_map(&s.q_map, p.q, batch, p.sq, p.heads, p.q_strides,
+      make_tile_map(&s.q_map, p.q, batch, p.sq, p.heads, HD, p.q_strides,
                     kFwdBM) &&
-      make_tile_map(&s.k_map, p.k, batch, p.sk, kv_heads, p.k_strides,
+      make_tile_map(&s.k_map, p.k, batch, p.sk, kv_heads, HD, p.k_strides,
                     kFwdBN) &&
-      make_tile_map(&s.v_map, p.v, batch, p.sk, kv_heads, p.v_strides,
+      make_tile_map(&s.v_map, p.v, batch, p.sk, kv_heads, HD, p.v_strides,
                     kFwdBN);
   if (!mapped) return cudaErrorInvalidValue;
   s.o = p.o;
@@ -649,14 +706,14 @@ cudaError_t launch_sm90(const Params& p, int batch, int kv_heads,
   s.scale = p.scale;
   s.scale_log2 = p.scale * kLog2e;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kFwdSmem);
+      flash_fwd_sm90_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Fwd<HD>::kSmem);
   if (err != cudaSuccess) return err;
   const long long blocks = static_cast<long long>(s.n_q_tiles) * p.heads *
                            batch;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_sm90_kernel<<<static_cast<unsigned>(blocks), kFwdThreads,
-                          kFwdSmem, stream>>>(s);
+  flash_fwd_sm90_kernel<HD><<<static_cast<unsigned>(blocks), kFwdThreads,
+                              Fwd<HD>::kSmem, stream>>>(s);
   return cudaGetLastError();
 }
 
@@ -676,10 +733,10 @@ template <int HD>
 cudaError_t launch_hd(int dtype, const Params& p, int batch,
                       cudaStream_t stream) {
   if (dtype == 1) {
-    // head dim 128: the Hopper kernel; 16, 32, 64, 80, 112: the mma.sync
+    // head dims 64, 80, 128: the Hopper kernel; 16, 32, 112: the mma.sync
     // kernel
-    if constexpr (HD == 128) {
-      return launch_sm90(p, batch, p.heads / p.group, stream);
+    if constexpr (HD == 64 || HD == 80 || HD == 128) {
+      return launch_sm90<HD>(p, batch, p.heads / p.group, stream);
     } else {
       const size_t smem = sizeof(__nv_bfloat16) *
                           (kBK * (HD + 8) + HD * (kBK + 8));

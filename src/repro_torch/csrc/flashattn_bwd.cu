@@ -1103,21 +1103,21 @@ cudaError_t launch_bwd_sm90(const BwdParams& p, int batch, int kv_heads,
   DqParams dq;
   DkvParams dkv;
   const bool mapped =
-      make_tile_map(&dq.q_map, p.q, batch, p.sq, p.heads, p.q_strides,
+      make_tile_map(&dq.q_map, p.q, batch, p.sq, p.heads, 128, p.q_strides,
                     128) &&
-      make_tile_map(&dq.do_map, p.dout, batch, p.sq, p.heads, p.do_strides,
-                    128) &&
-      make_tile_map(&dq.k_map, p.k, batch, p.sk, kv_heads, p.k_strides,
+      make_tile_map(&dq.do_map, p.dout, batch, p.sq, p.heads, 128,
+                    p.do_strides, 128) &&
+      make_tile_map(&dq.k_map, p.k, batch, p.sk, kv_heads, 128, p.k_strides,
                     64) &&
-      make_tile_map(&dq.v_map, p.v, batch, p.sk, kv_heads, p.v_strides,
+      make_tile_map(&dq.v_map, p.v, batch, p.sk, kv_heads, 128, p.v_strides,
                     64) &&
-      make_tile_map(&dkv.k_map, p.k, batch, p.sk, kv_heads, p.k_strides,
-                    128) &&
-      make_tile_map(&dkv.v_map, p.v, batch, p.sk, kv_heads, p.v_strides,
-                    128) &&
-      make_tile_map(&dkv.q_map, p.q, batch, p.sq, p.heads, p.q_strides,
+      make_tile_map(&dkv.k_map, p.k, batch, p.sk, kv_heads, 128,
+                    p.k_strides, 128) &&
+      make_tile_map(&dkv.v_map, p.v, batch, p.sk, kv_heads, 128,
+                    p.v_strides, 128) &&
+      make_tile_map(&dkv.q_map, p.q, batch, p.sq, p.heads, 128, p.q_strides,
                     64) &&
-      make_tile_map(&dkv.do_map, p.dout, batch, p.sq, p.heads,
+      make_tile_map(&dkv.do_map, p.dout, batch, p.sq, p.heads, 128,
                     p.do_strides, 64);
   if (!mapped) return cudaErrorInvalidValue;
   const float scale_log2 = p.scale * kLog2e;

@@ -5,10 +5,13 @@ JAX first, so both packages see the same values) and go through the JAX
 package's `repro.kernels.flashattn.flash_attention` (its Pallas kernel in
 interpret mode), its pure-jnp `repro.models.layers._chunked_attention`,
 and the port's `kernels.ops.flash_attention`, whose wrapper runs the
-plain version for CPU tensors. Tolerances are the JAX package's own
-against its numpy oracle (`tests/test_flashattn.py`): 2e-3 relative and
-absolute in float32, 2e-2 in bf16, where the two sides round p and the
-output to bf16 at the same points but sum in another order."""
+plain version for CPU tensors; at the serving families' head dims (64,
+80) also `flash_attention_plain` / `flash_attention_fwd_plain` against
+the reference's serving and lse-emitting Pallas kernels. Tolerances are
+the JAX package's own against its numpy oracle
+(`tests/test_flashattn.py`): 2e-3 relative and absolute in float32,
+2e-2 in bf16, where the two sides round p and the output to bf16 at the
+same points but sum in another order; the lse to 1e-4."""
 import numpy as np
 import pytest
 import torch
@@ -16,12 +19,13 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import flashattn as RF  # noqa: E402
 from repro.kernels.flashattn import flash_attention as ref_flash  # noqa: E402
 from repro.models.layers import _chunked_attention  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels import ops as tkops  # noqa: E402
 from repro_torch.kernels.flashattn import (  # noqa: E402
-    flash_attention_kernel, flash_attention_plain)
+    flash_attention_fwd_plain, flash_attention_kernel, flash_attention_plain)
 from repro_torch.models import layers as TL  # noqa: E402
 
 # the shape cases of tests/test_flashattn.py
@@ -85,6 +89,40 @@ def test_flash_cross_attention_shapes(dtype, Sq, Sk, causal):
     want = ref_flash(qj, kj, vj, causal=causal, block_q=32, block_k=32)
     tol = TOL[dtype]
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+# the serving families' head dims on the card's Hopper route: 80
+# (Zamba2's shared attention) at a ragged length, causal and not, and 64
+# (SeamlessM4T) with twice as many queries as keys, not causal (decoder
+# queries over encoder memory), a GQA group of 2
+SERVE_CASES = [
+    (1, 77, 77, 2, 2, 80, True, 32, 32),
+    (1, 77, 77, 2, 2, 80, False, 32, 32),
+    (1, 96, 48, 4, 2, 64, False, 32, 16),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal,bq,bk", SERVE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serving_head_dims_match_reference(B, Sq, Sk, H, KV, hd, causal, bq,
+                                           bk, dtype):
+    """`flash_attention_plain` and `flash_attention_fwd_plain` against the
+    reference's serving and lse-emitting Pallas kernels (head-major)."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(Sq + Sk + hd, dtype,
+                                           (B, H, Sq, hd), (B, KV, Sk, hd))
+    tol = TOL[dtype]
+    got = flash_attention_plain(qt, kt, vt, causal, bq, bk)
+    assert got.shape == (B, H, Sq, hd) and got.dtype == qt.dtype
+    want = RF.flash_attention_kernel(qj, kj, vj, causal=causal, block_q=bq,
+                                     block_k=bk)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    o, lse = flash_attention_fwd_plain(qt, kt, vt, causal, bq, bk)
+    want_o, want_lse = RF.flash_attention_fwd_kernel(
+        qj, kj, vj, causal=causal, block_q=bq, block_k=bk)
+    assert torch.equal(o, got)
+    np.testing.assert_allclose(_f32(o), _f32(want_o), rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.numpy(), _f32(want_lse), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_head_major_wrapper_matches_the_model_side_one():

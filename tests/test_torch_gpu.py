@@ -709,13 +709,20 @@ def test_moe_serving_on_the_card_matches_the_host(cuda):
 # head dim 80 (32 heads over 32) causal and not at a ragged length,
 # SeamlessM4T's non-causal head dim 64 with Sq != Sk, and the VLM's
 # cross-attention on the head-dim-128 Hopper kernel (Sk not a multiple of
-# the 128-key tile, a GQA group of 8)
+# the 128-key tile, a GQA group of 8); then the edges of the Hopper route
+# at head dims 64 and 80: Sk 100 (under one 128-key tile), Sq 130 (a
+# second, nearly empty query tile), a GQA group of 2, and B H = 144 and
+# 160 query heads, more than the card's 132 SMs
 SERVE_FLASH_CASES = [
     (2, 300, 300, 32, 32, 80, True),
     (2, 300, 300, 32, 32, 80, False),
     (1, 77, 200, 4, 4, 80, False),
     (2, 512, 256, 16, 16, 64, False),
     (1, 512, 400, 64, 8, 128, False),
+    (1, 130, 100, 16, 8, 64, True),
+    (9, 130, 100, 16, 8, 64, False),
+    (1, 130, 100, 16, 8, 80, True),
+    (5, 130, 100, 32, 16, 80, False),
 ]
 
 
@@ -735,6 +742,48 @@ def test_serving_family_flash_shapes_match_plain(cuda, B, Sq, Sk, H, KV, hd,
                                              v.transpose(1, 2), causal)
     _assert_flash_close(got, want.transpose(1, 2), FLASH_TOL[dtype])
     _assert_flash_close(lse, plse, 1e-4)
+
+
+def test_flash_kernel_reads_fused_qkv_at_head_dim_80(cuda):
+    """q, k and v sliced from one fused (B, S, 3, H, 80) projection are
+    strided views (160-byte heads, 480 H-byte rows) that the tensor maps
+    read in place: the output equals the one from contiguous copies, and
+    the plain version's within the gate."""
+    from repro_torch.kernels import flashattn as F
+
+    B, S, H, hd = 2, 200, 8, 80
+    g = torch.Generator(device=cuda).manual_seed(21)
+    qkv = torch.randn(B, S, 3, H, hd, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous() and q.stride(1) == 3 * H * hd
+    LAUNCHES.clear()
+    got = F.flash_attention_kernel(q, k, v)
+    want = F.flash_attention_kernel(*(x.contiguous() for x in (q, k, v)))
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 2
+    assert torch.equal(got, want)
+    plain = F.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2))
+    _assert_flash_close(got, plain.transpose(1, 2),
+                        FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("hd,causal", [(64, False), (64, True), (80, True)])
+def test_flash_fwd_kernel_is_deterministic(cuda, hd, causal):
+    """The Hopper forward at head dims 64 and 80 gives the same bits over
+    two runs, serving and lse forward alike (bf16, B H = 144 query heads
+    over the card's 132 SMs, ragged Sq and Sk)."""
+    from repro_torch.kernels import flashattn as F
+
+    q, k, v = _qkv(cuda, 13, torch.bfloat16, 9, 1000, 300, 16, 8, hd)
+    first = F.flash_attention_kernel(q, k, v, causal)
+    second = F.flash_attention_kernel(q, k, v, causal)
+    o1, lse1 = F.flash_attention_fwd_kernel(q, k, v, causal)
+    o2, lse2 = F.flash_attention_fwd_kernel(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(o1, o2)
+    assert torch.equal(lse1, lse2) and torch.equal(o1, first)
 
 
 def test_flash_bwd_kernel_rejects_head_dim_80(cuda):
