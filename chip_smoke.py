@@ -49,10 +49,17 @@ Phases; the first failure exits non-zero:
    and 80 (100 keys, under one key tile, and 1,000; 130 and 300
    queries; GQA groups of 2; B H = 144 and 160); the training kernels at
    the same shapes and
-   at B = 1, S = 4,096 causal, both dtypes: the lse-emitting forward (its
+   at B = 1, S = 4,096 causal, and the trained families' shapes (Zamba2's
+   head dim 80: 32 heads over 32 at 1,000 queries causal and not, a GQA
+   group of 2, 100 keys, B H = 160; SeamlessM4T's head dim 64 at B 2:
+   1,024 x 1,024, causal 4,096 and 4,096 x 1,024; the VLM's cross
+   attention, 4,096 x 1,600 at 64 / 8 heads of 128), both dtypes: the
+   lse-emitting forward (its
    output equal to the serving kernel's, the lse within 1e-4) and the
    backward (dq, dk, dv; two runs bit-identical) against their plain
-   versions within the same tolerance; sign
+   versions within the same tolerance, with ptxas's registers and spill
+   bytes of the first design's hd-80 backward instances printed (not
+   gated); sign
    pack / unpack bit for bit in float32 and bf16, with +-0, +-inf and NaNs
    of either sign, on a ragged (3, 32,032) and a 2**26-lane input;
    ``moe_ffn`` in float32 at reduced widths (d_model 1,024, 16 experts,
@@ -159,7 +166,33 @@ Phases; the first failure exits non-zero:
    logit; it prints the cold and warm prefill wall, ms per decode step,
    generated tok/s, peak memory, the cache's bytes and the warm
    prefill's device ms by kind with the idle share.
-   Each of (a)-(k) starts with every launch count at 0 and must launch
+   (l)-(n) training the SSM, hybrid, enc-dec and VLM families in bf16
+   through ``build -> init -> make_train_step`` (``remat="block"``,
+   ``warmup_cosine``, the port's `SyntheticLM` at train_4k's sequence of
+   4,096 with its stub frames / patches; the global batch cut from
+   train_4k's 256 for time): (l) Mamba2-1.3B and Zamba2-2.7B and (m)
+   SeamlessM4T-medium at their published widths and depth, AdamW, global
+   batch 4 in two microbatches of 2; (n) Llama-3.2-Vision-90B at its
+   published widths, its depth cut from 100 layers to 5 (one group of 4
+   self-attention layers and one self + cross layer, 6.6 B parameters),
+   Adafactor at global batch 2 in one microbatch (AdamW's float32 moments
+   would add 52.9 GB to its 26.4 GB of bf16 weights and gradients, a
+   second microbatch 26.4 GB of float32 sums). Checks, as (f)'s: the
+   first loss within 10% of its value at the initial weights, ln(padded
+   vocab) + 0.02^2 d_model / 2 (the logits' variance at init lifts it;
+   at d_model 8,192 by 14% of ln V); the first step's loss (within 1e-3)
+   and every gradient leaf (within 0.05 of its RMS, or twice the plain
+   attention's own spread between 256- and 512-blocks on that leaf)
+   against the plain attention swapped in (not Mamba2);
+   three steps on one batch lower the loss; with two microbatches
+   ``grad_accum`` 2 and 1 on one microbatch agree within 5e-3; per
+   microbatch exactly 2 lse forwards and 1 backward per attention
+   (Zamba2 18 and 9, SeamlessM4T 72 and 36, the VLM 12 and 6, Mamba2
+   none) and nothing else. Each prints the cold and warm step, tok/s,
+   peak memory, a warm step's device ms by kind with its idle share, and
+   for the SSD families the scan's forward and backward at one layer's
+   shape.
+   Each of (a)-(n) starts with every launch count at 0 and must launch
    each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
@@ -198,9 +231,11 @@ Phases; the first failure exits non-zero:
    shape beside the bound and scaled_dot_product_attention, and the
    totals by the launcher's route (Hopper at each head dim, first
    design); of (h), every
-   launch. Phase 4 runs for (a)-(e) before (f) starts, for (f) before
-   (g) and for (g)-(h) before (i), so their recorded arguments are freed
-   first.
+   launch; of (l)-(n), the first microbatch's lse forward and backward
+   launches as (f)'s, with per-shape and per-route lines for both
+   kernels. Phase 4 runs for (a)-(e) before (f) starts, for (f) before
+   (g), for (g)-(h) before (i) and for (i)-(k) before (l), so their
+   recorded arguments are freed first.
 
 Output: the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as the last line ``{"ok": true, "device": {...}}``. ``--out DIR``
@@ -704,6 +739,14 @@ SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel<64>",
 #: build that still holds one fails
 RETIRED_KERNELS = {"flashattn": ("flash_mma_kernel<64>",
                                  "flash_mma_kernel<80>")}
+#: first-design instances whose registers and spill bytes
+#: `phase_sm90_report` prints without gating them: the backward at head
+#: dim 80 (bf16 on mma.sync, float32 on scalar FMAs), whose dk / dv kernel
+#: keeps two float[10][4] accumulators beside its S^T tile
+REPORTED_KERNELS = {"flashattn_bwd": ("flash_bwd_dq_mma_kernel<80>",
+                                      "flash_bwd_dkv_mma_kernel<80>",
+                                      "flash_bwd_dq_simt_kernel<80>",
+                                      "flash_bwd_dkv_simt_kernel<80>")}
 #: kernel vs plain version: the JAX package's own bounds against its
 #: oracle (tests/test_flashattn.py), relative to each element and to the
 #: plain output's RMS over the launch; the two sum in another order and
@@ -787,7 +830,20 @@ def phase_sm90_report(build_mod) -> dict:
     """Each `SM90_KERNELS` kernel's registers and spill bytes from
     ptxas's report of its build; fails if any of them spills, if a named
     template instance is missing, or if a `RETIRED_KERNELS` instance was
-    built. Returns `_ptxas_entries`' report."""
+    built. Prints the `REPORTED_KERNELS` instances' too (each must be
+    built; a spill is reported, not failed). Returns `_ptxas_entries`'
+    report of both."""
+    first = {}
+    for source, kernels in REPORTED_KERNELS.items():
+        entries = _ptxas_entries(build_mod.build_log(source), sorted(
+            {n.split("<")[0] for n in kernels}))
+        for name in kernels:
+            check(len(entries.get(name, {})) == 3, f"ptxas reported no "
+                  f"registers and spills for {name} ({source}.cu)")
+            first[name] = r = entries[name]
+            print(f"[kernels] ptxas {name} (first design, reported): "
+                  f"{r['registers']} registers, {r['spill_stores']} bytes "
+                  f"spill stores, {r['spill_loads']} bytes spill loads")
     report = {}
     for source, kernels in SM90_KERNELS.items():
         log = build_mod.build_log(source)
@@ -812,7 +868,7 @@ def phase_sm90_report(build_mod) -> dict:
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
               f"{name} spills ({r['spill_stores']} bytes stored, "
               f"{r['spill_loads']} loaded)")
-    return report
+    return {**report, **first}
 
 
 def _hm(x):
@@ -868,9 +924,27 @@ def phase_flash_kernels(torch) -> float:
 #: the training kernels' phase-2 shapes: FLASH_CASES (the JAX package's
 #: five, cross-attention, S = 1,000 causal at hd 128, the MoE configs'
 #: heads: head dim 112 has an lse forward and a backward instantiation too)
-#: and the training path's sequence length
-TRAIN_FLASH_CASES = FLASH_CASES + ((1, 4096, 4096, 16, 8, 128, True, 512,
-                                    512),)
+#: and the training path's sequence length; then the trained families'
+#: shapes: Zamba2's shared attention at head dim 80 (32 heads over 32,
+#: 1,000 queries, causal and not; a GQA group of 2; 100 keys, under one
+#: key tile of the Hopper forward; B H = 160 query heads, over the card's
+#: 132 SMs), SeamlessM4T's at a training microbatch (B 2, 16 heads of 64:
+#: the encoder's 1,024 frames, the decoder's causal 4,096, the cross
+#: attention of 4,096 queries over 1,024 frames) and the VLM's cross
+#: attention on the head-dim-128 Hopper backward (4,096 queries over
+#: 1,600 patches, not a multiple of its key tile, 64 heads over 8)
+TRAIN_FLASH_CASES = FLASH_CASES + (
+    (1, 4096, 4096, 16, 8, 128, True, 512, 512),
+    (2, 1000, 1000, 32, 32, 80, True, 512, 512),
+    (2, 1000, 1000, 32, 32, 80, False, 512, 512),
+    (2, 300, 300, 8, 4, 80, True, 128, 128),
+    (1, 130, 100, 16, 8, 80, True, 64, 64),
+    (5, 300, 100, 32, 16, 80, False, 128, 128),
+    (2, 1024, 1024, 16, 16, 64, False, 512, 512),
+    (2, 4096, 4096, 16, 16, 64, True, 512, 512),
+    (2, 4096, 1024, 16, 16, 64, False, 512, 512),
+    (1, 4096, 1600, 64, 8, 128, False, 512, 512),
+)
 
 
 def _close_all(label, got, want, tol):
@@ -2005,19 +2079,21 @@ TRAIN_GRAD_TOL, TRAIN_LOSS_TOL = 0.05, 1e-3
 TRAIN_ACCUM_TOL = 5e-3
 
 
-def _plain_attention(flashattn):
+def _plain_attention(flashattn, block=None):
     """Model-layout adapters of the plain forward-with-lse and backward,
-    to swap in for the kernel wrappers."""
+    to swap in for the kernel wrappers; ``block`` (if given) replaces the
+    caller's query and key blocks."""
 
     def fwd(q, k, v, causal=True, block_q=512, block_k=512):
+        bq, bk = (block, block) if block else (block_q, block_k)
         o, lse = flashattn.flash_attention_fwd_plain(
-            _hm(q), _hm(k), _hm(v), causal, block_q, block_k)
+            _hm(q), _hm(k), _hm(v), causal, bq, bk)
         return _hm(o), lse
 
     def bwd(q, k, v, o, lse, do, causal=True, block_q=512, block_k=512):
+        bq, bk = (block, block) if block else (block_q, block_k)
         return tuple(_hm(g) for g in flashattn.flash_attention_bwd_plain(
-            _hm(q), _hm(k), _hm(v), _hm(o), lse, _hm(do), causal, block_q,
-            block_k))
+            _hm(q), _hm(k), _hm(v), _hm(o), lse, _hm(do), causal, bq, bk))
 
     return fwd, bwd
 
@@ -2765,8 +2841,9 @@ FAMILY_PHASES = (
 )
 
 
-def _flash_per_prefill(cfg) -> int:
-    """The flash launches one prefill of ``cfg`` makes by its layout."""
+def _attentions(cfg) -> int:
+    """The attention calls of one forward of ``cfg`` by its layout: the
+    flash launches of a prefill."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
@@ -2798,8 +2875,8 @@ def phase_family(torch, rec, tag, arch, n_layers, seed, n_flash):
     published = cfg.n_layers
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    check(_flash_per_prefill(cfg) == n_flash,
-          f"{cfg.name}: {_flash_per_prefill(cfg)} flash launches a prefill "
+    check(_attentions(cfg) == n_flash,
+          f"{cfg.name}: {_attentions(cfg)} flash launches a prefill "
           f"by its layout, {n_flash} expected")
     torch.cuda.empty_cache()
     bundle = build(cfg)
@@ -2960,6 +3037,344 @@ def phase_family(torch, rec, tag, arch, n_layers, seed, n_flash):
           f"(bound {LM_TOL}); ids {tuple(toks.shape)} in range, every "
           f"logit finite")
     return launches, info
+
+
+# ---------------------------------------------------------------------------
+# phases 3l-3n: the SSM, hybrid, enc-dec and VLM families trained
+# ---------------------------------------------------------------------------
+
+#: phases 3l-3n: (phase, arch, depth or None for the published one, seed,
+#: optimizer, global batch, microbatches, attentions a forward). Each
+#: trains at train_4k's sequence (TRAIN_SEQ) in bf16 through ``build ->
+#: init -> make_train_step`` with ``remat="block"`` on the port's
+#: `SyntheticLM` (its stub frames / patches included), the global batch
+#: cut from train_4k's 256 for time. Mamba2 has no attention, so no
+#: kernel; Zamba2 applies its shared block 9 times at head dim 80;
+#: SeamlessM4T runs 12 encoder, 12 decoder and 12 cross attentions at head
+#: dim 64. The VLM is cut from 100 layers to 5 (one group: 4 self layers,
+#: one self + cross layer; 6.6 B parameters) and trains with Adafactor in
+#: one microbatch of 2: AdamW's two float32 moments would add 52.9 GB to
+#: its 26.4 GB of bf16 weights and gradients, and a second microbatch
+#: another 26.4 GB of float32 sums.
+TRAIN_FAMILY_PHASES = (
+    ("3l", "mamba2_1p3b", None, 23, "adamw", 4, 2, 0),
+    ("3l", "zamba2_2p7b", None, 24, "adamw", 4, 2, 9),
+    ("3m", "seamless_m4t_medium", None, 25, "adamw", 4, 2, 36),
+    ("3n", "llama_3p2_vision_90b", 5, 26, "adafactor", 2, 1, 6),
+)
+#: the cold step and three warm ones, on one batch
+TRAIN_FAMILY_STEPS = 4
+#: the schedule: one warm-up step (at rate 0, so the cold step leaves the
+#: initial parameters as they were) to 1e-3, cosine over 100
+TRAIN_FAMILY_LR = (1e-3, 1, 100)
+#: check (ii): a gradient leaf passes within TRAIN_GRAD_TOL of its RMS or
+#: within this multiple of the plain attention's own spread on that leaf
+#: (its 256 x 256 blocks against its 512 x 512). Zamba2's SSM scalars
+#: (a_log, dt_bias: gradients that are sums of terms that cancel) move by
+#: more than TRAIN_GRAD_TOL between the plain attention's two blockings
+TRAIN_SPREAD_MULT = 2.0
+
+
+def _plain_grad_check(bundle, params, batch, accum, name) -> dict:
+    """Check (ii) of 3l-3n: the loss and every gradient leaf of one batch
+    with the kernels against the plain attention swapped in (loss within
+    TRAIN_LOSS_TOL relative; each leaf's RMS difference within
+    TRAIN_GRAD_TOL of its RMS or TRAIN_SPREAD_MULT times the plain
+    attention's own spread). At most two gradient sets are alive at
+    once."""
+    from repro_torch.kernels import flashattn
+    from repro_torch.train.step import loss_and_grads
+
+    def run(swap):
+        saved = (flashattn.flash_attention_fwd_kernel,
+                 flashattn.flash_attention_bwd_kernel)
+        if swap is not None:
+            flashattn.flash_attention_fwd_kernel, \
+                flashattn.flash_attention_bwd_kernel = swap
+        try:
+            return loss_and_grads(bundle, params, batch, accum)
+        finally:
+            flashattn.flash_attention_fwd_kernel, \
+                flashattn.flash_attention_bwd_kernel = saved
+
+    loss_p, _, grads_p = run(_plain_attention(flashattn))
+    loss_k, _, grads_k = run(None)
+    err = {n: _rel_rms(grads_k[n], grads_p[n]) for n in grads_p}
+    del grads_k
+    _, _, grads_s = run(_plain_attention(flashattn, block=256))
+    spread = {n: _rel_rms(grads_s[n], grads_p[n]) for n in grads_p}
+    del grads_s, grads_p
+    bound = {n: max(TRAIN_GRAD_TOL, TRAIN_SPREAD_MULT * spread[n])
+             for n in err}
+    worst = max(err, key=lambda n: err[n] / bound[n])
+    err_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(err_loss < TRAIN_LOSS_TOL, f"{name}: loss with the kernels vs "
+          f"the plain attention: {err_loss:.3g} relative (>= "
+          f"{TRAIN_LOSS_TOL})")
+    check(err[worst] <= bound[worst], f"{name}: gradient {worst} with the "
+          f"kernels vs the plain attention: RMS difference "
+          f"{err[worst]:.3g} of its RMS (bound {bound[worst]:.3g}: "
+          f"{TRAIN_GRAD_TOL} or {TRAIN_SPREAD_MULT} x the plain "
+          f"attention's spread {spread[worst]:.3g})")
+    top = max(err, key=err.get)
+    return {"err_plain_loss": err_loss, "err_plain_grad": err[top],
+            "err_plain_grad_leaf": top, "plain_spread": spread[top],
+            "err_plain_share": err[worst] / bound[worst],
+            "leaves_over_tol": sum(e >= TRAIN_GRAD_TOL
+                                   for e in err.values()),
+            "leaves": len(err)}
+
+
+def _ssd_ms(torch, cfg, batch: int):
+    """Device ms of one `ssd_chunked` forward, and of its forward and
+    backward, at one layer's training shape (bf16 x, B and C, float32
+    dt; CUDA events, mean of 3 after a warm-up)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            dtype).requires_grad_()
+
+    x = draw(batch, TRAIN_SEQ, H, P)
+    dt = (0.1 * torch.randn((batch, TRAIN_SEQ, H), generator=gen,
+                            device="cuda")).abs().requires_grad_()
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device="cuda"))
+    Bm, Cm = draw(batch, TRAIN_SEQ, N), draw(batch, TRAIN_SEQ, N)
+
+    def fwd():
+        return ssd_chunked(x, dt, a_log, Bm, Cm, cfg.ssm_chunk)[0]
+
+    def fwd_bwd():
+        y = fwd()
+        torch.autograd.grad(y, (x, dt, Bm, Cm), torch.ones_like(y))
+
+    out = []
+    for fn in (fwd, fwd_bwd):
+        fn()
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        for _ in range(3):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop) / 3)
+    return tuple(out)
+
+
+def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
+                       batch_size, accum, n_attn):
+    """One model of phases 3l-3n trained at its published widths through
+    ``build -> init -> make_train_step`` on the card, with the checks of
+    3f: (i) the first loss finite and within 10% of its value at the
+    initial weights, ln(padded vocab) + INIT_STD^2 d_model / 2;
+    (ii) the first step's loss and every gradient leaf against the same
+    step with the plain attention forward and backward swapped in
+    (`_plain_grad_check`; not for Mamba2, which has no attention); (iii)
+    three steps on one batch lower the loss; (iv) with two microbatches,
+    ``grad_accum`` 2 and 1 on one main-path microbatch agree in loss; (v)
+    the exact launches of a step.
+    The first microbatch's flash launches are recorded for phase 4.
+    Prints the cold and warm step, tokens/s, peak memory, a warm step's
+    device ms by kind with its idle share and, for the SSD families, the
+    scan's forward and backward at one layer's shape."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import build
+    from repro_torch.models.layers import INIT_STD
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    check(_attentions(cfg) == n_attn, f"{cfg.name}: {_attentions(cfg)} "
+          f"attentions a forward by its layout, {n_attn} expected")
+    torch.cuda.empty_cache()
+    bundle = build(cfg, remat="block")
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=bundle.device)
+                         .manual_seed(seed))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(bundle.device.type == "cuda" and all(
+        p.dtype == torch.bfloat16 for n, p in params.named_parameters()
+        if n.rsplit(".", 1)[-1] not in ("a_log", "d_skip", "dt_bias")),
+        f"{cfg.name} is not in bf16 on the card")
+    batch = SyntheticLM.for_cell(
+        cfg, ShapeConfig("train_4k", TRAIN_SEQ, batch_size, "train"),
+        seed=seed).batch(0)
+    check(all(x.is_cuda for x in batch.values()),
+          "the batch is not on the card")
+    opt = get_optimizer(opt_name, warmup_cosine(*TRAIN_FAMILY_LR))
+    state = opt.init(params)
+    calls = []
+
+    def loss(p, b):
+        # phase 4 replays the first microbatch's launches only
+        calls.append(None)
+        if len(calls) > 1:
+            rec.stage = None
+        return bundle.loss(p, b)
+
+    step_fn = make_train_step(dataclasses.replace(bundle, loss=loss), opt,
+                              grad_accum=accum)
+    tokens = batch_size * TRAIN_SEQ
+
+    # the main path: the cold first step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    rec.stage, rec.only = f"{cfg.name} train step", set(TRAIN_KERNELS)
+    try:
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, 0, batch)
+        losses = [float(metrics["loss"])]
+        t_cold = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        rec.stage = rec.only = None
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] {cfg.name}: launches in the first step: {launches}"
+          + ("" if n_attn else " (the SSM family launches no kernel: its "
+             "mixer is plain PyTorch, as the reference's is plain jnp)"))
+    want = ({"flash_attention_fwd": 2 * n_attn * accum,
+             "flash_attention_bwd": n_attn * accum} if n_attn else {})
+    check({k: v for k, v in launches.items() if v} == want,
+          f"{cfg.name}: the step launched {launches}, not {want}: per "
+          f"attention and microbatch the lse forward twice (the forward "
+          f"and the checkpointed block's recompute) and the backward once")
+    # (i) the first loss, against its value at the initial weights: the
+    # logits of unit-RMS hidden states through the N(0, INIT_STD^2) head
+    # have variance INIT_STD^2 d_model, which lifts the cross-entropy over
+    # ln V by half of it (1.64 at the VLM's d_model of 8,192, 14% of ln V)
+    ln_v = float(np.log(cfg.padded_vocab))
+    want_loss = ln_v + INIT_STD ** 2 * cfg.d_model / 2
+    check(np.isfinite(losses[0])
+          and abs(losses[0] - want_loss) < 0.1 * want_loss,
+          f"{cfg.name}: first loss {losses[0]:.4f} is not within 10% of ln "
+          f"{cfg.padded_vocab} + {INIT_STD}^2 d_model / 2 = "
+          f"{want_loss:.4f}")
+    # (ii) the first step's loss and gradients (at rate 0 it left the
+    # initial parameters) against the plain attention swapped in
+    info = (_plain_grad_check(bundle, params, batch, accum, cfg.name)
+            if n_attn else {})
+    # (iii) three steps on the one batch lower the loss; the warm ones
+    # timed (the peak memory is the steps', not the check's)
+    torch.cuda.reset_peak_memory_stats()
+    warm = []
+    for i in range(1, TRAIN_FAMILY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, i, batch)
+        losses.append(float(metrics["loss"]))
+        warm.append(time.perf_counter() - t0)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{cfg.name}: three steps on one batch did not lower the loss: "
+          f"{losses}")
+    t_warm = float(np.mean(warm[1:]))
+    # the device's split of one more warm step; device events only (the
+    # split reads no host event, and host events multiply the profiler's
+    # cost over these steps' tens of thousands of kernels)
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, TRAIN_FAMILY_STEPS, batch)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    device, events = _device_ms_by_kind(prof, backward=True)
+    del prof, state, opt, step_fn
+
+    # (iv) grad_accum 2 against 1 on one main-path microbatch
+    if accum > 1:
+        half = {k: x[:batch_size // accum] for k, x in batch.items()}
+        loss_2, _, g2 = loss_and_grads(bundle, params, half, 2)
+        del g2
+        loss_1, _, g1 = loss_and_grads(bundle, params, half, 1)
+        del g1
+        err_accum = abs(float(loss_2) - float(loss_1))
+        check(err_accum < TRAIN_ACCUM_TOL, f"{cfg.name}: grad_accum 2 vs "
+              f"1: losses {float(loss_2):.5f} and {float(loss_1):.5f} "
+              f"differ by {err_accum:.3g} (>= {TRAIN_ACCUM_TOL})")
+        info["err_accum"] = err_accum
+    del params
+    torch.cuda.empty_cache()
+    ssd = _ssd_ms(torch, cfg, batch_size // accum) if cfg.ssm_state \
+        else None
+    busy = sum(device.values())
+    key = arch.split("_")[0]
+    info.update(arch=cfg.name, layers=cfg.n_layers,
+                published_layers=published, params=n_params,
+                weight_bytes=w_bytes, optimizer=opt_name,
+                global_batch=batch_size, microbatches=accum,
+                tokens_per_step=tokens, init_s=t_init, cold_s=t_cold,
+                warm_s=t_warm, warm_steps_s=warm, tok_per_s=tokens / t_warm,
+                losses=losses, peak_device_bytes=peak,
+                profiled_step_s=t_prof, device_ms=device,
+                device_events=events, launches=launches, ssd_ms=ssd)
+    depth = (f"{cfg.n_layers} layers" if n_layers is None else
+             f"depth cut from {published} to {cfg.n_layers} layers")
+    print(f"[{tag}] {cfg.name} trained at its published widths, {depth}: "
+          f"d_model {cfg.d_model}, vocab {cfg.padded_vocab} padded, "
+          f"{n_params / 1e9:.3f} B parameters ({w_bytes / 2**30:.2f} GiB) "
+          f"in bf16 (init {t_init:.2f} s); {opt_name}, remat 'block', "
+          f"sequence {TRAIN_SEQ}, global batch {batch_size} in {accum} "
+          f"microbatch{'es' if accum > 1 else ''}")
+    print(f"[{tag}] {cfg.name} step ms: cold {t_cold * 1e3:.1f}, warm "
+          f"{t_warm * 1e3:.1f} (mean of steps 2-{TRAIN_FAMILY_STEPS - 1}; "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in warm)}); "
+          f"{tokens / t_warm:.0f} tok/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    print(f"[{tag}] {cfg.name} losses over {TRAIN_FAMILY_STEPS} steps on "
+          f"one batch: " + ", ".join(f"{x:.4f}" for x in losses)
+          + f" (ln V = {ln_v:.4f}; at the initial weights "
+          f"{want_loss:.4f} expected)")
+    print(f"[{tag}] {cfg.name} warm step under the profiler: "
+          f"{t_prof * 1e3:.1f} ms wall; device "
+          + (f"{busy:.1f} ms over {events} kernels and copies ("
+             + ", ".join(f"{k} {v:.1f}" for k, v in device.items())
+             + f"), idle {1 - busy / (t_prof * 1e3):.1%} of its wall "
+             f"(against the unprofiled warm step, "
+             f"{1 - busy / (t_warm * 1e3):.1%})"
+             if busy else "time not measured (the profiler saw no device "
+             "events)"))
+    if ssd is not None:
+        n_mb = cfg.n_layers * accum
+        share = n_mb * (ssd[0] + ssd[1]) / (t_warm * 1e3)
+        print(f"[{tag}] {cfg.name} SSD scan at one layer's shape (B "
+              f"{batch_size // accum}, S {TRAIN_SEQ}, {cfg.n_ssm_heads} "
+              f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+              f"{cfg.ssm_chunk}): forward {ssd[0]:.2f} ms, forward + "
+              f"backward {ssd[1]:.2f} ms; a step runs both {n_mb} times "
+              f"(the recompute is the second forward): "
+              f"{n_mb * (ssd[0] + ssd[1]):.0f} ms, {share:.1%} of the "
+              f"warm step")
+    print(f"[{tag}] {cfg.name}: launches exact"
+          + (f"; (ii) the first step, kernels vs plain attention: loss "
+             f"{info['err_plain_loss']:.3g} relative (bound "
+             f"{TRAIN_LOSS_TOL}); largest gradient leaf difference "
+             f"{info['err_plain_grad']:.3g} of its RMS "
+             f"({info['err_plain_grad_leaf']}, where the plain attention's "
+             f"own spread is {info['plain_spread']:.3g}); "
+             f"{info['leaves_over_tol']} of {info['leaves']} leaves over "
+             f"{TRAIN_GRAD_TOL}, each within {TRAIN_SPREAD_MULT} x its "
+             f"spread; largest share of a leaf's bound "
+             f"{info['err_plain_share']:.3g}" if n_attn else "")
+          + (f"; (iv) grad_accum 2 vs 1 loss {info['err_accum']:.3g} "
+             f"(bound {TRAIN_ACCUM_TOL})" if accum > 1 else ""))
+    return launches, {f"{key}_train_{k}": v for k, v in info.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3537,12 +3952,20 @@ def phase_numbers(torch, calls, numbers: Numbers, int_rate, clock_hz):
     check(dict(LAUNCHES) != before, "replays launched no kernel")
 
 
-def _flash_routes(calls) -> dict:
-    """Replayed flash launches by route: bf16 at a head dim of one of
-    `SM90_KERNELS`' `flash_fwd_sm90_kernel<HD>` instances is the Hopper
-    kernel at that head dim, every other launch the first design."""
-    hopper = {int(k[k.index("<") + 1:-1]) for k in SM90_KERNELS["flashattn"]
-              if k.startswith("flash_fwd_sm90_kernel<")}
+def _hopper_head_dims(name: str) -> set:
+    """The head dims at which a bf16 launch of flash kernel ``name``
+    takes the Hopper route: the forward's `flash_fwd_sm90_kernel<HD>`
+    instances of `SM90_KERNELS`, the backward's sm90 kernels at 128."""
+    if name == "flash_attention_bwd":
+        return {128}
+    return {int(k[k.index("<") + 1:-1]) for k in SM90_KERNELS["flashattn"]
+            if k.startswith("flash_fwd_sm90_kernel<")}
+
+
+def _flash_routes(calls, hopper) -> dict:
+    """Replayed flash launches by route: bf16 at a head dim in
+    ``hopper`` is the Hopper kernel at that head dim, every other launch
+    the first design."""
     routes = {}
     for c in calls:
         route = (f"Hopper hd {c['hd']}" if c["dtype"] == "torch.bfloat16"
@@ -3580,32 +4003,33 @@ def kernel_rows(numbers: Numbers, launches):
                   f"{big['ms']:.4f} ms, bound "
                   f"{max(big['bytes_ms'], big['ops_ms']):.4f} ms, floor "
                   f"{big['smem_floor_ms']:.4f} ms")
-    by_stage = {}
-    for c in per_kernel["flash_attention"]["calls"]:
-        key = (c["stage"], c["hd"], c["Sq"], c["Sk"], c["H"], c["KV"],
-               c["causal"])
-        by_stage.setdefault(key, []).append(c)
-    for (stage, hd, sq, sk, h, kv, causal), calls in by_stage.items():
-        n = len(calls)
-        ms = sum(c["ms"] for c in calls)
-        bound = sum(max(c["bytes_ms"], c["ops_ms"]) for c in calls)
-        lib = sum(c["library_ms"] for c in calls)
-        print(f"[numbers] flash_attention ({stage}) hd {hd}, Sq {sq}, Sk "
-              f"{sk}, H {h} / KV {kv}, "
-              f"{'causal' if causal else 'not causal'}: {n} "
-              f"launches, kernel {ms:.3f} ms, bound {bound:.3f} ms, plain "
-              f"{sum(c['plain_ms'] for c in calls):.3f} ms, library "
-              f"{lib:.3f} ms; per launch kernel {ms / n:.4f} ms, bound "
-              f"{bound / n:.4f} ms ({ms / bound:.2f}x), "
-              f"scaled_dot_product_attention {lib / n:.4f} ms "
-              f"({ms / lib:.2f}x)")
-    for route, calls in _flash_routes(
-            per_kernel["flash_attention"]["calls"]).items():
-        print(f"[numbers] flash_attention, {route}: {len(calls)} launches, "
-              f"kernel {sum(c['ms'] for c in calls):.3f} ms, bound "
-              f"{sum(max(c['bytes_ms'], c['ops_ms']) for c in calls):.3f} "
-              f"ms, plain {sum(c['plain_ms'] for c in calls):.3f} ms, "
-              f"library {sum(c['library_ms'] for c in calls):.3f} ms")
+    for name in FLOAT_KERNELS:
+        by_stage = {}
+        for c in per_kernel[name]["calls"]:
+            key = (c["stage"], c["hd"], c["Sq"], c["Sk"], c["H"], c["KV"],
+                   c["causal"])
+            by_stage.setdefault(key, []).append(c)
+        for (stage, hd, sq, sk, h, kv, causal), calls in by_stage.items():
+            n = len(calls)
+            ms = sum(c["ms"] for c in calls)
+            bound = sum(max(c["bytes_ms"], c["ops_ms"]) for c in calls)
+            lib = sum(c["library_ms"] for c in calls)
+            print(f"[numbers] {name} ({stage}) hd {hd}, Sq {sq}, Sk {sk}, "
+                  f"H {h} / KV {kv}, "
+                  f"{'causal' if causal else 'not causal'}: {n} "
+                  f"launches, kernel {ms:.3f} ms, bound {bound:.3f} ms, "
+                  f"plain {sum(c['plain_ms'] for c in calls):.3f} ms, "
+                  f"library {lib:.3f} ms; per launch kernel {ms / n:.4f} "
+                  f"ms, bound {bound / n:.4f} ms ({ms / bound:.2f}x), "
+                  f"{LIBRARY_CALLS[name]} {lib / n:.4f} ms "
+                  f"({ms / lib:.2f}x)")
+        for route, calls in _flash_routes(
+                per_kernel[name]["calls"], _hopper_head_dims(name)).items():
+            print(f"[numbers] {name}, {route}: {len(calls)} launches, "
+                  f"kernel {sum(c['ms'] for c in calls):.3f} ms, bound "
+                  f"{sum(max(c['bytes_ms'], c['ops_ms']) for c in calls):.3f}"
+                  f" ms, plain {sum(c['plain_ms'] for c in calls):.3f} ms, "
+                  f"library {sum(c['library_ms'] for c in calls):.3f} ms")
     print("[numbers] kernel device ms by stage of the slice: "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     rows = []
@@ -3713,6 +4137,18 @@ def main() -> int:
             rec.drop()
             for spec in FAMILY_PHASES:
                 later.append(phase_family(torch, rec, *spec))
+            # phase 4 for 3i-3k, which frees their recorded arguments
+            # before training takes the card
+            phase_numbers(torch, rec.calls, numbers, int_rate,
+                          max_mhz * 1e6)
+            rec.drop()
+            for spec in TRAIN_FAMILY_PHASES:
+                later.append(phase_train_family(torch, rec, *spec))
+                # phase 4 for each model before the next takes the card
+                if rec.calls:
+                    phase_numbers(torch, rec.calls, numbers, int_rate,
+                                  max_mhz * 1e6)
+                rec.drop()
         finally:
             rec.close()
         # each kernel's launches over every main-path run
@@ -3720,7 +4156,6 @@ def main() -> int:
             slice_info.update(info)
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
-        phase_numbers(torch, rec.calls, numbers, int_rate, max_mhz * 1e6)
         rows = kernel_rows(numbers, launches)
     except SmokeFailure as e:
         print(f"[fail] {e}", file=sys.stderr)

@@ -59,13 +59,19 @@
 //   passes (dV, then dK) so that one accumulator of 64 registers a thread
 //   is live beside S^T and dP^T; with both live ptxas spilled. p is
 //   2^(s scale log2(e) - lse log2(e)).
-//   bf16, head dims 16, 32, 64, 112: the first design,
+//   bf16, head dims 16, 32, 64, 80, 112: the first design,
 //   flash_bwd_dq_mma_kernel and flash_bwd_dkv_mma_kernel: four warps on
 //   mma.sync.m16n8k16 with float32 accumulation, 64 x 64 tiles staged in
 //   shared memory
 //   (row-major where they are an A operand or the B operand of a product
 //   over hd, transposed where they are the B operand of a product over
-//   keys or queries), the same hi + lo split.
+//   keys or queries), the same hi + lo split. Every loop over the head
+//   dim runs HD / 16 k-steps or HD / 8 n-tiles, and a staged 64-row tile
+//   is 64 x HD / 8 16-byte chunks over 128 threads, so hd 80 (5 k-steps,
+//   10 n-tiles, 5 chunks a thread) needs no power of two. Its
+//   dk / dv kernel keeps two float[10][4] accumulators beside the 64 x 64
+//   S^T tile and takes 4 * 64 * 88 * 2 + 2 * 80 * 72 * 2 + 512 = 68,608
+//   bytes of shared memory (set by `launch` above the 48 KB default).
 //   float32, every head dim: scalar FP32 FMAs, 256 threads, each owning a
 //   4 x 4 block of the 64 x 64 score tile and a 4 x (hd / 16) block of its
 //   accumulators.
@@ -1175,7 +1181,8 @@ cudaError_t launch_hd(int dtype, const BwdParams& p, int batch,
   const dim3 dkv_grid((p.sk + kBK - 1) / kBK, kv_heads, batch);
   cudaError_t err;
   if (dtype == 1) {
-    // head dim 128: the Hopper kernels; 16, 32, 64, 112: the mma.sync kernels
+    // head dim 128: the Hopper kernels; 16, 32, 64, 80, 112: the mma.sync
+    // kernels
     if constexpr (HD == 128) {
       return launch_bwd_sm90(p, batch, kv_heads, split, stream);
     } else {
@@ -1259,6 +1266,7 @@ extern "C" int flash_attention_bwd_launch(
     case 16: err = launch_hd<16>(dtype, p, batch, kv, sp, s); break;
     case 32: err = launch_hd<32>(dtype, p, batch, kv, sp, s); break;
     case 64: err = launch_hd<64>(dtype, p, batch, kv, sp, s); break;
+    case 80: err = launch_hd<80>(dtype, p, batch, kv, sp, s); break;
     case 112: err = launch_hd<112>(dtype, p, batch, kv, sp, s); break;
     case 128: err = launch_hd<128>(dtype, p, batch, kv, sp, s); break;
     default: err = cudaErrorInvalidValue;

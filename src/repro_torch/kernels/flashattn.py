@@ -19,10 +19,9 @@ forward runs the Hopper kernel (TMA ring, wgmma, setmaxnreg;
 shared attention) and 128 (every dense config served and trained), and
 the first design on ``mma.sync`` at 16, 32 and 112 (Kimi K2's head); the
 backward runs the Hopper kernels at 128 and the first design at 16, 32,
-64 and 112. Float32 runs scalar FMAs. The backward launcher takes every
-head dim but 80, whose backward comes with training the hybrid family
-(ROADMAP §A10). A kernel that fails to build or launch raises; nothing
-falls back on another.
+64, 80 (Zamba2's shared attention) and 112. Float32 runs scalar FMAs. A
+kernel that fails to build or launch raises; nothing falls back on
+another.
 
 The kernel wrappers take the model's layout, q (B, Sq, H, hd) and k / v
 (B, Sk, KV, hd), and read it through its strides. For CPU tensors they run
@@ -47,8 +46,8 @@ from repro_torch.kernels import LAUNCHES, _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 112, 128)
-#: the backward's: head dim 80 waits for training the hybrid family
-BWD_HEAD_DIMS = (16, 32, 64, 112, 128)
+#: the backward's: every head dim of the forward
+BWD_HEAD_DIMS = HEAD_DIMS
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

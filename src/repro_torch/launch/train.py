@@ -5,10 +5,13 @@
         [--device cpu]
 
 Runs on the card (``--device cuda``, the default) unless asked for the
-CPU; the reduced config unless ``--full``. One process trains on one
-device: ``--opt signum`` is then the local sign step, as the reference's
-is on one device. Checkpointing (``--ckpt-dir``) and model parallelism
-(``--model-parallel``) wait for ROADMAP §A8.
+CPU; the reduced config unless ``--full``. Every arch but the MoE ones
+trains (``--arch mamba2_1p3b``, ``zamba2_2p7b``, ``seamless_m4t_medium``,
+``llama_3p2_vision_90b`` beside the dense ones); `SyntheticLM.for_cell`
+adds the enc-dec / VLM stub frames / patches to each batch. One process
+trains on one device: ``--opt signum`` is then the local sign step, as
+the reference's is on one device. Checkpointing (``--ckpt-dir``) and
+model parallelism (``--model-parallel``) wait for ROADMAP §A8.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Encoder-decoder family (SeamlessM4T-medium backbone): serving.
+"""Encoder-decoder family (SeamlessM4T-medium backbone): training and
+serving.
 
 The counterpart of `repro.models.encdec`. The audio frontend is a stub, as
 in the reference: the batch carries precomputed frame embeddings ``frames
@@ -10,7 +11,13 @@ MLP. Prefill runs every attention through the flash kernel (the encoder's
 non-causal, the decoder's causal, the cross-attention non-causal over
 ``Sq`` queries and ``Sf`` frames); a decode step scores the cached cross
 keys with a plain float32 softmax, as the reference's ``_cross_decode``
-does. Training (``encdec_apply``) waits for ROADMAP §A10.
+does.
+
+`encdec_apply` is the training stack (`transformer.lm_loss`'s
+``apply_fn``): `encode` with grad, then the `dec_block`s over the
+encoder's output. With ``remat`` "block" or "full" and grad on, each
+encoder and decoder layer is checkpointed (`transformer.remat_call`), as
+the reference's scans are.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (DenseBlock, _ffn,
-                                            attention_prefill)
+                                            attention_prefill, check_remat,
+                                            remat_call)
 
 
 def _frontend_dim(cfg: ModelConfig) -> int:
@@ -93,16 +101,51 @@ def frontend_proj(w: torch.Tensor, x: torch.Tensor,
     return torch.einsum("bsf,fd->bsd", x.to(L.torch_dtype(cfg)), w)
 
 
+def enc_block(p: DenseBlock, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """A bidirectional encoder layer: self-attention without the causal
+    mask (RoPE over the frame positions), then the MLP."""
+    x = x + L.attention_train(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps),
+                              cfg, causal=False)
+    return x + L.mlp(p.mlp, L.rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+
+
 def encode(params: EncDec, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, Sf, Df) stub embeddings -> (B, Sf, D) encoder output:
-    bidirectional blocks, then ``enc_norm``."""
+    bidirectional blocks (each checkpointed while grad is on), then
+    ``enc_norm``."""
     x = frontend_proj(params.frontend_proj, frames, cfg)
     for p in params.enc:
-        x = x + L.attention_train(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps),
-                                  cfg, causal=False)
-        x = x + L.mlp(p.mlp, L.rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
+        x = remat_call(enc_block, p, x, cfg)
     return L.rmsnorm(x, params.enc_norm, cfg.norm_eps)
+
+
+def dec_block(p: DecBlock, x: torch.Tensor, memory: torch.Tensor,
+              cfg: ModelConfig, qc: int = 512) -> torch.Tensor:
+    """A decoder layer over the whole sequence: causal self-attention,
+    cross-attention to ``memory`` (B, Sm, D), the MLP."""
+    h = x + L.attention_train(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps),
+                              cfg, q_chunk=qc, kv_chunk=qc)
+    h = h + L.cross_attention(p.cross, L.rmsnorm(h, p.ln_x, cfg.norm_eps),
+                              memory, cfg)
+    return h + L.mlp(p.mlp, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
+
+
+def encdec_apply(params: EncDec, tokens: torch.Tensor, cfg: ModelConfig,
+                 frames: torch.Tensor, remat: str = "block"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S), frames: (B, Sf, Df) -> (hidden (B, S, D), aux =
+    0): `encode`, then the decoder layers (flash chunks ``min(512, S)``)
+    and the final norm."""
+    check_remat(remat)
+    memory = encode(params, frames, cfg)
+    x = L.embed(params.embed, tokens)
+    qc = min(512, tokens.shape[1])
+    for p in params.dec:
+        x = remat_call(dec_block, p, x, memory, cfg, qc)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # --------------------------------------------------------------------------

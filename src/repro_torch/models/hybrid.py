@@ -1,4 +1,4 @@
-"""SSM (Mamba2) and hybrid (Zamba2) model families: serving.
+"""SSM (Mamba2) and hybrid (Zamba2) model families: training and serving.
 
 The counterpart of `repro.models.hybrid`. Mamba2 is a stack of SSM mixer
 blocks (no MLP, no attention). Zamba2 is a Mamba2 backbone in which ONE
@@ -10,8 +10,14 @@ the blocks on leading axes and scans them; here `Hybrid` holds one
 Zamba2) and Python loops walk them. The SSM caches are layer-major
 ``(n_layers, ...)`` in both families, as the reference's reshape of its
 ``(n_groups, attn_every, ...)`` scan output gives them. Decode writes
-every cache in place and returns it. Training (``hybrid_apply``) waits
-for ROADMAP §A10.
+every cache in place and returns it.
+
+`hybrid_apply` is the training stack (`transformer.lm_loss`'s
+``apply_fn``). With ``remat`` "block" or "full" and grad on, each SSM
+block and each application of Zamba2's shared block is checkpointed on
+its own (`transformer.remat_call`), as the port's dense family is; the
+reference checkpoints a whole Zamba2 group (``jax.checkpoint`` on its
+``g_body``). The recomputation differs, the numbers do not.
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (DenseBlock, _ffn,
-                                            attention_prefill, block_decode)
+                                            attention_prefill, block_decode,
+                                            check_remat, dense_block,
+                                            remat_call)
 
 
 class SSMBlock(nn.Module):
@@ -90,6 +98,33 @@ def hybrid_init(generator: torch.Generator, cfg: ModelConfig,
         if cfg.family == "hybrid":
             model.shared.init_(generator, cfg)
     return model
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def ssm_block(p: SSMBlock, x: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    y, _ = S.ssm_forward(p.ssm, L.rmsnorm(x, p.ln, cfg.norm_eps), cfg)
+    return x + y
+
+
+def hybrid_apply(params: Hybrid, tokens: torch.Tensor, cfg: ModelConfig,
+                 remat: str = "block") -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) -> (hidden (B, S, D), aux = 0): embed, the SSM
+    blocks in layer order and, for Zamba2, the shared `DenseBlock` after
+    every ``attn_every`` of them (flash chunks ``min(512, S)``), then the
+    final norm."""
+    check_remat(remat)
+    x = L.embed(params.embed, tokens)
+    qc = min(512, tokens.shape[1])
+    for i, block in enumerate(params.ssm_blocks()):
+        x = remat_call(ssm_block, block, x, cfg)
+        if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            x = remat_call(dense_block, params.shared, x, cfg, qc, qc)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # --------------------------------------------------------------------------

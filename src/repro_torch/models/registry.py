@@ -13,14 +13,18 @@ The counterpart of `repro.models.registry`, with the same field names.
 frontend's stub embeddings from the batch (``frames`` / ``patches``).
 Token tensors and frontend embeddings keep their device; host arrays
 (numpy, lists) go to the model's device; tensors on another device than
-the model raise. ``abstract`` (shapes without allocating, for the dry run
-and the sharded cells) waits for ROADMAP §A8; ``loss`` runs for the dense
-family only: the MoE family's waits for §A4b (in §A8), the SSM, hybrid,
-enc-dec and VLM families' for §A10.
+the model raise. ``loss`` trains every family but MoE, through
+`transformer.lm_loss` with the family's stack as its ``apply_fn``
+(`hybrid.hybrid_apply`, `encdec.encdec_apply` over ``batch["frames"]``,
+`vision.vlm_apply` over ``batch["patches"]``), as the reference's
+``build`` does; the MoE family's waits for ROADMAP §A4b (in §A8).
+``abstract`` (shapes without allocating, for the dry run and the sharded
+cells) waits for §A8.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch._device import DEFAULT_DEVICE, operand_device, resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import frontend_name
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
@@ -58,7 +63,7 @@ def _frontend(batch: Dict[str, Any], name: str, params) -> torch.Tensor:
     """The batch's frontend embeddings ``batch[name]`` as a tensor on the
     model's device (their dtype kept; the model casts them)."""
     if batch.get(name) is None:
-        raise ValueError(f"this model's prefill reads batch[{name!r}], the "
+        raise ValueError(f"this model reads batch[{name!r}], the "
                          "frontend's stub embeddings")
     x = batch[name]
     dev = operand_device([x], params.device)
@@ -67,14 +72,31 @@ def _frontend(batch: Dict[str, Any], name: str, params) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
 
 
-def _batch(batch: Dict[str, Any], params) -> Dict[str, torch.Tensor]:
-    """A training batch's tokens and labels as int64 and its mask as
-    float32, on the model's device."""
+def _batch(batch: Dict[str, Any], params,
+           cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A training batch's tokens and labels as int64, its mask as
+    float32 and, for a model with a frontend, its stub embeddings
+    (`_frontend`), on the model's device."""
     out = {k: _tokens(batch[k], params) for k in ("tokens", "labels")}
     if batch.get("mask") is not None:
         dev = operand_device([batch["mask"]], params.device)
         out["mask"] = torch.as_tensor(batch["mask"], device=dev).float()
+    front = frontend_name(cfg)
+    if front:
+        out[front] = _frontend(batch, front, params)
     return out
+
+
+def _apply_fn(cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """The family's training stack as `transformer.lm_loss`'s
+    ``apply_fn``, bound to the batch's frontend embeddings."""
+    if cfg.family in ("ssm", "hybrid"):
+        return HY.hybrid_apply
+    if cfg.family == "encdec":
+        return functools.partial(ED.encdec_apply, frames=batch["frames"])
+    if cfg.family == "vlm":
+        return functools.partial(VI.vlm_apply, patches=batch["patches"])
+    return TF.transformer_apply          # raises for MoE: ROADMAP §A4b
 
 
 def _family(cfg: ModelConfig, dev: torch.device):
@@ -117,11 +139,11 @@ def build(cfg: ModelConfig, device=None, remat: str = "block"
           ) -> ModelBundle:
     """The bundle of ``cfg`` on ``device`` (default ``"cuda"``; asking for
     the card where there is none raises). Every family serves
-    (``prefill``, ``decode_step``, ``cache_init``). ``loss`` trains the
-    dense family, with ``remat`` "block" or "full" (each block recomputed
-    in the backward, the reference's ``nothing_saveable``; "dots" waits
-    for ROADMAP §A8); for the other families it raises, naming the ROADMAP
-    item that ports their training."""
+    (``prefill``, ``decode_step``, ``cache_init``). ``loss`` trains every
+    family but MoE, with ``remat`` "block" or "full" (each block
+    recomputed in the backward, the reference's ``nothing_saveable``;
+    "dots" waits for ROADMAP §A8); for the MoE family it raises, naming
+    §A4b."""
     TF.check_remat(remat)
     dev = resolve_device(DEFAULT_DEVICE if device is None else device)
     init, prefill, decode, cache_init = _family(cfg, dev)
@@ -132,13 +154,9 @@ def build(cfg: ModelConfig, device=None, remat: str = "block"
             "the dry run and the sharded cells, which wait for ROADMAP §A8")
 
     def loss(params, batch):
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family!r} family waits for "
-                "ROADMAP §A10 (its *_apply, bundle.loss and, at head dim "
-                "80, the flash backward); the port serves it "
-                "(bundle.prefill / bundle.decode_step)")
-        return TF.lm_loss(params, _batch(batch, params), cfg, remat=remat)
+        b = _batch(batch, params, cfg)
+        return TF.lm_loss(params, b, cfg, apply_fn=_apply_fn(cfg, b),
+                          remat=remat)
 
     def decode_step(params, token, cache, pos):
         return decode(params, _tokens(token, params), cache, int(pos), cfg)

@@ -10,8 +10,9 @@ them (PyTorch runs eagerly). The MoE family's dense blocks take
 ``dense_d_ff`` where it is set. The reference rematerialises each
 scanned block (``jax.checkpoint`` with ``nothing_saveable`` for ``remat=
 "block"`` and ``"full"``); here each block runs under non-reentrant
-`torch.utils.checkpoint.checkpoint` while grad is on, so its forward runs
-again in the backward. Its ``"dots"`` policy (keep the matmul outputs)
+`torch.utils.checkpoint.checkpoint` while grad is on (`remat_call`, which
+the other families' training stacks use too), so its forward runs again
+in the backward. Its ``"dots"`` policy (keep the matmul outputs)
 waits for ROADMAP §A8. The reference's sharding constraints are the
 identity on one card and are dropped. Training the MoE family (its loss
 with the aux term) waits for ROADMAP §A4b: `transformer_apply` raises for
@@ -175,6 +176,16 @@ def check_remat(remat: str) -> None:
                          f"{REMAT_POLICIES}")
 
 
+def remat_call(fn, *args):
+    """``fn(*args)``; while grad is on, under non-reentrant
+    `torch.utils.checkpoint.checkpoint` (the reference's ``jax.checkpoint``
+    with ``nothing_saveable``): only the arguments are kept, and the
+    forward runs again in the backward."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def transformer_apply(params: Transformer, tokens: torch.Tensor,
                       cfg: ModelConfig, remat: str = "block"
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -193,22 +204,22 @@ def transformer_apply(params: Transformer, tokens: torch.Tensor,
     qc, kc = _chunks_for(tokens.shape[1])
     x = L.embed(params.embed, tokens)
     for block in params.layers:
-        if torch.is_grad_enabled():
-            x = checkpoint(dense_block, block, x, cfg, qc, kc,
-                           use_reentrant=False)
-        else:
-            x = dense_block(block, x, cfg, qc, kc)
+        x = remat_call(dense_block, block, x, cfg, qc, kc)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def lm_loss(params: Transformer, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, remat: str = "block"
+def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            apply_fn=None, remat: str = "block"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, {"xent", "aux"}) of ``batch`` ("tokens", "labels", optional
     "mask"): `layers.softmax_xent` of the logits over the padded
-    vocabulary, plus the MoE weight times the aux loss."""
-    x, aux = transformer_apply(params, batch["tokens"], cfg, remat=remat)
+    vocabulary, plus the MoE weight times the aux loss. ``apply_fn(params,
+    tokens, cfg, remat=)`` -> (hidden, aux) is the family's stack
+    (`transformer_apply` by default; `hybrid.hybrid_apply`,
+    `encdec.encdec_apply`, `vision.vlm_apply`)."""
+    apply_fn = apply_fn or transformer_apply
+    x, aux = apply_fn(params, batch["tokens"], cfg, remat=remat)
     logits = L.lm_logits(params.embed, x)
     xent = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
     loss = xent + MOE_AUX_WEIGHT * aux

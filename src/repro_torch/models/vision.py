@@ -1,4 +1,4 @@
-"""VLM family (Llama-3.2-Vision backbone): serving.
+"""VLM family (Llama-3.2-Vision backbone): training and serving.
 
 The counterpart of `repro.models.vision`. A decoder-only LM in which
 every ``cross_attn_every``-th layer also cross-attends to image patch
@@ -8,7 +8,14 @@ linear adapter). The layers come in ``n_layers // cross_attn_every``
 groups: ``cross_attn_every - 1`` self-attention `DenseBlock`s (``self``),
 then one self + cross + MLP `encdec.DecBlock` (``cross``). The self KV
 sheets of all ``n_layers`` are group-major; the cross keys and values are
-one pair per group. Training (``vlm_apply``) waits for ROADMAP §A10.
+one pair per group.
+
+`vlm_apply` is the training stack (`transformer.lm_loss`'s ``apply_fn``).
+With ``remat`` "block" or "full" and grad on, each self layer and each
+`encdec.dec_block` is checkpointed on its own (`transformer.remat_call`),
+as the port's dense family is; the reference checkpoints a whole group
+(``jax.checkpoint`` on its ``g_body``). The recomputation differs, the
+numbers do not.
 """
 from __future__ import annotations
 
@@ -20,10 +27,12 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.encdec import (DecBlock, _frontend_dim,
-                                       cross_prefill, dec_block_decode,
-                                       frontend_proj)
+                                       cross_prefill, dec_block,
+                                       dec_block_decode, frontend_proj)
 from repro_torch.models.transformer import (DenseBlock, _ffn,
-                                            attention_prefill, block_decode)
+                                            attention_prefill, block_decode,
+                                            check_remat, dense_block,
+                                            remat_call)
 
 
 class VLMGroup(nn.Module):
@@ -80,6 +89,29 @@ def vlm_init(generator: torch.Generator, cfg: ModelConfig,
         for group in model.groups:
             group.init_(generator, cfg)
     return model
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def vlm_apply(params: VLM, tokens: torch.Tensor, cfg: ModelConfig,
+              patches: torch.Tensor, remat: str = "block"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S), patches: (B, Sp, Df) -> (hidden (B, S, D), aux =
+    0): the adapted patches as the cross-attention memory, then per group
+    its self layers and one `encdec.dec_block` (flash chunks ``min(512,
+    S)``), then the final norm."""
+    check_remat(remat)
+    memory = frontend_proj(params.frontend_proj, patches, cfg)
+    x = L.embed(params.embed, tokens)
+    qc = min(512, tokens.shape[1])
+    for group in params.groups:
+        for p in group.self_blocks():
+            x = remat_call(dense_block, p, x, cfg, qc, qc)
+        x = remat_call(dec_block, group.cross, x, memory, cfg, qc)
+    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # --------------------------------------------------------------------------

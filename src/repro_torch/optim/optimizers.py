@@ -5,24 +5,29 @@ update)``: ``state = init(params)`` and ``params, state = update(grads,
 state, params, step)``, where ``params`` is an `nn.Module` (or a dict of
 tensors), ``grads`` a dict keyed by its parameter names, and ``step`` the
 step index that the schedules read. The update writes the new values
-into the parameters in place under `torch.no_grad` (the reference returns
-new arrays) and returns them with the new state.
+into the parameters and the state in place under `torch.no_grad` (the
+reference returns new arrays) and returns both: a step holds one copy of
+the state, not the old and the new.
 
 Per-leaf statistics follow the reference's parameter tree, whose blocks
-are stacked on a leading layer axis: the port keeps one module per layer,
+are stacked on leading layer axes: the port keeps one module per layer,
 so `leaves` groups ``layers.<i>.<name>`` into one leaf ``layers.<name>``
-of shape ``(L, ...)``, and every update runs on those stacked leaves.
-Adafactor's update-RMS clip (and signum's ``mean |u|``) are then taken
-over all the layers at once, and adafactor factors the stacked ``(L, D)``
-norm scales, exactly as the reference does. The state is keyed by leaf
-and shaped like the reference's (`convert.opt_state_from_reference`
-carries it across). Elementwise updates (SGD, AdamW) would not need the
-stacking; they use it too, so every optimizer reads one layout.
+of shape ``(L, ...)``, and a name with two layer indices (Zamba2's
+``groups.<g>.<j>.<name>``, the VLM's ``groups.<g>.self.<j>.<name>``) into
+one leaf of shape ``(G, A, ...)`` (``groups.<name>``,
+``groups.self.<name>``). The state is keyed by leaf and shaped like the
+reference's (`convert.opt_state_from_reference` carries it across).
+Adafactor's update-RMS clip (and signum's ``mean |u|``) are taken over
+all the layers of a leaf at once, and adafactor factors the stacked ``(L,
+D)`` norm scales, exactly as the reference does. The elementwise updates
+(SGD, AdamW, and adafactor's within one layer) run one layer at a time
+on views of the stacked state, so that no stacked copy of a leaf (5.8 GB
+in float32 for Zamba2-2.7B's ``groups.ssm.in_proj``) arises beside it.
 """
 from __future__ import annotations
 
 import dataclasses
-import re
+import itertools
 from typing import Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -30,9 +35,6 @@ import torch
 from torch import nn
 
 Tree = Dict[str, torch.Tensor]
-
-_LAYER = re.compile(r"^(.*?)\.(\d+)\.(.*)$")
-
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
@@ -44,23 +46,42 @@ class Optimizer:
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     """One leaf of the reference's parameter tree: a parameter, or the
-    per-layer parameters (``members``, in layer order) of a leaf the
-    reference stacks on a leading layer axis."""
+    per-layer parameters (``members``, in layer order, the last layer
+    index fastest) of a leaf the reference stacks on leading layer axes
+    of sizes ``grid`` (``()`` for an unstacked parameter)."""
 
     name: str
     members: Tuple[str, ...]
-    stacked: bool
+    grid: Tuple[int, ...]
+
+    @property
+    def stacked(self) -> bool:
+        return bool(self.grid)
+
+    def shape(self, tensors: Mapping[str, torch.Tensor]) -> torch.Size:
+        """The leaf's shape: ``grid`` then a member's."""
+        return torch.Size(self.grid + tuple(tensors[self.members[0]].shape))
+
+    def views(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """``x`` (the leaf's shape, contiguous) as one view per member, in
+        member order: writing a view writes ``x``."""
+        if not self.grid:
+            return (x,)
+        return x.view(-1, *x.shape[len(self.grid):]).unbind(0)
 
     def gather(self, tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """The leaf's tensor: the members stacked (a copy) or the one
-        member itself."""
+        """The leaf's tensor: the members stacked to ``grid + shape`` (a
+        copy) or the one member itself."""
         xs = [tensors[m] for m in self.members]
-        return torch.stack(xs) if self.stacked else xs[0]
+        if not self.grid:
+            return xs[0]
+        return torch.stack(xs).reshape(*self.grid, *xs[0].shape)
 
     def scatter(self, tensors: Mapping[str, torch.Tensor],
                 value: torch.Tensor) -> None:
         """Copy ``value`` (the leaf's shape) into its members in place."""
-        parts = value.unbind(0) if self.stacked else (value,)
+        parts = (value.reshape(-1, *value.shape[len(self.grid):]).unbind(0)
+                 if self.grid else (value,))
         for m, x in zip(self.members, parts):
             tensors[m].copy_(x)
 
@@ -74,19 +95,30 @@ def named(params) -> Tree:
 
 def leaves(names) -> List[Leaf]:
     """The reference's leaves over parameter ``names``, in its tree order
-    (dict keys sorted at every level): ``layers.<i>.<rest>`` of every
-    layer ``i`` form the stacked leaf ``layers.<rest>``."""
-    groups: Dict[str, List[Tuple[int, str]]] = {}
-    stacked = set()
+    (dict keys sorted at every level): the names that differ only in
+    their layer indices (the all-digit parts) form one leaf, named
+    without them and stacked on one axis per index: ``layers.<i>.<rest>``
+    forms ``layers.<rest>``, ``groups.<g>.<j>.<rest>`` ``groups.<rest>``.
+    Raises unless each leaf's indices fill its grid (the MoE family's
+    flat list of dense and MoE layers does not: its leaves come with MoE
+    training, ROADMAP §A4b)."""
+    groups: Dict[str, List[Tuple[Tuple[int, ...], str]]] = {}
     for n in names:
-        m = _LAYER.match(n)
-        key = f"{m[1]}.{m[3]}" if m else n
-        if m:
-            stacked.add(key)
-        groups.setdefault(key, []).append((int(m[2]) if m else 0, n))
-    return [Leaf(k, tuple(n for _, n in sorted(v)), k in stacked)
-            for k, v in sorted(groups.items(),
-                               key=lambda kv: tuple(kv[0].split(".")))]
+        parts = n.split(".")
+        index = tuple(int(p) for p in parts if p.isdigit())
+        key = ".".join(p for p in parts if not p.isdigit())
+        groups.setdefault(key, []).append((index, n))
+    out = []
+    for key in sorted(groups, key=lambda k: tuple(k.split("."))):
+        members = sorted(groups[key])
+        grid = tuple(max(i[a] for i, _ in members) + 1
+                     for a in range(len(members[0][0])))
+        if [i for i, _ in members] != list(
+                itertools.product(*(range(g) for g in grid))):
+            raise ValueError(f"the layers of {key!r} do not fill a "
+                             f"{grid} grid: no reference leaf stacks them")
+        out.append(Leaf(key, tuple(n for _, n in members), grid))
+    return out
 
 
 def _f32(x) -> float:
@@ -111,9 +143,9 @@ def _zeros(params, dtype=None) -> Tree:
     tensors = named(params)
     out = {}
     for leaf in leaves(tensors):
-        p = leaf.gather(tensors)
-        out[leaf.name] = torch.zeros(p.shape, dtype=dtype or p.dtype,
-                                     device=p.device)
+        p = tensors[leaf.members[0]]
+        out[leaf.name] = torch.zeros(leaf.shape(tensors),
+                                     dtype=dtype or p.dtype, device=p.device)
     return out
 
 
@@ -125,6 +157,17 @@ def _each_leaf(grads: Tree, params):
         yield leaf, leaf.gather(grads), leaf.gather(tensors), tensors
 
 
+def _each_member(grads: Tree, params, *trees: Tree):
+    """(gradient, parameter, its view of each state tree) per parameter,
+    leaf by leaf: the elementwise updates run one layer at a time, so no
+    stacked copy of a leaf arises, and write the state in place."""
+    tensors = named(params)
+    for leaf in leaves(tensors):
+        views = [leaf.views(t[leaf.name]) for t in trees]
+        for j, name in enumerate(leaf.members):
+            yield (grads[name], tensors[name], *(v[j] for v in views))
+
+
 def sgd(lr_fn, momentum: float = 0.9, weight_decay: float = 0.0
         ) -> Optimizer:
     def init(params):
@@ -133,14 +176,12 @@ def sgd(lr_fn, momentum: float = 0.9, weight_decay: float = 0.0
     @torch.no_grad()
     def update(grads, state, params, step):
         lr = _f32(lr_fn(step))
-        mu = {}
-        for leaf, g, p, tensors in _each_leaf(grads, params):
-            m = state["mu"][leaf.name]
-            m = momentum * m + g.to(m.dtype)
-            mu[leaf.name] = m
+        for g, p, mu in _each_member(grads, params, state["mu"]):
+            m = momentum * mu + g.to(mu.dtype)
+            mu.copy_(m)
             d = (m + weight_decay * p.to(m.dtype)).to(p.dtype)
-            leaf.scatter(tensors, (p.float() - lr * d.float()).to(p.dtype))
-        return params, {"mu": mu}
+            p.copy_((p.float() - lr * d.float()).to(p.dtype))
+        return params, state
 
     return Optimizer(init, update, "sgd")
 
@@ -157,17 +198,15 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         t = np.float32(int(step)) + np.float32(1.0)
         c1 = _f32(np.float32(1.0) - np.float32(b1) ** t)
         c2 = _f32(np.float32(1.0) - np.float32(b2) ** t)
-        new = {"m": {}, "v": {}}
-        for leaf, g, p, tensors in _each_leaf(grads, params):
+        for g, p, m, v in _each_member(grads, params, state["m"],
+                                       state["v"]):
             g = g.float()
-            m = b1 * state["m"][leaf.name] + (1 - b1) * g
-            v = b2 * state["v"][leaf.name] + (1 - b2) * g * g
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
             u = (m / c1) / (torch.sqrt(v / c2) + eps)
             p32 = p.float()
-            leaf.scatter(tensors,
-                         (p32 - lr * (u + weight_decay * p32)).to(p.dtype))
-            new["m"][leaf.name], new["v"][leaf.name] = m, v
-        return params, new
+            p.copy_((p32 - lr * (u + weight_decay * p32)).to(p.dtype))
+        return params, state
 
     return Optimizer(init, update, "adamw")
 
@@ -177,50 +216,82 @@ def adafactor(lr_fn, decay: float = 0.8, eps: float = 1e-30,
               ) -> Optimizer:
     """Factored second moments: row / column statistics for every leaf
     of two or more dimensions (the stacked ``(L, D)`` norm scales
-    included), a full one for vectors; no first moment."""
+    included), a full one for vectors; no first moment. The update of a
+    leaf is clipped by its RMS over the whole (stacked) leaf. Where each
+    layer's parameter has two or more dimensions, its statistics are its
+    own, so the leaf is updated one layer at a time in two passes (the
+    statistics and the sum of u^2, then the clipped update, u computed
+    again), and no stacked copy of it arises; the stacked vectors (whose
+    column statistics span the layers) are updated whole."""
 
     def init(params):
         tensors = named(params)
         out = {}
         for leaf in leaves(tensors):
-            p = leaf.gather(tensors)
-            z = dict(dtype=torch.float32, device=p.device)
-            if p.dim() >= 2:
+            shape = leaf.shape(tensors)
+            z = dict(dtype=torch.float32,
+                     device=tensors[leaf.members[0]].device)
+            if len(shape) >= 2:
                 out[leaf.name] = {
-                    "r": torch.zeros(p.shape[:-1], **z),
-                    "c": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
+                    "r": torch.zeros(shape[:-1], **z),
+                    "c": torch.zeros(shape[:-2] + shape[-1:], **z)}
             else:
-                out[leaf.name] = {"v": torch.zeros(p.shape, **z)}
+                out[leaf.name] = {"v": torch.zeros(shape, **z)}
         return {"f": out}
+
+    def factored_u(g, r, c):
+        """g over the root of its factored second moment, in one
+        temporary of g's shape (the same operations, in place)."""
+        u = r[..., None] * c[..., None, :]
+        u.div_(torch.clamp(r.mean(-1)[..., None, None], min=eps))
+        return u.add_(eps).rsqrt_().mul_(g)
+
+    def stepped(p, u, rms, lr):
+        """``p`` after its update ``u`` (a temporary, overwritten),
+        clipped by the leaf's RMS."""
+        u.div_(torch.clamp(rms / clip_threshold, min=1.0))
+        p32 = p.float()
+        return (p32 - u.add_(weight_decay * p32).mul_(lr)).to(p.dtype)
 
     @torch.no_grad()
     def update(grads, state, params, step):
         lr = _f32(lr_fn(step))
         t = np.float32(int(step)) + np.float32(1.0)
         beta = _f32(np.float32(1.0) - t ** np.float32(-decay))
-        f = {}
-        for leaf, g, p, tensors in _each_leaf(grads, params):
+        tensors = named(params)
+        for leaf in leaves(tensors):
             s = state["f"][leaf.name]
-            g = g.float()
+            if tensors[leaf.members[0]].dim() >= 2:
+                members = list(zip(leaf.members, leaf.views(s["r"]),
+                                   leaf.views(s["c"])))
+                sumsq = 0.0
+                for name, r, c in members:
+                    g = grads[name].float()
+                    g2 = g * g + eps
+                    r.copy_(beta * r + (1 - beta) * g2.mean(-1))
+                    c.copy_(beta * c + (1 - beta) * g2.mean(-2))
+                    del g2
+                    u = factored_u(g, r, c)
+                    sumsq = sumsq + torch.sum(u * u)
+                    del u
+                n = leaf.shape(tensors).numel()
+                rms = torch.sqrt(sumsq / n)
+                for name, r, c in members:
+                    u = factored_u(grads[name].float(), r, c)
+                    tensors[name].copy_(stepped(tensors[name], u, rms, lr))
+                continue
+            g, p = leaf.gather(grads).float(), leaf.gather(tensors)
             g2 = g * g + eps
             if p.dim() >= 2:
-                r = beta * s["r"] + (1 - beta) * g2.mean(-1)
-                c = beta * s["c"] + (1 - beta) * g2.mean(-2)
-                denom = (r[..., None] * c[..., None, :]
-                         / torch.clamp(r.mean(-1)[..., None, None], min=eps))
-                u = g * torch.rsqrt(denom + eps)
-                f[leaf.name] = {"r": r, "c": c}
+                s["r"].copy_(beta * s["r"] + (1 - beta) * g2.mean(-1))
+                s["c"].copy_(beta * s["c"] + (1 - beta) * g2.mean(-2))
+                u = factored_u(g, s["r"], s["c"])
             else:
-                v = beta * s["v"] + (1 - beta) * g2
-                u = g * torch.rsqrt(v + eps)
-                f[leaf.name] = {"v": v}
-            # update clipping over the whole (stacked) leaf
-            rms = torch.sqrt(torch.mean(u * u))
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            p32 = p.float()
-            leaf.scatter(tensors,
-                         (p32 - lr * (u + weight_decay * p32)).to(p.dtype))
-        return params, {"f": f}
+                s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
+                u = g * torch.rsqrt(s["v"] + eps)
+            leaf.scatter(tensors, stepped(p, u, torch.sqrt(torch.mean(u * u)),
+                                          lr))
+        return params, state
 
     return Optimizer(init, update, "adafactor")
 

@@ -82,5 +82,11 @@ class ServiceConfig:
     slo: Optional[SloConfig] = None
 
 
+#: keywords whose bare-kwarg spelling is deprecated in favor of
+#: ServiceConfig, as in the reference (which also names ``backend``, a
+#: field the port does not have); the rest stay silent: they are stable
+#: convenience keywords, not deployment shape
+DEPRECATED_KWARGS = frozenset({"reliability", "fault_tolerance", "n_chips"})
+
 CONFIG_FIELDS = frozenset(
     f.name for f in dataclasses.fields(ServiceConfig))

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
 from repro_torch._device import resolve_device
@@ -55,7 +56,8 @@ from repro_torch.core.bitplane import as_words
 from repro_torch.core.compiler import Expr
 from repro_torch.ops.predicate import VerticalColumn, range_scan_expr
 from repro_torch.service.catalog import Catalog, CatalogEntry
-from repro_torch.service.config import CONFIG_FIELDS, ServiceConfig
+from repro_torch.service.config import (CONFIG_FIELDS, DEPRECATED_KWARGS,
+                                        ServiceConfig)
 from repro_torch.service.optimizer import (CostParams, ExplainReport,
                                            QueryOptimizer)
 from repro_torch.service.planner import PlanCache, Planner
@@ -77,8 +79,10 @@ class QueryService:
     """Catalog + planner + scheduler behind one serving interface.
 
     Construct with a `ServiceConfig` or its fields as keywords; keywords
-    override config fields. Serves from one device,
-    ``config.device``, with bank-axis batching only.
+    override config fields (``reliability``, ``fault_tolerance`` and
+    ``n_chips`` as keywords warn with a `DeprecationWarning`, as the
+    reference's do). Serves from one device, ``config.device``, with
+    bank-axis batching only.
     """
 
     def __init__(self, config: Optional[ServiceConfig] = None, **kwargs):
@@ -90,6 +94,13 @@ class QueryService:
                 raise TypeError(
                     f"QueryService: unknown keyword(s) {unknown}; valid "
                     f"fields: {sorted(CONFIG_FIELDS)}")
+            deprecated = sorted(set(kwargs) & DEPRECATED_KWARGS)
+            if deprecated:
+                warnings.warn(
+                    f"QueryService({', '.join(deprecated)}=...) keywords "
+                    "are deprecated; pass "
+                    f"ServiceConfig({', '.join(deprecated)}=...) instead",
+                    DeprecationWarning, stacklevel=2)
             config = dataclasses.replace(config, **kwargs)
         for field, what in _NOT_PORTED.items():
             if getattr(config, field) is not None:

@@ -2,14 +2,19 @@
 `test_torch_train_step.py` (loss, gradients, sgd),
 `test_torch_train_step_adaptive.py` (adamw, adafactor) and
 `test_torch_train_step_signum.py`; the same three with ``_bf16`` in bf16,
-split by optimizer so that each file stays short on its test worker; and
-`test_torch_train_step_bias.py`, a QKV-bias model in float32.
+split by optimizer so that each file stays short on its test worker;
+`test_torch_train_step_bias.py`, a QKV-bias model in float32; and one
+file per other trained family, `test_torch_train_step_{ssm,hybrid,
+encdec,vlm}.py` (reduced Mamba2, Zamba2, SeamlessM4T, Llama-3.2-Vision).
 
 The JAX package's reduced Qwen3-0.6B (4 layers, d_model 128, 4 heads, 2
 KV heads, head_dim 32, vocab 512 padded to 2,048) and its parameters
 (``build(cfg).init(PRNGKey(0))``) are carried into the port with
 `convert.model_params_from_reference`; both packages take the JAX
-package's `SyntheticLM` batches (seq 16, batch 4). Held, in float32 and
+package's `SyntheticLM` batches (seq 16, batch 4; the other families'
+reduced configs take seq 40 and, for the enc-dec and VLM families, the
+frontend's bf16 stub embeddings, `SyntheticLM.for_cell`). Held, in
+float32 and
 bf16, at ``grad_accum`` 1 and 2: the loss and every gradient leaf of
 `train.step.loss_and_grads` against ``jax.grad`` of ``bundle.loss``
 (averaged in float32 over the microbatches, as the reference's scan
@@ -30,7 +35,9 @@ value (the gradient; for signum ``g + error feedback``) is below
 itself), and such elements are counted (at
 most `MAX_EXEMPT` of a leaf, none for SGD). The QKV-bias cases also
 leave out the noise-level gradients `noise_exempt` names, and only those
-cases. The reference runs its
+cases. A bf16 gradient leaf is held to the reference's own float32
+gradient where the reference's bf16 one strays from it
+(`loss_and_grads_case`). The reference runs its
 pure-jnp attention here; its Pallas flash backward is held to the
 port's in `tests/test_torch_flashattn_bwd.py`.
 """
@@ -68,20 +75,40 @@ OPTS = list(LR)
 SIGN_LIKE = {"adamw", "adafactor", "signum"}
 
 
+#: batch sequence by family: the dense cases' 16; 40 for the others, not
+#: a multiple of the reduced SSD chunk of 16, so the scan's padded tail is
+#: in the backward
+SEQ = {"dense": 16}
+SEQ_OTHER = 40
+
+
 @functools.lru_cache(None)
 def _setup(dtype, arch="qwen3_0p6b"):
     rcfg = dataclasses.replace(RC.reduced(RC.get_config(arch)), dtype=dtype)
     cfg = dataclasses.replace(TC.reduced(TC.get_config(arch)), dtype=dtype)
     rb = rbuild(rcfg)
     rp = rb.init(jax.random.PRNGKey(0))
-    data = RSyntheticLM(rcfg.vocab_size, 16, 4, seed=7)
+    # with the frontend's stub embeddings (frames / patches) where the
+    # family has one
+    data = RSyntheticLM.for_cell(
+        rcfg, RC.ShapeConfig("parity", SEQ.get(rcfg.family, SEQ_OTHER), 4,
+                             "train"), seed=7)
     batches = [data.batch(i) for i in range(2)]
     grad = jax.jit(jax.grad(lambda p, b: rb.loss(p, b)[0]))
     return cfg, rb, rp, batches, grad
 
 
 def _torch_batch(batch):
-    return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    """numpy copies of a reference batch as tensors; the bf16 frontend
+    embeddings exactly, through float32."""
+    out = {}
+    for k, v in batch.items():
+        if v.dtype == jnp.bfloat16:
+            out[k] = torch.from_numpy(np.asarray(v, np.float32)).to(
+                torch.bfloat16)
+        else:
+            out[k] = torch.from_numpy(np.array(v))
+    return out
 
 
 def _ref_grads(grad, params, batch, accum):
@@ -218,9 +245,29 @@ def _one_thread():
         torch.set_num_threads(n)
 
 
+@functools.lru_cache(None)
+def _exact_grads(arch, accum):
+    """The reference's float32 gradients of the first batch at its bf16
+    parameters (cast up): the bf16 model's gradients without its
+    roundings."""
+    _, _, rp, batches, _ = _setup("bfloat16", arch)
+    grad = _setup("float32", arch)[4]
+    rp32 = jax.tree.map(lambda x: x.astype(jnp.float32), rp)
+    return _ref_grads(grad, rp32, batches[0], accum)
+
+
+def _rel_max(got, want):
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
+
+
 @_one_thread()
 def loss_and_grads_case(dtype, accum, arch="qwen3_0p6b"):
-    """Loss, metrics and every gradient leaf of one batch."""
+    """Loss, metrics and every gradient leaf of one batch. In bf16 a leaf
+    whose reference gradient lies `TOL` or more from the reference's own
+    float32 gradient at the same parameters (`_exact_grads`; Zamba2's
+    ``groups.ssm.d_skip``, at 0.089 of its largest value where the
+    port's lies at 0.011) is held to that float32 gradient instead, at
+    the same tolerance."""
     cfg, rb, rp, batches, grad = _setup(dtype, arch)
     want = _flat(_first_grads(dtype, arch, accum))
     bundle = build(cfg, device="cpu")
@@ -234,9 +281,16 @@ def loss_and_grads_case(dtype, accum, arch="qwen3_0p6b"):
     named = dict(model.named_parameters())
     for leaf in leaves(named):
         g = leaf.gather(grads)
+        # one microbatch keeps each parameter's dtype (the SSM's a_log,
+        # d_skip and dt_bias are float32 in a bf16 model)
         assert g.dtype == (torch.float32 if accum > 1
-                           else getattr(torch, dtype))
-        _close(_f32(g), want[leaf.name], TOL[dtype], f"grad {leaf.name}")
+                           else leaf.gather(named).dtype)
+        w = want[leaf.name]
+        if dtype == "bfloat16" and _rel_max(_f32(g), w) >= TOL[dtype]:
+            exact = _flat(_exact_grads(arch, accum))[leaf.name]
+            if _rel_max(w, exact) >= TOL[dtype]:
+                w = exact
+        _close(_f32(g), w, TOL[dtype], f"grad {leaf.name}")
 
 
 @_one_thread()

@@ -339,13 +339,22 @@ def test_frontend_batches_match_the_reference_shapes(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_frontend_families_serve_but_do_not_train(arch):
+def test_frontend_families_serve_and_train(arch):
+    """``bundle.loss`` trains the enc-dec and VLM families over the
+    batch's frontend embeddings: a finite loss and the metrics ``xent`` /
+    ``aux`` (its parity with the reference is
+    `test_torch_train_step_encdec.py` / ``_vlm``); without them the loss
+    and the prefill raise, naming the batch key."""
     _, _, tb, tp = _models(arch, "float32")
-    toks, _ = _inputs(tb.cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A10"):
-        tb.loss(tp, {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]})
+    toks, front = _inputs(tb.cfg)
+    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]}
+    with pytest.raises(ValueError, match=FRONTEND[arch]):
+        tb.loss(tp, batch)
     with pytest.raises(ValueError, match=FRONTEND[arch]):
         tb.prefill(tp, {"tokens": toks[:, :S]})
+    loss, metrics = tb.loss(tp, dict(batch, **{FRONTEND[arch]: front}))
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"xent", "aux"}
+    assert float(metrics["aux"]) == 0.0
 
 
 def test_serve_cli_runs_the_new_families_on_the_cpu(capsys):

@@ -6,11 +6,12 @@ JAX first, so both packages see the same values). The port's kernel
 wrappers run their plain versions for CPU tensors. Held to the JAX
 package's Pallas kernels in interpret mode (`flash_attention_fwd_kernel`,
 `flash_attention_bwd_kernel`), at the shapes of `tests/test_flashattn.py`
-with their tolerances: lse to 1e-4; o to 2e-3 in float32 and 2e-2 in
-bf16; dq, dk, dv to 1e-3 in float32 and 2e-2 in bf16 (relative and
-absolute), where the two sum in other orders and round outputs to bf16
-at the same points. The differentiable `kernels.ops.flash_attention`
-(a `torch.autograd.Function`) is held to ``jax.grad`` of the JAX
+(and the backward also at head dim 80, Zamba2's) with their tolerances:
+lse to 1e-4; o to 2e-3 in float32 and 2e-2 in bf16; dq, dk, dv to 1e-3
+in float32 and 2e-2 in bf16 (relative and absolute), where the two sum
+in other orders and round outputs to bf16 at the same points. The
+differentiable `kernels.ops.flash_attention` (a
+`torch.autograd.Function`) is held to ``jax.grad`` of the JAX
 package's `flash_attention` and to torch autograd through a dense
 softmax."""
 import numpy as np
@@ -33,6 +34,12 @@ CASES = [
     (1, 100, 4, 4, 16, False, 32, 32),     # ragged S, MHA
     (1, 80, 8, 2, 64, True, 32, 16),       # ragged, GQA-4, uneven blocks
     (2, 64, 8, 8, 128, True, 64, 64),      # full head_dim
+]
+#: Zamba2's shared-attention head dim (80: five 16-deep steps, no power
+#: of two), causal and not, GQA-2, ragged S
+HD80_CASES = [
+    (1, 100, 4, 2, 80, True, 32, 32),
+    (1, 100, 4, 2, 80, False, 32, 32),
 ]
 TOL_O = {"float32": 2e-3, "bfloat16": 2e-2}
 TOL_GRAD = {"float32": 1e-3, "bfloat16": 2e-2}
@@ -85,7 +92,7 @@ def test_forward_with_lse_matches_reference(B, S, H, KV, hd, causal, bq, bk,
                        o)
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd,causal,bq,bk", CASES)
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,bq,bk", CASES + HD80_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_matches_reference(B, S, H, KV, hd, causal, bq, bk, dtype):
     rng = np.random.default_rng(3 * S + hd)

@@ -786,15 +786,42 @@ def test_flash_fwd_kernel_is_deterministic(cuda, hd, causal):
     assert torch.equal(lse1, lse2) and torch.equal(o1, first)
 
 
-def test_flash_bwd_kernel_rejects_head_dim_80(cuda):
-    """Head dim 80 has a forward only; its backward comes with training
-    the hybrid family."""
+#: Zamba2's shared-attention head dim through the backward: 32 heads over
+#: 32 at 1,000 queries causal and not, a GQA group of 2, 100 keys (under
+#: one key tile), B H = 160 query heads over the card's 132 SMs
+HD80_BWD_CASES = [
+    (1, 1000, 1000, 32, 32, True),
+    (1, 1000, 1000, 32, 32, False),
+    (2, 300, 300, 8, 4, True),
+    (1, 77, 100, 4, 2, False),
+    (5, 130, 130, 32, 16, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", HD80_BWD_CASES)
+def test_flash_bwd_kernel_at_head_dim_80_matches_plain(cuda, B, Sq, Sk, H,
+                                                       KV, causal, dtype):
+    """The backward at head dim 80 (the first design's `<80>` instances:
+    mma.sync in bf16, scalar FMAs in float32) within the gate of the
+    plain backward, and bit-identical over two runs."""
     from repro_torch.kernels import flashattn as F
 
-    q, k, v = _qkv(cuda, 2, torch.bfloat16, 1, 64, 64, 2, 2, 80)
-    o, lse = F.flash_attention_fwd_kernel(q, k, v)
-    with pytest.raises(ValueError, match="head_dim"):
-        F.flash_attention_bwd_kernel(q, k, v, o, lse, o)
+    q, k, v = _qkv(cuda, Sq + Sk + H, dtype, B, Sq, Sk, H, KV, 80)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(Sq + 1), device=cuda).to(dtype)
+    o, lse = F.flash_attention_fwd_kernel(q, k, v, causal)
+    before = LAUNCHES["flash_attention_bwd"]
+    first = F.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+    second = F.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == before + 2
+    want = F.flash_attention_bwd_plain(_hm(q), _hm(k), _hm(v), _hm(o), lse,
+                                       _hm(do), causal)
+    for got, again, w, like in zip(first, second, want, (q, k, v)):
+        assert got.shape == like.shape and got.dtype == dtype
+        assert torch.equal(got, again)
+        _assert_flash_close(got, _hm(w), FLASH_TOL[dtype])
 
 
 @pytest.mark.parametrize("arch", ["mamba2_1p3b", "zamba2_2p7b",
@@ -982,5 +1009,58 @@ def test_train_step_on_the_card(cuda, accum):
             + 1e-12, name
     opt = adamw(constant(1e-3))
     step = make_train_step(bundle, opt, grad_accum=accum)
+    _, _, m = step(params, opt.init(params), 0, batch)
+    assert bool(torch.isfinite(m["loss"])) and m["loss"].is_cuda
+
+
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "zamba2_2p7b",
+                                  "seamless_m4t_medium",
+                                  "llama_3p2_vision_90b"])
+def test_training_families_on_the_card(cuda, arch):
+    """Reduced SSM, hybrid, enc-dec and VLM configs in float32 on the
+    card: one step of two microbatches launches the lse forward twice per
+    attention and microbatch and the backward once (nothing for Mamba2);
+    loss and gradients agree with the same weights on the host, the loss
+    within 1e-4 relative and each leaf within 1e-3 of its largest
+    magnitude (in bf16 the reduced Zamba2's SSM scalar gradients, sums of
+    terms that cancel, differed between card and host by more than 0.05
+    of their RMS); an AdamW step gives a finite loss on the card."""
+    import dataclasses
+    import copy
+
+    from repro_torch.configs.base import ShapeConfig, get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(3))
+    host_params = copy.deepcopy(params).to("cpu")
+    batch = SyntheticLM.for_cell(cfg, ShapeConfig("card", 96, 4, "train"),
+                                 seed=4, device=cuda).batch(0)
+    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+            "encdec": cfg.n_enc_layers + 2 * cfg.n_layers,
+            "vlm": cfg.n_layers + cfg.n_layers // max(cfg.cross_attn_every,
+                                                      1)}[cfg.family]
+    LAUNCHES.clear()
+    loss, _, grads = loss_and_grads(bundle, params, batch, 2)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in LAUNCHES.items() if n} == (
+        {"flash_attention_fwd": 4 * attn, "flash_attention_bwd": 2 * attn}
+        if attn else {})
+    assert all(g.dtype == torch.float32 and g.is_cuda
+               for g in grads.values())
+    host = build(cfg, device="cpu")
+    hloss, _, hgrads = loss_and_grads(
+        host, host_params, {k: x.cpu() for k, x in batch.items()}, 2)
+    assert abs(float(loss) - float(hloss)) < 1e-4 * abs(float(hloss))
+    for name, g in hgrads.items():
+        d = (grads[name].cpu() - g).abs().max()
+        assert float(d) <= 1e-3 * float(g.abs().max()) + 1e-12, name
+    opt = adamw(constant(1e-3))
+    step = make_train_step(bundle, opt, grad_accum=2)
     _, _, m = step(params, opt.init(params), 0, batch)
     assert bool(torch.isfinite(m["loss"])) and m["loss"].is_cuda

@@ -272,3 +272,39 @@ def test_device_default_and_unported_modes():
         T.Planner().cache.lookup(
             T.canonicalize(T.parse_query("a & b"))[0])[0].program,
         "cuda") == "cuda"
+
+
+def test_service_config_consolidation_and_shims():
+    """The twin of the reference's `test_server.py` case: the deprecated
+    deployment keywords (``reliability``, ``fault_tolerance``,
+    ``n_chips``; the port has no ``backend``) warn naming
+    `ServiceConfig` before anything else happens, once per call; the
+    convenience keywords stay silent; unknown ones raise."""
+    import warnings
+
+    from repro.service.config import DEPRECATED_KWARGS as R_DEPRECATED
+    from repro_torch.core.errors import ReliabilityConfig
+    from repro_torch.service.config import DEPRECATED_KWARGS
+
+    cfg = T.ServiceConfig(n_banks=4, device="cpu",
+                          slo=T.SloConfig(p99_ns=1e6))
+    svc = T.QueryService(cfg)
+    assert svc.config is cfg and svc.n_banks == 4
+    assert svc.serve_loop().slo.p99_ns == 1e6
+    assert DEPRECATED_KWARGS == {"reliability", "fault_tolerance",
+                                 "n_chips"} == R_DEPRECATED - {"backend"}
+    rel = ReliabilityConfig(mode="vote")
+    with pytest.warns(DeprecationWarning, match="ServiceConfig") as seen:
+        svc2 = T.QueryService(n_banks=4, device="cpu", reliability=rel)
+    assert len(seen) == 1 and svc2.config.reliability is rel
+    # the unported modes warn first, then raise
+    for field, value in (("n_chips", 2), ("fault_tolerance", object())):
+        with pytest.warns(DeprecationWarning, match=f"{field}=.*"
+                          "ServiceConfig"):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                T.QueryService(device="cpu", **{field: value})
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        T.QueryService(n_banks=4, device="cpu", optimize=False)
+    with pytest.raises(TypeError, match="unknown keyword"):
+        T.QueryService(bogus=1)

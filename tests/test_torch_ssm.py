@@ -329,8 +329,13 @@ def test_hybrid_cache_init_matches_reference_shapes():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_ssm_families_serve_but_do_not_train(arch):
+def test_ssm_families_serve_and_train(arch):
+    """``bundle.loss`` trains the SSM and hybrid families: a finite loss
+    and the metrics ``xent`` / ``aux`` (its parity with the reference is
+    `test_torch_train_step_ssm.py` / ``_hybrid``)."""
     _, _, tb, tp = _models(arch, "float32")
     toks = _prompts()
-    with pytest.raises(NotImplementedError, match="ROADMAP §A10"):
-        tb.loss(tp, {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]})
+    loss, metrics = tb.loss(tp, {"tokens": toks[:, :S],
+                                 "labels": toks[:, 1:S + 1]})
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"xent", "aux"}
+    assert float(metrics["aux"]) == 0.0
