@@ -28,10 +28,10 @@ Phases; the first failure exits non-zero:
    sub and lt at 1, 7, 8 and 32 bits, one and three rows of a ragged
    width; the bit untranspose with fewer than 32 planes, ragged group
    counts and a round trip through the bit transpose; ptxas's registers
-   and spill bytes of the Hopper flash kernels (the forward's instances
-   at head dims 64, 80 and 128 each required; the first design's bf16
-   instances at 64 and 80 must be gone), the VM and the bit transpose
-   (any spill fails); flash attention in float32 and
+   and spill bytes of the Hopper flash kernels (the forward's and the
+   backward's instances at head dims 64, 80 and 128 each required; the
+   first design's bf16 instances at 64 and 80 must be gone), the VM and
+   the bit transpose (any spill fails); flash attention in float32 and
    bf16 at the JAX package's five test shapes, a cross-attention shape (64
    queries over 100 keys), B = 2,
    S = 1,000 causal at hd 128, and the hd-128 kernels' edges (100 queries
@@ -53,13 +53,15 @@ Phases; the first failure exits non-zero:
    head dim 80: 32 heads over 32 at 1,000 queries causal and not, a GQA
    group of 2, 100 keys, B H = 160; SeamlessM4T's head dim 64 at B 2:
    1,024 x 1,024, causal 4,096 and 4,096 x 1,024; the VLM's cross
-   attention, 4,096 x 1,600 at 64 / 8 heads of 128), both dtypes: the
+   attention, 4,096 x 1,600 at 64 / 8 heads of 128; the Hopper
+   backward's edges at head dim 64: 100 keys, 130 and 300 queries, GQA
+   groups of 2, B H = 144 and 160), both dtypes: the
    lse-emitting forward (its
    output equal to the serving kernel's, the lse within 1e-4) and the
    backward (dq, dk, dv; two runs bit-identical) against their plain
    versions within the same tolerance, with ptxas's registers and spill
-   bytes of the first design's hd-80 backward instances printed (not
-   gated); sign
+   bytes of the float32 hd-80 backward instances printed (not gated);
+   sign
    pack / unpack bit for bit in float32 and bf16, with +-0, +-inf and NaNs
    of either sign, on a ragged (3, 32,032) and a 2**26-lane input;
    ``moe_ffn`` in float32 at reduced widths (d_model 1,024, 16 experts,
@@ -725,27 +727,36 @@ SERVE_FLASH_CASES = (
 )
 #: the kernels redesigned for Hopper that `phase_sm90_report` holds to
 #: zero spills, by source: the bf16 flash kernels (TMA ring + wgmma; the
-#: forward at head dims 64, 80 and 128, each instance required by name),
+#: forward and the backward at head dims 64, 80 and 128, each instance
+#: required by name: the backward's `<HD, true>` enter p and ds as hi + lo
+#: parts, `<128, false>` rounds them once to time what the split costs),
 #: the VM (pre-decoded program, cp.async tile ring) and the bit transpose
 #: (register butterfly)
 SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel<64>",
                               "flash_fwd_sm90_kernel<80>",
                               "flash_fwd_sm90_kernel<128>"),
-                "flashattn_bwd": ("flash_bwd_dq_sm90_kernel",
-                                  "flash_bwd_dkv_sm90_kernel"),
+                "flashattn_bwd": ("flash_bwd_dq_sm90_kernel<64, true>",
+                                  "flash_bwd_dq_sm90_kernel<80, true>",
+                                  "flash_bwd_dq_sm90_kernel<128, true>",
+                                  "flash_bwd_dq_sm90_kernel<128, false>",
+                                  "flash_bwd_dkv_sm90_kernel<64, true>",
+                                  "flash_bwd_dkv_sm90_kernel<80, true>",
+                                  "flash_bwd_dkv_sm90_kernel<128, true>",
+                                  "flash_bwd_dkv_sm90_kernel<128, false>"),
                 "vm": ("vm_kernel",),
                 "bittranspose": ("bit_transpose_kernel",)}
 #: the first design's bf16 instances that the Hopper route replaced: a
 #: build that still holds one fails
 RETIRED_KERNELS = {"flashattn": ("flash_mma_kernel<64>",
-                                 "flash_mma_kernel<80>")}
+                                 "flash_mma_kernel<80>"),
+                   "flashattn_bwd": ("flash_bwd_dq_mma_kernel<64>",
+                                     "flash_bwd_dq_mma_kernel<80>",
+                                     "flash_bwd_dkv_mma_kernel<64>",
+                                     "flash_bwd_dkv_mma_kernel<80>")}
 #: first-design instances whose registers and spill bytes
-#: `phase_sm90_report` prints without gating them: the backward at head
-#: dim 80 (bf16 on mma.sync, float32 on scalar FMAs), whose dk / dv kernel
-#: keeps two float[10][4] accumulators beside its S^T tile
-REPORTED_KERNELS = {"flashattn_bwd": ("flash_bwd_dq_mma_kernel<80>",
-                                      "flash_bwd_dkv_mma_kernel<80>",
-                                      "flash_bwd_dq_simt_kernel<80>",
+#: `phase_sm90_report` prints without gating them: the float32 backward
+#: at head dim 80 (scalar FMAs)
+REPORTED_KERNELS = {"flashattn_bwd": ("flash_bwd_dq_simt_kernel<80>",
                                       "flash_bwd_dkv_simt_kernel<80>")}
 #: kernel vs plain version: the JAX package's own bounds against its
 #: oracle (tests/test_flashattn.py), relative to each element and to the
@@ -932,7 +943,11 @@ def phase_flash_kernels(torch) -> float:
 #: the encoder's 1,024 frames, the decoder's causal 4,096, the cross
 #: attention of 4,096 queries over 1,024 frames) and the VLM's cross
 #: attention on the head-dim-128 Hopper backward (4,096 queries over
-#: 1,600 patches, not a multiple of its key tile, 64 heads over 8)
+#: 1,600 patches, not a multiple of its key tile, 64 heads over 8); then
+#: the Hopper backward's edges at head dim 64 (those at 80 are above):
+#: 100 keys (under one 128-key tile of the dk / dv kernel), 130 and 300
+#: queries (ragged query tiles), GQA groups of 2, and B H = 144 and 160
+#: query heads, more than the card's 132 SMs
 TRAIN_FLASH_CASES = FLASH_CASES + (
     (1, 4096, 4096, 16, 8, 128, True, 512, 512),
     (2, 1000, 1000, 32, 32, 80, True, 512, 512),
@@ -944,6 +959,10 @@ TRAIN_FLASH_CASES = FLASH_CASES + (
     (2, 4096, 4096, 16, 16, 64, True, 512, 512),
     (2, 4096, 1024, 16, 16, 64, False, 512, 512),
     (1, 4096, 1600, 64, 8, 128, False, 512, 512),
+    (1, 130, 100, 16, 8, 64, True, 64, 64),
+    (9, 130, 1000, 16, 8, 64, False, 128, 512),
+    (2, 300, 300, 8, 4, 64, True, 128, 128),
+    (5, 300, 100, 32, 16, 64, False, 128, 128),
 )
 
 
@@ -3954,12 +3973,14 @@ def phase_numbers(torch, calls, numbers: Numbers, int_rate, clock_hz):
 
 def _hopper_head_dims(name: str) -> set:
     """The head dims at which a bf16 launch of flash kernel ``name``
-    takes the Hopper route: the forward's `flash_fwd_sm90_kernel<HD>`
-    instances of `SM90_KERNELS`, the backward's sm90 kernels at 128."""
-    if name == "flash_attention_bwd":
-        return {128}
-    return {int(k[k.index("<") + 1:-1]) for k in SM90_KERNELS["flashattn"]
-            if k.startswith("flash_fwd_sm90_kernel<")}
+    takes the Hopper route: those of its sm90 instances in
+    `SM90_KERNELS` (`flash_fwd_sm90_kernel<HD>`,
+    `flash_bwd_dq_sm90_kernel<HD, split>`)."""
+    source, prefix = (("flashattn_bwd", "flash_bwd_dq_sm90_kernel<")
+                      if name == "flash_attention_bwd"
+                      else ("flashattn", "flash_fwd_sm90_kernel<"))
+    return {int(k[len(prefix):].split(",")[0].rstrip(">"))
+            for k in SM90_KERNELS[source] if k.startswith(prefix)}
 
 
 def _flash_routes(calls, hopper) -> dict:

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels in bf16
-// (flashattn.cu: the forward at head dims 64, 80 and 128; flashattn_bwd.cu:
-// the backward at head dim 128): TMA tensor maps built on the host,
+// (flashattn.cu: the forward, flashattn_bwd.cu: the backward, both at head
+// dims 64, 80 and 128): TMA tensor maps built on the host,
 // mbarriers, the bulk tensor copy, warpgroup register hand-over
 // (setmaxnreg) and wgmma with its shared-memory descriptors. Everything has
 // internal linkage: each source that includes this builds into its own
@@ -396,6 +396,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+// d (64 x HD, float32) += A B over one 16-deep k-step at head dim HD = 64,
+// 80 or 128: A from registers, B N-major in shared memory (the products
+// whose output columns are the head dim: P V, dS K, P^T dO, dS^T Q).
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  static_assert(HD == 64 || HD == 80 || HD == 128, "head dim");
+  if constexpr (HD == 64) {
+    wgmma_rs_n64(d, a, db, 1);
+  } else if constexpr (HD == 80) {
+    wgmma_rs_n80(d, a, db, 1);
+  } else {
+    wgmma_rs_n128(d, a, db, 1);
+  }
 }
 
 

@@ -452,22 +452,6 @@ struct Fwd {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
-// O (64 x HD) += P V over one 16-key step: P's bf16 A fragments, V's
-// N-major descriptor at that step (its halves LBO = 128 rows x 128 bytes
-// apart).
-template <int HD>
-__device__ __forceinline__ void pv_step(float (&o)[HD / 2],
-                                        const uint32_t (&a)[4],
-                                        uint64_t vd) {
-  if constexpr (HD == 64) {
-    wgmma_rs_n64(o, a, vd, 1);
-  } else if constexpr (HD == 80) {
-    wgmma_rs_n80(o, a, vd, 1);
-  } else {
-    wgmma_rs_n128(o, a, vd, 1);
-  }
-}
-
 struct Sm90Params {
   CUtensorMap q_map, k_map, v_map;
   void* o;
@@ -635,7 +619,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
       for (int kk = 0; kk < kFwdBN / 16; ++kk) {
         const uint32_t a[4] = {pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
                                pf[4 * kk + 3]};
-        pv_step<HD>(o, a, kstep_n(vd, kk));
+        wgmma_rs_hd<HD>(o, a, kstep_n(vd, kk));
       }
       wgmma_commit();
       wgmma_wait<0>();

@@ -14,7 +14,9 @@
 // (microbatch B = 2, H = 16, KV = 8, S = 4096, hd = 128, causal, bf16) the
 // five products over the unmasked pairs are 10 B H hd S (S + 1) / 2 =
 // 3.4e11 FLOP, 0.348 ms at 989 TFLOP/s, against q, k, v, o, do, lse, dq,
-// dk, dv = 0.20 GB, 0.060 ms at 3.35 TB/s.
+// dk, dv = 0.20 GB, 0.060 ms at 3.35 TB/s. Zamba2's shared attention (hd
+// 80, B 2, 32 heads, causal 4,096) is bound at 0.434 ms, SeamlessM4T's
+// hd-64 launches (B 2, 16 heads) at 0.022-0.174 ms.
 //
 // Design. Blocks run in no order, so each output gets the CTA that owns
 // it and a loop takes the place of the TPU's sequential grid axis:
@@ -32,7 +34,8 @@
 // model's (B, S, heads, hd) layout through their strides (hd contiguous);
 // lse and delta are contiguous (B, H, Sq) float32. Query rows past Sq and
 // keys past Sk are masked (p = 0: no phantom gradients, as the reference's
-// +inf lse padding gives) and never stored. The masks, exp, p and ds are
+// +inf lse padding gives) and never stored; lse and delta are never read
+// past Sq (the next head's rows lie there). The masks, exp, p and ds are
 // float32, as in the reference. Rounded once to bf16, ds = p (dp - delta),
 // which cancels within a row, moves small dq elements of the first causal
 // rows by 2-4% of dq's RMS, and p moves dv of the first keys (which every
@@ -41,37 +44,58 @@
 // and dv, which keeps about 16 bits of p and ds. The launcher's switch on
 // the head dim and dtype picks the kernels; none falls back on another:
 //
-//   bf16, head dim 128 (every dense config the port trains):
-//   flash_bwd_dq_sm90_kernel, then flash_bwd_dkv_sm90_kernel. Against
-//   the operation bound they keep the tensor cores fed: each CTA has two
-//   consumer warpgroups on wgmma and a producer that streams tiles by TMA
-//   (tensor maps over the model's layout, 128-byte swizzle) through a
-//   three-stage ring of full / empty mbarriers, and setmaxnreg gives the
-//   producer's registers to the consumers. The products over head dims
-//   (S, dP; S^T, dP^T) read both operands from shared memory, K-major; the
-//   products over keys or queries (dQ += dS K, dV += P^T dO, dK += dS^T Q)
-//   take dS, P^T, dS^T from registers (their accumulators are the A
-//   fragments) and read K, dO, Q in their natural [row][hd] layout through
-//   the descriptor's transpose bit, so nothing is staged transposed; the
-//   lo part of the split is one more product on the same descriptor. dq:
-//   128 query rows a CTA, 64-key tiles. dk / dv: 128 keys a CTA, K and V
-//   loaded once, 64-query tiles with their lse and delta rows, in two
-//   passes (dV, then dK) so that one accumulator of 64 registers a thread
-//   is live beside S^T and dP^T; with both live ptxas spilled. p is
-//   2^(s scale log2(e) - lse log2(e)).
-//   bf16, head dims 16, 32, 64, 80, 112: the first design,
-//   flash_bwd_dq_mma_kernel and flash_bwd_dkv_mma_kernel: four warps on
-//   mma.sync.m16n8k16 with float32 accumulation, 64 x 64 tiles staged in
-//   shared memory
-//   (row-major where they are an A operand or the B operand of a product
-//   over hd, transposed where they are the B operand of a product over
-//   keys or queries), the same hi + lo split. Every loop over the head
-//   dim runs HD / 16 k-steps or HD / 8 n-tiles, and a staged 64-row tile
-//   is 64 x HD / 8 16-byte chunks over 128 threads, so hd 80 (5 k-steps,
-//   10 n-tiles, 5 chunks a thread) needs no power of two. Its
-//   dk / dv kernel keeps two float[10][4] accumulators beside the 64 x 64
-//   S^T tile and takes 4 * 64 * 88 * 2 + 2 * 80 * 72 * 2 + 512 = 68,608
-//   bytes of shared memory (set by `launch` above the 48 KB default).
+//   bf16, head dims 64, 80 and 128 (every dense config the port trains at
+//   128; SeamlessM4T at 64, Zamba2's shared attention at 80):
+//   flash_bwd_dq_sm90_kernel<HD, true>, then flash_bwd_dkv_sm90_kernel<HD,
+//   true>. Against the operation bound they keep the tensor cores fed:
+//   each CTA has two consumer warpgroups on wgmma and a producer that
+//   streams tiles by TMA (tensor maps over the model's layout, 128-byte
+//   swizzle) through a ring of full / empty mbarriers, and setmaxnreg
+//   gives the producer's registers to the consumers. A tile row is
+//   ceil(HD / 64) boxes of 64 columns: one at hd 64, two at 80 and 128; at
+//   80 TMA fills columns 80-127 of the second box with zeros. The products
+//   over the head dim (S, dP; S^T, dP^T) read both operands from shared
+//   memory, K-major, in HD / 16 k-steps (at hd 80 the fifth reads columns
+//   64-79 of the second box); the products over keys or queries (dQ += dS
+//   K, dV += P^T dO, dK += dS^T Q) take dS, P^T, dS^T from registers (their
+//   accumulators are the A fragments) and read K, dO, Q in their natural
+//   [row][hd] layout through the descriptor's transpose bit, one
+//   m64nHDk16 wgmma a 16-deep step (at hd 80 across both boxes, LBO = the
+//   second box's distance), which writes exactly the HD / 2 accumulator
+//   floats a thread; nothing is staged transposed, the lo part of the
+//   split is one more product on the same descriptor, and the epilogue
+//   stores the HD real columns. dq: 128 query rows a CTA, 64-key tiles.
+//   dk / dv: 128 keys a CTA, K and V loaded once, 64-query tiles with their
+//   lse and delta rows. At hd 128 in two passes (dV, then dK), so that one
+//   accumulator of 64 registers a thread is live beside S^T and dP^T; with
+//   both live ptxas spilled. At hd 64 and 80 in one pass: dK and dV (32 +
+//   32 or 40 + 40 floats a thread) stay live, S^T is computed once and Q,
+//   dO stream once; a tile runs S^T, p^T and its fragments, dV += P^T dO,
+//   dP^T, ds^T, dK += dS^T Q, each product waited for before the next.
+//   p is 2^(s scale log2(e) - lse log2(e)). The ring has three stages at
+//   hd 80 and 128 and six at 64. The variants timed while choosing, each
+//   in turns in one call on an H100 80GB HBM3 at 700 W (ms a launch, B 2;
+//   only the chosen ones were kept): at hd 64, 16 heads, over 1,024 x
+//   1,024 / causal 4,096 / 4,096 x 1,024 keys, a ring of six 0.150 /
+//   0.893 / 0.519, of eight 0.155 / 0.908 / 0.537, of four 0.156 / 0.915
+//   / 0.538, of three 0.154 / 0.908 / 0.536, of two 0.156 / 0.917 /
+//   0.546; at hd 80, 32 heads, causal 4,096, rings of two, three and four
+//   2.004, 2.040 and 2.051 (two builds of three: 1.993 and 2.040). Tried
+//   and not kept: dP^T issued with dV in one batch (ptxas spilled 12 bytes
+//   at hd 64 and serialized the wgmmas at 80: 2.15 against 2.02); dQ's
+//   product left in flight while the next tile's S and dP are issued
+//   (2.05-2.15 against 1.97-2.02 at hd 80); 288 threads, one producer
+//   warp and no setmaxnreg (the consumers then report 127-164 registers):
+//   no faster, and sharing a batch still spills or serializes.
+//   bf16, head dims 16, 32 (test shapes) and 112 (Kimi K2's head): the
+//   first design, flash_bwd_dq_mma_kernel and flash_bwd_dkv_mma_kernel:
+//   four warps on mma.sync.m16n8k16 with float32 accumulation, 64 x 64
+//   tiles staged in shared memory (row-major where they are an A operand
+//   or the B operand of a product over hd, transposed where they are the
+//   B operand of a product over keys or queries), the same hi + lo split.
+//   Every loop over the head dim runs HD / 16 k-steps or HD / 8 n-tiles,
+//   and a staged 64-row tile is 64 x HD / 8 16-byte chunks over 128
+//   threads, so no power of two is needed.
 //   float32, every head dim: scalar FP32 FMAs, 256 threads, each owning a
 //   4 x 4 block of the 64 x 64 score tile and a 4 x (hd / 16) block of its
 //   accumulators.
@@ -686,13 +710,32 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dim 128: TMA ring + wgmma (sm_90a)
+// bf16, head dims 64, 80, 128: TMA ring + wgmma (sm_90a)
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 384;     // consumers: warpgroups 0, 1; producer: 2
-constexpr int kBwdStages = 3;        // tiles in flight
-constexpr int kRows128 = 128 * 256;  // bytes of 128 rows of 128 bf16
-constexpr int kRows64 = 64 * 256;    // bytes of 64 rows
+
+// The backward's shape at head dim HD: a tile row is ceil(HD / 64) halves
+// of 64 columns (128 bytes a row each; at hd 80 TMA zero-fills columns
+// 80-127 of the second); a warpgroup's 64 x HD accumulator is HD / 2
+// floats a thread. Below 128 the dk / dv kernel makes one pass (dK and dV
+// live together). The ring is as deep as was measured fastest (times in
+// the header).
+template <int HD>
+struct Bwd {
+  static constexpr int kHalves = (HD + 63) / 64;
+  static constexpr int kRows128 = 128 * 128 * kHalves;  // bytes of 128 rows
+  static constexpr int kRows64 = 64 * 128 * kHalves;    // bytes of 64 rows
+  static constexpr int kStages = HD == 64 ? 6 : 3;
+  static constexpr bool kOnePass = HD < 128;
+  static constexpr int kAcc = HD / 2;
+  static constexpr int kBars = 1 + 2 * kStages;  // loaded once; full, empty
+  static constexpr int kDqSmem =
+      1024 + 2 * kRows128 + 2 * kStages * kRows64 + 8 * kBars;
+  static constexpr int kDkvSmem = kDqSmem + 2 * kStages * 64 * 4;
+  static_assert(HD == 64 || HD == 80 || HD == 128, "head dim");
+  static_assert(kDkvSmem <= 232448, "shared memory");
+};
 
 struct DqParams {
   CUtensorMap q_map, do_map;        // boxes of 128 rows
@@ -720,18 +763,15 @@ struct DkvParams {
   float scale, scale_log2;
 };
 
-constexpr int kDqSmem = 1024 + 2 * kRows128 + 2 * kBwdStages * kRows64 + 64;
-constexpr int kDkvSmem = 1024 + 2 * kRows128 + 2 * kBwdStages * kRows64 +
-                         2 * kBwdStages * 64 * 4 + 64;
-
-// Store a warpgroup's 64 x 128 float32 accumulator as bf16 rows row0 (and
-// row0 + 8) of x, those below `rows` only.
+// Store a warpgroup's 64 x HD float32 accumulator as bf16 rows row0 (and
+// row0 + 8) of x, those below `rows` only, HD real columns.
+template <int HD>
 __device__ __forceinline__ void store_acc_rows(__nv_bfloat16* x,
                                                long long row_stride,
-                                               const float (&acc)[64],
+                                               const float (&acc)[HD / 2],
                                                int row0, int rows, int t) {
 #pragma unroll
-  for (int i = 0; i < 64; i += 4) {
+  for (int i = 0; i < HD / 2; i += 4) {
     const int d = 8 * (i / 4) + 2 * t;
     if (row0 < rows) {
       *reinterpret_cast<__nv_bfloat162*>(
@@ -746,6 +786,53 @@ __device__ __forceinline__ void store_acc_rows(__nv_bfloat16* x,
   }
 }
 
+// acc (64 x HD) += A B over a depth of 64 rows: A's bf16 fragments (hi,
+// and lo after it where kSplit), B N-major from the 64-row tile at `tile`
+// (its halves 64 x 128 bytes apart).
+template <int HD, bool kSplit>
+__device__ __forceinline__ void rs_product(float (&acc)[HD / 2],
+                                           const uint32_t (&hi)[16],
+                                           const uint32_t (&lo)[16],
+                                           const unsigned char* tile) {
+  const uint64_t bn = desc_n(tile, 64 * 128);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bd = kstep_n(bn, kk);
+    const uint32_t ah[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
+                            hi[4 * kk + 3]};
+    wgmma_rs_hd<HD>(acc, ah, bd);
+    if constexpr (kSplit) {
+      const uint32_t al[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+                              lo[4 * kk + 3]};
+      wgmma_rs_hd<HD>(acc, al, bd);
+    }
+  }
+}
+
+// d (64 x 64) = A B^T over the head dim's HD / 16 k-steps: A's 64 rows
+// (K-major, in a tile of `a_rows` rows) and B's 64 rows (K-major, a
+// 64-row tile).
+template <int HD>
+__device__ __forceinline__ void ss_product(float (&d)[32], uint64_t da,
+                                           int a_rows, uint64_t db) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    wgmma_ss_n64(d, kstep_k(da, a_rows, ks), kstep_k(db, 64, ks), ks > 0);
+  }
+}
+
+// The bf16 A fragments of x: hi (+ lo where kSplit).
+template <bool kSplit>
+__device__ __forceinline__ void to_frags(const float (&x)[32],
+                                         uint32_t (&hi)[16],
+                                         uint32_t (&lo)[16]) {
+  if constexpr (kSplit) {
+    acc_to_split_frags(x, hi, lo);
+  } else {
+    acc_to_frags(x, hi);
+  }
+}
+
 // dq: a CTA per (128-row query tile, head, batch), the heaviest (last,
 // when causal) first. Q and dO are loaded once; K and V tiles of 64 keys
 // stream through the ring up to the diagonal. Each consumer warpgroup
@@ -753,19 +840,21 @@ __device__ __forceinline__ void store_acc_rows(__nv_bfloat16* x,
 // dS = P (dP - delta) scale in registers, dQ += dS K with K read N-major.
 // kSplit: dS enters as hi + lo bf16 parts (two products), else rounded
 // once.
-template <bool kSplit>
+template <int HD, bool kSplit>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ DqParams p) {
+  using T = Bwd<HD>;
+  constexpr int kStages = T::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sQ = smem;
-  unsigned char* sdO = sQ + kRows128;
-  unsigned char* sK = sdO + kRows128;                   // [stage]
-  unsigned char* sV = sK + kBwdStages * kRows64;        // [stage]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kBwdStages * kRows64);
+  unsigned char* sdO = sQ + T::kRows128;
+  unsigned char* sK = sdO + T::kRows128;                // [stage]
+  unsigned char* sV = sK + kStages * T::kRows64;        // [stage]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kStages * T::kRows64);
   uint64_t* q_full = bars;
   uint64_t* kv_full = bars + 1;                         // [stage]
-  uint64_t* empty = kv_full + kBwdStages;               // [stage]
+  uint64_t* empty = kv_full + kStages;                  // [stage]
 
   const int bh = p.heads * p.batch;
   const int qt = p.n_q_tiles - 1 - static_cast<int>(blockIdx.x) / bh;
@@ -777,7 +866,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqParams p) {
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&kv_full[s], 1);
       mbar_init(&empty[s], 8);        // one arrival per consumer warp
     }
@@ -790,17 +879,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqParams p) {
     regs_release<40>();
     if (threadIdx.x == 256) {
       const int kvh = h / p.group;
-      mbar_arrive_expect_tx(q_full, 2 * kRows128);
-      tma_load_rows(sQ, &p.q_map, q_full, 128, q0, h, b);
-      tma_load_rows(sdO, &p.do_map, q_full, 128, q0, h, b);
+      mbar_arrive_expect_tx(q_full, 2 * T::kRows128);
+      tma_load_rows<T::kHalves>(sQ, &p.q_map, q_full, 128, q0, h, b);
+      tma_load_rows<T::kHalves>(sdO, &p.do_map, q_full, 128, q0, h, b);
       for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kBwdStages;
-        if (j >= kBwdStages) mbar_wait(&empty[s], (j / kBwdStages - 1) & 1);
-        mbar_arrive_expect_tx(&kv_full[s], 2 * kRows64);
-        tma_load_rows(sK + s * kRows64, &p.k_map, &kv_full[s], 64, j * 64,
-                      kvh, b);
-        tma_load_rows(sV + s * kRows64, &p.v_map, &kv_full[s], 64, j * 64,
-                      kvh, b);
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&kv_full[s], 2 * T::kRows64);
+        tma_load_rows<T::kHalves>(sK + s * T::kRows64, &p.k_map,
+                                  &kv_full[s], 64, j * 64, kvh, b);
+        tma_load_rows<T::kHalves>(sV + s * T::kRows64, &p.v_map,
+                                  &kv_full[s], 64, j * 64, kvh, b);
       }
     }
   } else {
@@ -821,30 +910,22 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqParams p) {
     const uint64_t do_desc = desc_k(sdO + wg * 64 * 128);
     const float c = p.scale_log2;
 
-    float dq[64];
+    float dq[T::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < T::kAcc; ++i) dq[i] = 0.f;
 
     mbar_wait(q_full, 0);
     for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kBwdStages;
+      const int s = j % kStages;
       const int k0 = j * 64;
-      const unsigned char* k_tile = sK + s * kRows64;
-      const unsigned char* v_tile = sV + s * kRows64;
-      mbar_wait(&kv_full[s], (j / kBwdStages) & 1);
+      const unsigned char* k_tile = sK + s * T::kRows64;
+      const unsigned char* v_tile = sV + s * T::kRows64;
+      mbar_wait(&kv_full[s], (j / kStages) & 1);
       if (!p.causal || k0 <= wg_row + 63) {   // else wholly masked here
         float sc[32], dp[32];
         wgmma_fence();
-        const uint64_t qd = opaque(q_desc), dod = opaque(do_desc);
-        const uint64_t kd = desc_k(k_tile), vd = desc_k(v_tile);
-#pragma unroll
-        for (int ks = 0; ks < 8; ++ks) {
-          wgmma_ss_n64(sc, kstep_k(qd, 128, ks), kstep_k(kd, 64, ks), ks > 0);
-        }
-#pragma unroll
-        for (int ks = 0; ks < 8; ++ks) {
-          wgmma_ss_n64(dp, kstep_k(dod, 128, ks), kstep_k(vd, 64, ks), ks > 0);
-        }
+        ss_product<HD>(sc, opaque(q_desc), 128, desc_k(k_tile));
+        ss_product<HD>(dp, opaque(do_desc), 128, desc_k(v_tile));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sc);
@@ -865,26 +946,10 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqParams p) {
           sc[i] = pr * (dp[i] - (lower ? d1 : d0)) * p.scale;
         }
         uint32_t hi[16], lo[16];
-        if constexpr (kSplit) {
-          acc_to_split_frags(sc, hi, lo);
-        } else {
-          acc_to_frags(sc, hi);
-        }
+        to_frags<kSplit>(sc, hi, lo);
         // dQ += dS K: K read N-major in its [key][head dim] layout
-        const uint64_t kn = desc_n(k_tile, 64 * 128);
         wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint64_t ks_desc = kstep_n(kn, kk);
-          const uint32_t ah[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
-                                  hi[4 * kk + 3]};
-          wgmma_rs_n128(dq, ah, ks_desc, 1);
-          if constexpr (kSplit) {
-            const uint32_t al[4] = {lo[4 * kk], lo[4 * kk + 1],
-                                    lo[4 * kk + 2], lo[4 * kk + 3]};
-            wgmma_rs_n128(dq, al, ks_desc, 1);
-          }
-        }
+        rs_product<HD, kSplit>(dq, hi, lo, k_tile);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -894,37 +959,79 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ DqParams p) {
     }
     auto* out = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_strides[0] +
                 h * p.dq_strides[2];
-    store_acc_rows(out, p.dq_strides[1], dq, row0, p.sq, t);
+    store_acc_rows<HD>(out, p.dq_strides[1], dq, row0, p.sq, t);
+  }
+}
+
+// p^T = 2^(s^T c - lse log2 e) in place of a warpgroup's S^T tile (rows:
+// keys key0 and key0 + 8 of this thread; columns: the tile's 64 queries
+// from q0, whose lse log2 e is lrow[]), 0 above the diagonal where `mask`.
+__device__ __forceinline__ void st_to_p(float (&st)[32], const float* lrow,
+                                        float c, bool mask, int key0, int q0,
+                                        int t) {
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    const int col = 8 * jb + 2 * t;
+    const float2 lv = *reinterpret_cast<const float2*>(lrow + col);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * jb + e;
+      float pr = exp2f(fmaf(st[x], c, -((e & 1) ? lv.y : lv.x)));
+      if (mask && key0 + ((e & 2) ? 8 : 0) > q0 + col + (e & 1)) pr = 0.f;
+      st[x] = pr;
+    }
+  }
+}
+
+// ds^T = p^T (dp^T - delta) scale in place of p^T (delta of the tile's
+// queries in drow[]).
+__device__ __forceinline__ void p_to_ds(float (&pt)[32],
+                                        const float (&dpt)[32],
+                                        const float* drow, float scale,
+                                        int t) {
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb) {
+    const float2 dl = *reinterpret_cast<const float2*>(drow + 8 * jb + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * jb + e;
+      pt[x] = pt[x] * (dpt[x] - ((e & 1) ? dl.y : dl.x)) * scale;
+    }
   }
 }
 
 // dk / dv: a CTA per (128-key tile, key/value head, batch), the heaviest
 // (first, when causal) first. K and V are loaded once; the Q and dO tiles
 // of 64 query rows of every head in the GQA group, from the diagonal on,
-// stream through the ring with their lse and delta rows, twice: a first
-// pass accumulates dV += P^T dO, a second dK += dS^T Q. Each consumer
-// warpgroup owns 64 keys: S^T = K Q^T (and dP^T = V dO^T in the second
-// pass) from shared memory, p and ds in registers, dO and Q read N-major.
-// One accumulator a pass keeps dK and dV from being live together (128
-// registers a thread beside S^T and dP^T), which ptxas cannot fit without
-// spilling; the price is S^T computed twice and Q, dO streamed twice. The
-// group's sum stays in registers: no atomics, and the result is
-// deterministic. kSplit: p and ds enter as hi + lo bf16 parts.
-template <bool kSplit>
+// stream through the ring with their lse and delta rows. Each consumer
+// warpgroup owns 64 keys: S^T = K Q^T and dP^T = V dO^T from shared
+// memory, p^T and ds^T in registers, dV += P^T dO and dK += dS^T Q with dO
+// and Q read N-major. Below head dim 128 one pass keeps dK and dV (2 x HD
+// / 2 floats a thread) beside S^T and dP^T: per tile S^T, then p^T and its
+// fragments, dV += P^T dO, dP^T, ds^T and its fragments, dK += dS^T Q. At
+// 128 the two accumulators (128 floats a thread) beside S^T and dP^T
+// spill, so the tiles stream twice: a first pass accumulates dV, a second
+// dK, computing S^T again. The group's sum stays in registers: no
+// atomics, and the result is deterministic. kSplit: p and ds enter as hi
+// + lo bf16 parts.
+template <int HD, bool kSplit>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvParams p) {
+  using T = Bwd<HD>;
+  constexpr int kStages = T::kStages;
+  constexpr int kPasses = T::kOnePass ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   unsigned char* sK = smem;
-  unsigned char* sV = sK + kRows128;
-  unsigned char* sQ = sV + kRows128;                    // [stage]
-  unsigned char* sdO = sQ + kBwdStages * kRows64;       // [stage]
-  float* sL = reinterpret_cast<float*>(sdO + kBwdStages * kRows64);
-  float* sD = sL + kBwdStages * 64;                     // [stage][64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sD + kBwdStages * 64);
+  unsigned char* sV = sK + T::kRows128;
+  unsigned char* sQ = sV + T::kRows128;                 // [stage]
+  unsigned char* sdO = sQ + kStages * T::kRows64;       // [stage]
+  float* sL = reinterpret_cast<float*>(sdO + kStages * T::kRows64);
+  float* sD = sL + kStages * 64;                        // [stage][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sD + kStages * 64);
   uint64_t* kv_full = bars;
   uint64_t* full = bars + 1;                            // [stage]
-  uint64_t* empty = full + kBwdStages;                  // [stage]
+  uint64_t* empty = full + kStages;                     // [stage]
 
   const int bkv = p.kv_heads * p.batch;
   const int k0 = static_cast<int>(blockIdx.x) / bkv * 128;
@@ -937,7 +1044,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvParams p) {
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 32);        // the producer warp's lanes
       mbar_init(&empty[s], 8);        // one arrival per consumer warp
     }
@@ -951,16 +1058,16 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvParams p) {
     if (threadIdx.x < 288) {          // one warp: TMA, lse and delta rows
       const int lane = threadIdx.x % 32;
       if (lane == 0) {
-        mbar_arrive_expect_tx(kv_full, 2 * kRows128);
-        tma_load_rows(sK, &p.k_map, kv_full, 128, k0, kvh, b);
-        tma_load_rows(sV, &p.v_map, kv_full, 128, k0, kvh, b);
+        mbar_arrive_expect_tx(kv_full, 2 * T::kRows128);
+        tma_load_rows<T::kHalves>(sK, &p.k_map, kv_full, 128, k0, kvh, b);
+        tma_load_rows<T::kHalves>(sV, &p.v_map, kv_full, 128, k0, kvh, b);
       }
-      for (int i = 0; i < 2 * n_iter; ++i) {
-        const int s = i % kBwdStages;
+      for (int i = 0; i < kPasses * n_iter; ++i) {
+        const int s = i % kStages;
         const int j = i < n_iter ? i : i - n_iter;
         const int h = kvh * p.group + j / per_head;
         const int q0 = (first + j % per_head) * 64;
-        if (i >= kBwdStages) mbar_wait(&empty[s], (i / kBwdStages - 1) & 1);
+        if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);
         const long long row_base =
             (static_cast<long long>(b) * p.heads + h) * p.sq;
 #pragma unroll
@@ -972,10 +1079,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvParams p) {
           sD[s * 64 + r] = qpos < p.sq ? p.delta[row_base + qpos] : 0.f;
         }
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[s], 2 * kRows64);
-          tma_load_rows(sQ + s * kRows64, &p.q_map, &full[s], 64, q0, h, b);
-          tma_load_rows(sdO + s * kRows64, &p.do_map, &full[s], 64, q0, h,
-                        b);
+          mbar_arrive_expect_tx(&full[s], 2 * T::kRows64);
+          tma_load_rows<T::kHalves>(sQ + s * T::kRows64, &p.q_map, &full[s],
+                                    64, q0, h, b);
+          tma_load_rows<T::kHalves>(sdO + s * T::kRows64, &p.do_map,
+                                    &full[s], 64, q0, h, b);
         } else {
           mbar_arrive(&full[s]);
         }
@@ -993,98 +1101,104 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvParams p) {
     const float c = p.scale_log2;
 
     mbar_wait(kv_full, 0);
-    // unrolled, so that each pass is compiled on its own: dP^T exists in
-    // the second only
+    if constexpr (T::kOnePass) {
+      float dk[T::kAcc], dv[T::kAcc];
 #pragma unroll
-    for (int pass = 0; pass < 2; ++pass) {            // 0: dV, 1: dK
-      float acc[64];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      for (int i = 0; i < T::kAcc; ++i) dk[i] = dv[i] = 0.f;
       for (int j = 0; j < n_iter; ++j) {
-        const int i = pass * n_iter + j;              // position in the ring
-        const int s = i % kBwdStages;
+        const int s = j % kStages;
         const int q0 = (first + j % per_head) * 64;
-        const unsigned char* q_tile = sQ + s * kRows64;
-        const unsigned char* do_tile = sdO + s * kRows64;
-        mbar_wait(&full[s], (i / kBwdStages) & 1);
+        const unsigned char* q_tile = sQ + s * T::kRows64;
+        const unsigned char* do_tile = sdO + s * T::kRows64;
+        mbar_wait(&full[s], (j / kStages) & 1);
         if (!p.causal || q0 + 63 >= kw0) {    // else wholly masked here
           float st[32], dpt[32];
-          const uint64_t kd = opaque(k_desc);
-          const uint64_t qd = desc_k(q_tile);
+          uint32_t hi[16], lo[16];
           wgmma_fence();
-#pragma unroll
-          for (int ks = 0; ks < 8; ++ks) {
-            wgmma_ss_n64(st, kstep_k(kd, 128, ks), kstep_k(qd, 64, ks),
-                         ks > 0);
-          }
-          if (pass == 1) {
-            const uint64_t vd = opaque(v_desc);
-            const uint64_t dod = desc_k(do_tile);
-#pragma unroll
-            for (int ks = 0; ks < 8; ++ks) {
-              wgmma_ss_n64(dpt, kstep_k(vd, 128, ks), kstep_k(dod, 64, ks),
-                           ks > 0);
-            }
-          }
+          ss_product<HD>(st, opaque(k_desc), 128, desc_k(q_tile));
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(st);
-          if (pass == 1) fence_regs(dpt);
-
-          // p^T (pass 0) or ds^T (pass 1) in place of s^T; the columns
-          // are the tile's queries
-          const float* lrow = sL + s * 64;
-          const float* drow = sD + s * 64;
-          const bool mask = p.causal && q0 < kw0 + 63;
-#pragma unroll
-          for (int jb = 0; jb < 8; ++jb) {
-            const int col = 8 * jb + 2 * t;
-            const float2 lv = *reinterpret_cast<const float2*>(lrow + col);
-            const float2 dl = *reinterpret_cast<const float2*>(drow + col);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int x = 4 * jb + e;
-              float pr = exp2f(fmaf(st[x], c, -((e & 1) ? lv.y : lv.x)));
-              if (mask && key0 + ((e & 2) ? 8 : 0) > q0 + col + (e & 1)) {
-                pr = 0.f;
-              }
-              st[x] = pass == 0
-                  ? pr
-                  : pr * (dpt[x] - ((e & 1) ? dl.y : dl.x)) * p.scale;
-            }
-          }
-          uint32_t hi[16], lo[16];
-          if constexpr (kSplit) {
-            acc_to_split_frags(st, hi, lo);
-          } else {
-            acc_to_frags(st, hi);
-          }
-          // acc += P^T dO (pass 0) or dS^T Q (pass 1), read N-major
-          const uint64_t bn = desc_n(pass == 0 ? do_tile : q_tile, 64 * 128);
+          st_to_p(st, sL + s * 64, c, p.causal && q0 < kw0 + 63, key0, q0,
+                  t);
+          to_frags<kSplit>(st, hi, lo);
+          // dV += P^T dO, then dP^T = V dO^T (issued as one batch, ptxas
+          // spills at hd 64 and serializes the wgmmas at 80)
           wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const uint64_t bd = kstep_n(bn, kk);
-            const uint32_t ah[4] = {hi[4 * kk], hi[4 * kk + 1],
-                                    hi[4 * kk + 2], hi[4 * kk + 3]};
-            wgmma_rs_n128(acc, ah, bd, 1);
-            if constexpr (kSplit) {
-              const uint32_t al[4] = {lo[4 * kk], lo[4 * kk + 1],
-                                      lo[4 * kk + 2], lo[4 * kk + 3]};
-              wgmma_rs_n128(acc, al, bd, 1);
-            }
-          }
+          rs_product<HD, kSplit>(dv, hi, lo, do_tile);
           wgmma_commit();
           wgmma_wait<0>();
-          fence_regs(acc);
+          fence_regs(dv);
+          wgmma_fence();
+          ss_product<HD>(dpt, opaque(v_desc), 128, desc_k(do_tile));
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dpt);
+          p_to_ds(st, dpt, sD + s * 64, p.scale, t);
+          to_frags<kSplit>(st, hi, lo);
+          // dK += dS^T Q
+          wgmma_fence();
+          rs_product<HD, kSplit>(dk, hi, lo, q_tile);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dk);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[s]);
       }
-      const long long* strides = pass == 0 ? p.dv_strides : p.dk_strides;
-      auto* out = static_cast<__nv_bfloat16*>(pass == 0 ? p.dv : p.dk) +
-                  b * strides[0] + kvh * strides[2];
-      store_acc_rows(out, strides[1], acc, key0, p.sk, t);
+      auto* out_k = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_strides[0] +
+                    kvh * p.dk_strides[2];
+      auto* out_v = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_strides[0] +
+                    kvh * p.dv_strides[2];
+      store_acc_rows<HD>(out_k, p.dk_strides[1], dk, key0, p.sk, t);
+      store_acc_rows<HD>(out_v, p.dv_strides[1], dv, key0, p.sk, t);
+    } else {
+      // unrolled, so that each pass is compiled on its own: dP^T exists in
+      // the second only
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {          // 0: dV, 1: dK
+        float acc[T::kAcc];
+#pragma unroll
+        for (int i = 0; i < T::kAcc; ++i) acc[i] = 0.f;
+        for (int j = 0; j < n_iter; ++j) {
+          const int i = pass * n_iter + j;            // position in the ring
+          const int s = i % kStages;
+          const int q0 = (first + j % per_head) * 64;
+          const unsigned char* q_tile = sQ + s * T::kRows64;
+          const unsigned char* do_tile = sdO + s * T::kRows64;
+          mbar_wait(&full[s], (i / kStages) & 1);
+          if (!p.causal || q0 + 63 >= kw0) {  // else wholly masked here
+            float st[32], dpt[32];
+            wgmma_fence();
+            ss_product<HD>(st, opaque(k_desc), 128, desc_k(q_tile));
+            if (pass == 1) {
+              ss_product<HD>(dpt, opaque(v_desc), 128, desc_k(do_tile));
+            }
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(st);
+            if (pass == 1) fence_regs(dpt);
+            st_to_p(st, sL + s * 64, c, p.causal && q0 < kw0 + 63, key0,
+                    q0, t);
+            if (pass == 1) p_to_ds(st, dpt, sD + s * 64, p.scale, t);
+            uint32_t hi[16], lo[16];
+            to_frags<kSplit>(st, hi, lo);
+            // acc += P^T dO (pass 0) or dS^T Q (pass 1)
+            wgmma_fence();
+            rs_product<HD, kSplit>(acc, hi, lo,
+                                   pass == 0 ? do_tile : q_tile);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[s]);
+        }
+        const long long* strides = pass == 0 ? p.dv_strides : p.dk_strides;
+        auto* out = static_cast<__nv_bfloat16*>(pass == 0 ? p.dv : p.dk) +
+                    b * strides[0] + kvh * strides[2];
+        store_acc_rows<HD>(out, strides[1], acc, key0, p.sk, t);
+      }
     }
   }
 }
@@ -1102,28 +1216,43 @@ cudaError_t launch_sm90(Kernel kernel, int smem, long long blocks,
   return cudaGetLastError();
 }
 
-// The head-dim-128 bf16 launch: a tensor map per operand and tile height,
-// then the dq kernel and the dk / dv kernel on `stream`.
+template <int HD, bool kSplit>
+cudaError_t launch_sm90_pair(const DqParams& dq, long long dq_blocks,
+                             const DkvParams& dkv, long long dkv_blocks,
+                             cudaStream_t stream) {
+  const cudaError_t err =
+      launch_sm90(flash_bwd_dq_sm90_kernel<HD, kSplit>, Bwd<HD>::kDqSmem,
+                  dq_blocks, dq, stream);
+  if (err != cudaSuccess) return err;
+  return launch_sm90(flash_bwd_dkv_sm90_kernel<HD, kSplit>,
+                     Bwd<HD>::kDkvSmem, dkv_blocks, dkv, stream);
+}
+
+// The bf16 launch at head dims 64, 80 and 128: a tensor map per operand
+// and tile height, then the dq kernel and the dk / dv kernel on `stream`.
+// A refused map or launch returns its error; nothing retries on another
+// kernel. `split` = false (p and ds rounded once) exists at 128 only.
+template <int HD>
 cudaError_t launch_bwd_sm90(const BwdParams& p, int batch, int kv_heads,
                             bool split, cudaStream_t stream) {
   DqParams dq;
   DkvParams dkv;
   const bool mapped =
-      make_tile_map(&dq.q_map, p.q, batch, p.sq, p.heads, 128, p.q_strides,
+      make_tile_map(&dq.q_map, p.q, batch, p.sq, p.heads, HD, p.q_strides,
                     128) &&
-      make_tile_map(&dq.do_map, p.dout, batch, p.sq, p.heads, 128,
+      make_tile_map(&dq.do_map, p.dout, batch, p.sq, p.heads, HD,
                     p.do_strides, 128) &&
-      make_tile_map(&dq.k_map, p.k, batch, p.sk, kv_heads, 128, p.k_strides,
+      make_tile_map(&dq.k_map, p.k, batch, p.sk, kv_heads, HD, p.k_strides,
                     64) &&
-      make_tile_map(&dq.v_map, p.v, batch, p.sk, kv_heads, 128, p.v_strides,
+      make_tile_map(&dq.v_map, p.v, batch, p.sk, kv_heads, HD, p.v_strides,
                     64) &&
-      make_tile_map(&dkv.k_map, p.k, batch, p.sk, kv_heads, 128,
+      make_tile_map(&dkv.k_map, p.k, batch, p.sk, kv_heads, HD,
                     p.k_strides, 128) &&
-      make_tile_map(&dkv.v_map, p.v, batch, p.sk, kv_heads, 128,
+      make_tile_map(&dkv.v_map, p.v, batch, p.sk, kv_heads, HD,
                     p.v_strides, 128) &&
-      make_tile_map(&dkv.q_map, p.q, batch, p.sq, p.heads, 128, p.q_strides,
+      make_tile_map(&dkv.q_map, p.q, batch, p.sq, p.heads, HD, p.q_strides,
                     64) &&
-      make_tile_map(&dkv.do_map, p.dout, batch, p.sq, p.heads, 128,
+      make_tile_map(&dkv.do_map, p.dout, batch, p.sq, p.heads, HD,
                     p.do_strides, 64);
   if (!mapped) return cudaErrorInvalidValue;
   const float scale_log2 = p.scale * kLog2e;
@@ -1151,16 +1280,13 @@ cudaError_t launch_bwd_sm90(const BwdParams& p, int batch, int kv_heads,
       static_cast<long long>(dq.n_q_tiles) * p.heads * batch;
   const long long dkv_blocks =
       static_cast<long long>((p.sk + 127) / 128) * kv_heads * batch;
-  cudaError_t err =
-      split ? launch_sm90(flash_bwd_dq_sm90_kernel<true>, kDqSmem, dq_blocks,
-                          dq, stream)
-            : launch_sm90(flash_bwd_dq_sm90_kernel<false>, kDqSmem,
-                          dq_blocks, dq, stream);
-  if (err != cudaSuccess) return err;
-  return split ? launch_sm90(flash_bwd_dkv_sm90_kernel<true>, kDkvSmem,
-                             dkv_blocks, dkv, stream)
-               : launch_sm90(flash_bwd_dkv_sm90_kernel<false>, kDkvSmem,
-                             dkv_blocks, dkv, stream);
+  if constexpr (HD == 128) {
+    if (!split) {
+      return launch_sm90_pair<HD, false>(dq, dq_blocks, dkv, dkv_blocks,
+                                         stream);
+    }
+  }
+  return launch_sm90_pair<HD, true>(dq, dq_blocks, dkv, dkv_blocks, stream);
 }
 
 template <typename Kernel>
@@ -1181,10 +1307,10 @@ cudaError_t launch_hd(int dtype, const BwdParams& p, int batch,
   const dim3 dkv_grid((p.sk + kBK - 1) / kBK, kv_heads, batch);
   cudaError_t err;
   if (dtype == 1) {
-    // head dim 128: the Hopper kernels; 16, 32, 64, 80, 112: the mma.sync
+    // head dims 64, 80, 128: the Hopper kernels; 16, 32, 112: the mma.sync
     // kernels
-    if constexpr (HD == 128) {
-      return launch_bwd_sm90(p, batch, kv_heads, split, stream);
+    if constexpr (HD == 64 || HD == 80 || HD == 128) {
+      return launch_bwd_sm90<HD>(p, batch, kv_heads, split, stream);
     } else {
       const size_t rows = sizeof(__nv_bfloat16) * kBK * (HD + 8);
       const size_t cols = sizeof(__nv_bfloat16) * HD * (kBK + 8);

@@ -14,14 +14,12 @@ Port of the Pallas `repro.kernels.flashattn` kernels:
   atomics; in bf16, p and ds enter the products as hi + lo bf16 parts).
 
 The C launchers pick the kernel by head dim and dtype. In bf16 the
-forward runs the Hopper kernel (TMA ring, wgmma, setmaxnreg;
-``csrc/flash_sm90.cuh``) at head dims 64 (SeamlessM4T), 80 (Zamba2's
-shared attention) and 128 (every dense config served and trained), and
-the first design on ``mma.sync`` at 16, 32 and 112 (Kimi K2's head); the
-backward runs the Hopper kernels at 128 and the first design at 16, 32,
-64, 80 (Zamba2's shared attention) and 112. Float32 runs scalar FMAs. A
-kernel that fails to build or launch raises; nothing falls back on
-another.
+forward and the backward run the Hopper kernels (TMA ring, wgmma,
+setmaxnreg; ``csrc/flash_sm90.cuh``) at head dims 64 (SeamlessM4T), 80
+(Zamba2's shared attention) and 128 (every dense config served and
+trained), and the first design on ``mma.sync`` at 16, 32 and 112 (Kimi
+K2's head). Float32 runs scalar FMAs. A kernel that fails to build or
+launch raises; nothing falls back on another.
 
 The kernel wrappers take the model's layout, q (B, Sq, H, hd) and k / v
 (B, Sk, KV, hd), and read it through its strides. For CPU tensors they run

@@ -786,28 +786,35 @@ def test_flash_fwd_kernel_is_deterministic(cuda, hd, causal):
     assert torch.equal(lse1, lse2) and torch.equal(o1, first)
 
 
-#: Zamba2's shared-attention head dim through the backward: 32 heads over
-#: 32 at 1,000 queries causal and not, a GQA group of 2, 100 keys (under
-#: one key tile), B H = 160 query heads over the card's 132 SMs
-HD80_BWD_CASES = [
+#: the backward's cases at head dims 64 and 80: Zamba2's shared attention
+#: (32 heads over 32, 1,000 queries, causal and not), a GQA group of 2,
+#: ragged query tiles, Sq < Sk, B H = 160 query heads (over the card's
+#: 132 SMs), then SeamlessM4T's forms: its cross attention (2 Sk queries
+#: over Sk keys, not causal) and its decoder (causal 4,096, 16 heads
+#: over 16)
+HOPPER_BWD_CASES = [
     (1, 1000, 1000, 32, 32, True),
     (1, 1000, 1000, 32, 32, False),
     (2, 300, 300, 8, 4, True),
     (1, 77, 100, 4, 2, False),
     (5, 130, 130, 32, 16, True),
+    (2, 2048, 1024, 16, 16, False),
+    (1, 4096, 4096, 16, 16, True),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", HD80_BWD_CASES)
-def test_flash_bwd_kernel_at_head_dim_80_matches_plain(cuda, B, Sq, Sk, H,
-                                                       KV, causal, dtype):
-    """The backward at head dim 80 (the first design's `<80>` instances:
-    mma.sync in bf16, scalar FMAs in float32) within the gate of the
-    plain backward, and bit-identical over two runs."""
+@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", HOPPER_BWD_CASES)
+def test_flash_bwd_kernel_at_head_dims_64_and_80_matches_plain(
+        cuda, B, Sq, Sk, H, KV, causal, hd, dtype):
+    """The backward at head dims 64 and 80 (bf16: the Hopper kernels
+    `flash_bwd_dq_sm90_kernel<HD, true>` and `flash_bwd_dkv_sm90_kernel<HD,
+    true>`; float32: scalar FMAs) within the gate of the plain backward,
+    and bit-identical over two runs."""
     from repro_torch.kernels import flashattn as F
 
-    q, k, v = _qkv(cuda, Sq + Sk + H, dtype, B, Sq, Sk, H, KV, 80)
+    q, k, v = _qkv(cuda, Sq + Sk + H + hd, dtype, B, Sq, Sk, H, KV, hd)
     do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
                      .manual_seed(Sq + 1), device=cuda).to(dtype)
     o, lse = F.flash_attention_fwd_kernel(q, k, v, causal)
