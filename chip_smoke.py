@@ -194,7 +194,22 @@ Phases; the first failure exits non-zero:
    peak memory, a warm step's device ms by kind with its idle share, and
    for the SSD families the scan's forward and backward at one layer's
    shape.
-   Each of (a)-(n) starts with every launch count at 0 and must launch
+   (o) the §8 stream of (a) through the chip cluster on the card:
+   ``ServiceConfig(n_banks=8, n_chips=1, max_chips=8)`` (64 slots of
+   8,192 words a 2 MiB vector), cold, warm and materialize, each answer
+   equal to (a)'s bit for bit; the same service rescaled onto C chips of
+   the one card (``rescale(C, devices=["cuda:0"] * C)``, a
+   `ChipCluster.create` of ``["cuda:0"] * C`` attached to the catalog)
+   for C in 2, 4 and 8, every count and word equal to (a)'s and exactly
+   C VM launches per plan group (no chip runs the plain VM); a
+   `FaultTolerance` whose injector raises a plain ``RuntimeError`` once in
+   each of two plan groups, the batch equal to (a)'s and ``failures``
+   equal to the injected two; ``serve_stream`` over the stream in three
+   batches into a temporary directory with one injected failure, then a
+   fresh service resuming there after the last checkpoint is removed,
+   both runs' values equal to (a)'s. Each wall is printed beside the
+   card's name and power limit.
+   Each of (a)-(o) starts with every launch count at 0 and must launch
    each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
@@ -247,6 +262,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -305,6 +321,7 @@ DIRECT_KERNELS = ("bitwise", "bitwise_banked", "popcount", "bitweaving_scan")
 RELIABILITY_KERNELS = ("majority", "vm_materialize")
 ARITH_KERNELS = ("bitserial_add", "bitserial_lt", "bit_untranspose",
                  "bit_transpose", "bitweaving_scan", "vm_materialize")
+CLUSTER_KERNELS = ("vm_popcount", "vm_materialize")
 LM_KERNELS = ("flash_attention",)
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
 COMPRESSED_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
@@ -3397,6 +3414,177 @@ def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
 
 
 # ---------------------------------------------------------------------------
+# phase 3o: the chip cluster under the query service
+# ---------------------------------------------------------------------------
+
+#: phase 3o: chip counts on the one card, the plan groups whose first
+#: dispatch the fault injector fails, the stream's batches
+CLUSTER_CHIPS = (2, 4, 8)
+FAILED_GROUPS = (1, 5)
+STREAM_BATCHES = 3
+
+
+def _served(torch, svc, queries):
+    """One batch on the card: (report, wall s, VM launches by mode)."""
+    from repro_torch.kernels import LAUNCHES
+
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    report = svc.query_batch(queries)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vm = {k: LAUNCHES.get(k, 0) - before.get(k, 0) for k in CLUSTER_KERNELS}
+    return report, wall, vm
+
+
+def _check_like_3a(report, want, label) -> None:
+    for got, w in zip(report.results, want):
+        check(np.array_equal(np.asarray(got.value), np.asarray(w)),
+              f"{label}: query {got.index} differs from phase 3a's")
+    check(len(report.results) == len(want), f"{label}: result count")
+
+
+def phase_cluster(torch, spec, ref):
+    """3o: the §8 stream of 3a through the chip cluster on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.dist.fault_tolerance import (FaultTolerance,
+                                                  SimulatedFailure)
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.service import ServiceConfig, build_service
+
+    card = nvidia_smi("name,power.limit")
+    queries, mat = ref["queries"], ref["mat"]
+    cfg = ServiceConfig(n_banks=8, n_chips=1, max_chips=8, device="cuda")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    svc = build_service(spec, config=cfg)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    cl = svc.cluster
+    words = svc.catalog.placement("t0/male").local_words
+    check((cl.slots, cl.local_banks, words) == (64, 64, 8192),
+          f"3o layout: {cl.slots} slots of {words} words")
+    info = {"build_service_s": t_build}
+    walls = []
+    for label, qs, want, mode in (
+            ("cold", queries, ref["scalars"], "vm_popcount"),
+            ("warm", queries, ref["scalars"], "vm_popcount"),
+            ("materialize", mat, ref["mat_values"], "vm_materialize")):
+        report, wall, vm = _served(torch, svc, qs)
+        _check_like_3a(report, want, f"3o(a) {label}")
+        check(vm[mode] == report.n_plan_groups,
+              f"3o(a) {label}: {vm[mode]} {mode} launches for "
+              f"{report.n_plan_groups} plan groups")
+        info[f"c1_{label}_wall_s"] = wall
+        walls.append(f"{label} {wall:.3f} s ({vm[mode]} {mode})")
+    print(f"[cluster] (a) {len(svc.catalog)} vectors on 1 chip x 8 banks, "
+          f"{cl.slots} slots of {words} words; build_service "
+          f"{t_build:.2f} s; " + ", ".join(walls)
+          + f"; every answer equals 3a's; card {card}")
+    # (b) C chips on the one card: the same catalog re-placed
+    for c in CLUSTER_CHIPS:
+        plan = svc.rescale(c, devices=["cuda:0"] * c)
+        check(plan.grad_accum == 8 // c and svc.cluster.n_chips == c,
+              f"3o(b) rescale to {c} chips: {plan}")
+        report, wall, vm = _served(torch, svc, queries)
+        _check_like_3a(report, ref["scalars"], f"3o(b) {c} chips")
+        report_mat, wall_mat, vm_mat = _served(torch, svc, mat)
+        _check_like_3a(report_mat, ref["mat_values"],
+                       f"3o(b) {c} chips materialize")
+        check(vm["vm_popcount"] == c * report.n_plan_groups
+              and vm_mat["vm_materialize"] == c * report_mat.n_plan_groups,
+              f"3o(b) {c} chips: VM launches {vm}, {vm_mat} are not "
+              f"{c} per plan group")
+        info[f"c{c}_batch_wall_s"] = wall
+        info[f"c{c}_materialize_wall_s"] = wall_mat
+        print(f"[cluster] (b) {c} chips on the one card (sweeps of 8 "
+              f"banks: {plan.grad_accum}): {len(queries)}-query batch "
+              f"{wall:.3f} "
+              f"s wall, {vm['vm_popcount']} VM popcount launches "
+              f"({report.n_plan_groups} plan groups); materialize batch "
+              f"{wall_mat:.3f} s, {vm_mat['vm_materialize']} VM "
+              f"materialize launches; equal to 3a's; card {card}")
+    # (c) replays of plain failures on a 4-chip cluster
+    armed = set(FAILED_GROUPS)
+
+    def inject(g):
+        if g in armed:
+            armed.discard(g)
+            raise RuntimeError(f"injected failure in plan group {g}")
+
+    ft = FaultTolerance(max_replays=2, failure_injector=inject)
+    del svc
+    svc = build_service(spec, config=ServiceConfig(
+        n_banks=8, n_chips=1, max_chips=8, device="cuda",
+        fault_tolerance=ft))
+    svc.rescale(4, devices=["cuda:0"] * 4)
+    report, wall, vm = _served(torch, svc, queries)
+    _check_like_3a(report, ref["scalars"], "3o(c) with injected failures")
+    check(ft.failures == len(FAILED_GROUPS)
+          and ft.replays == len(FAILED_GROUPS) and not armed,
+          f"3o(c): {ft.failures} failures, {ft.replays} replays for "
+          f"{len(FAILED_GROUPS)} injected ({ft.timeline})")
+    check(vm["vm_popcount"] == 4 * report.n_plan_groups,
+          f"3o(c): {vm['vm_popcount']} VM launches for "
+          f"{report.n_plan_groups} plan groups on 4 chips")
+    info["ft_batch_wall_s"] = wall
+    print(f"[cluster] (c) 4 chips, a RuntimeError injected in plan groups "
+          f"{FAILED_GROUPS}: batch {wall:.3f} s wall, equal to 3a's; "
+          f"failures {ft.failures}, replays {ft.replays}, timeline "
+          f"{ft.timeline}; card {card}")
+    # (d) checkpointed stream serving, recovered and resumed
+    per = -(-len(queries) // STREAM_BATCHES)
+    batches = [queries[i:i + per] for i in range(0, len(queries), per)]
+    hit = {"live": True}
+
+    def crash(step):
+        if step == 1 and hit["live"]:
+            hit["live"] = False
+            raise SimulatedFailure("injected mid-stream crash")
+
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        t0 = time.perf_counter()
+        vals, rep = svc.serve_stream(batches, ck_dir, ckpt_every=1,
+                                     failure_injector=crash)
+        t_stream = time.perf_counter() - t0
+        check(list(vals) == list(ref["scalars"]),
+              "3o(d): the stream's values differ from 3a's")
+        check(rep.failures == 1 and rep.restores == 1
+              and "restore@1" in rep.timeline,
+              f"3o(d): report {rep.timeline}")
+        # a fresh service resumes after the last checkpoint was lost
+        shutil.rmtree(os.path.join(ck_dir, f"step_{len(batches):08d}"))
+        del svc
+        fresh = build_service(spec, config=cfg)
+        t0 = time.perf_counter()
+        vals2, rep2 = fresh.serve_stream(batches, ck_dir, ckpt_every=1)
+        t_resume = time.perf_counter() - t0
+        check(list(vals2) == list(ref["scalars"]),
+              "3o(d): the resumed stream's values differ from 3a's")
+        check(rep2.timeline[0] == f"resume@{len(batches) - 1}"
+              and rep2.steps_run == 1,
+              f"3o(d): resume report {rep2.timeline}")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    info["stream_wall_s"] = t_stream
+    info["resume_wall_s"] = t_resume
+    print(f"[cluster] (d) serve_stream of {len(batches)} batches with one "
+          f"failure: {t_stream:.3f} s wall ({rep.timeline}); a fresh "
+          f"service resumed at batch {len(batches) - 1}: {t_resume:.3f} s; "
+          f"both equal to 3a's; card {card}")
+    launches = dict(LAUNCHES)
+    print(f"[cluster] launches while 3o ran: {launches}")
+    for name in CLUSTER_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} was never launched on the cluster path")
+    return launches, {f"cluster_{k}": v for k, v in info.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: numbers
 # ---------------------------------------------------------------------------
 
@@ -4127,8 +4315,8 @@ def main() -> int:
         float_err = {"flash_attention": phase_flash_kernels(torch)}
         float_err.update(phase_train_kernels(torch))
         phase_moe_ffn(torch)
-        spec = WorkloadSpec(n_tenants=4, n_weeks=3, domain_bits=1 << 24,
-                            n_queries=96)
+        spec = spec3a = WorkloadSpec(n_tenants=4, n_weeks=3,
+                                     domain_bits=1 << 24, n_queries=96)
         numbers = Numbers(max_err, float_err)
         rec = Recorder()
         try:
@@ -4136,6 +4324,8 @@ def main() -> int:
             later = [phase_direct(torch, rec),
                      phase_reliability(torch, clean, rec),
                      phase_arith(torch, rec)]
+            ref3a = {k: clean[k] for k in ("queries", "mat", "scalars",
+                                           "mat_values")}
             del clean
             later.append(phase_lm(torch, rec))
             # phase 4 for 3a-3e first, which frees their recorded
@@ -4170,6 +4360,7 @@ def main() -> int:
                     phase_numbers(torch, rec.calls, numbers, int_rate,
                                   max_mhz * 1e6)
                 rec.drop()
+            later.append(phase_cluster(torch, spec3a, ref3a))
         finally:
             rec.close()
         # each kernel's launches over every main-path run

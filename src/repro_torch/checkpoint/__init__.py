@@ -1,0 +1,3 @@
+from repro_torch.checkpoint.checkpointer import Checkpointer, load_checkpoint
+
+__all__ = ["Checkpointer", "load_checkpoint"]

@@ -155,8 +155,10 @@ def execute(program: Program, data: RowState, row_words: Optional[int] = None,
     `n_banks > 1` partitions each operand row word-wise across that many
     independent subarray states and runs the program on all of them in
     one dispatch (`core.bankgroup.execute_banked`) — bit-identical
-    results, bank-parallel schedule. Chip-parallel execution
-    (``n_chips > 1``) is not ported yet and raises `NotImplementedError`.
+    results, bank-parallel schedule. `n_chips > 1` additionally spreads
+    the slots over a chip cluster (`core.cluster.get_cluster`, lowered VM
+    only): ``["cpu"] * n_chips`` for rows on the host, the first
+    `n_chips` cards for rows on a card — still bit-identical.
     Tensor rows keep their device; host arrays go to ``device`` (default
     ``"cuda"``, see `repro_torch._device.operand_device`).
 
@@ -179,11 +181,21 @@ def _execute(program: Program, data: RowState, row_words: Optional[int],
              outputs: Optional[List[str]], n_banks: int, n_chips: int,
              lowered: bool, backend: str, device) -> RowState:
     if n_chips > 1:
-        raise NotImplementedError(
-            "n_chips > 1: the chip cluster (core/cluster.py) is not ported "
-            "yet (ROADMAP queue A, multi-device)")
+        if not lowered:
+            raise ValueError(
+                "n_chips > 1 dispatches through the lowered VM; the "
+                "micro-op interpreter is single-process (lowered=False)")
+        if row_words is not None:
+            raise ValueError(
+                "row_words cannot be overridden with n_chips > 1: the "
+                "sharded layout derives per-slot widths from the data rows")
     dev = operand_device(data.values(), device)
     data = {k: as_words(v, dev) for k, v in data.items()}
+    if n_chips > 1:
+        from repro_torch.core import cluster
+
+        cl = cluster.get_cluster(n_chips, n_banks, device=dev)
+        return cl.execute(program, data, outputs, backend=backend)
     if n_banks > 1:
         from repro_torch.core import bankgroup
 

@@ -17,8 +17,9 @@ device ("cuda" by default). Sub-modules:
                models latency/energy (shared work charged once)
   service    — the `QueryService` facade (register / submit / query /
                materialize / range_scan / explain), configured by
-               `ServiceConfig` (TRA reliability modes; the chip
-               cluster and checkpointed serving are not ported yet)
+               `ServiceConfig` (TRA reliability modes, the chip
+               cluster with elastic `rescale`, fault tolerance and
+               checkpointed `serve_stream`)
   server     — the continuous-serving runtime: `ServingLoop` packs
                in-flight queries into scheduler ticks (double-buffered
                plan/execute pipelining, DRR tenant fairness, SLO

@@ -13,8 +13,17 @@ registration, and `verify_parity` recomputes them as an integrity probe.
 
 Catalog names become the D-group row names of compiled query programs, so
 they must stay clear of the reserved B/C-group addresses and the compiler's
-temp/canonical-input namespaces — `register` validates that. Chip placement
-(the reference's distributed mode) is not ported yet.
+temp/canonical-input namespaces — `register` validates that.
+
+In distributed mode (`attach_cluster`) the catalog additionally records a
+`ChipPlacement` per vector: its words are sharded over the chips of a
+`core.cluster.ChipCluster` and the sharded copies (one tensor per chip,
+on that chip's device) are cached on the entry. Affinity groups stay
+chip-local — group members share one shard layout, so corresponding
+word-slots co-reside and queries over a group never move operand bits
+between chips. An elastic rescale re-attaches a new cluster and re-places
+every entry (slot contents are invariant; only the slot->chip assignment
+changes).
 """
 from __future__ import annotations
 
@@ -49,6 +58,31 @@ def plane_name(column: str, j: int) -> str:
     return f"{column}.b{j}"
 
 
+@dataclasses.dataclass(frozen=True)
+class ChipPlacement:
+    """Where one bitvector's word-shards live on the chip cluster.
+
+    In distributed mode every vector is word-partitioned over
+    ``n_chips * local_banks`` slots (`core.cluster.ChipCluster`); slot s
+    lives on chip ``s // local_banks``. Vectors of one affinity `group`
+    share this layout, so slot s of *every* group member is resident on
+    the same chip — queries over a group combine operands chip-locally
+    and nothing but reduction scalars crosses the chip boundary.
+    """
+
+    n_chips: int
+    local_banks: int          # slot rows resident per chip
+    local_words: int          # packed words per slot (after padding)
+    group: Optional[str] = None
+
+    @property
+    def slots(self) -> int:
+        return self.n_chips * self.local_banks
+
+    def chip_of_slot(self, slot: int) -> int:
+        return slot // self.local_banks
+
+
 @dataclasses.dataclass
 class CatalogEntry:
     """One registered bitvector: packed words + modeled DRAM placement."""
@@ -58,6 +92,10 @@ class CatalogEntry:
     n_bits: int
     handle: RowHandle         # (bank, subarray, row) placement
     group: Optional[str] = None
+    #: distributed mode only: the (local_banks, local_words) shard of each
+    #: chip and the layout record (None until a cluster is attached)
+    shards: Optional[List[torch.Tensor]] = None
+    placement: Optional[ChipPlacement] = None
 
     @property
     def n_row_blocks(self) -> int:
@@ -88,6 +126,10 @@ class Catalog:
         # expand arithmetic query forms (sum/+/-/<) into plane programs.
         self.columns: Dict[str, int] = {}
         self._mask: Optional[torch.Tensor] = None
+        # distributed mode: the ChipCluster every entry is placed onto
+        # (None = single-process catalog)
+        self._cluster = None
+        self._mask_shards: Optional[List[torch.Tensor]] = None
         # ECC: running XOR parity plane per affinity group (None key =
         # ungrouped), kept on the device and maintained at registration
         # time — `verify_parity` recomputes from scratch and cross-checks,
@@ -129,6 +171,8 @@ class Catalog:
         prev = self._parity.get(group)
         self._parity[group] = words.clone() if prev is None \
             else prev ^ words
+        if self._cluster is not None:
+            self._place(entry)
         return entry
 
     def register_bits(self, name: str, bits, group: Optional[str] = None
@@ -208,6 +252,54 @@ class Catalog:
         bad = torch.stack([(self._parity[g] != fresh[g]).any()
                            for g in fresh])
         return not bool(bad.any())
+
+    # -- chip placement (distributed mode) ------------------------------------
+
+    def _place(self, entry: CatalogEntry) -> None:
+        cluster = self._cluster
+        entry.shards = cluster.shard_words(entry.words)
+        entry.placement = ChipPlacement(
+            n_chips=cluster.n_chips, local_banks=cluster.local_banks,
+            local_words=int(entry.shards[0].shape[-1]), group=entry.group)
+
+    def attach_cluster(self, cluster) -> None:
+        """Place every registered vector onto a `core.cluster.ChipCluster`.
+
+        Called at service start and again after an elastic `rescale` —
+        re-placement re-shards every entry onto the new chips. The slot
+        grid (`cluster.slots`) is invariant across rescales of one
+        placement lineage, so the bits held by each slot never move
+        between slots; only the slot->chip assignment changes.
+        """
+        self._cluster = cluster
+        self._mask_shards = None
+        for entry in self._entries.values():
+            entry.shards = None     # drop the old layout before re-placing
+            self._place(entry)
+
+    @property
+    def cluster(self):
+        return self._cluster
+
+    def shards(self, name: str) -> List[torch.Tensor]:
+        """The (local_banks, local_words) shard of a row on each chip."""
+        entry = self.get(name)
+        if entry.shards is None:
+            if self._cluster is None:
+                raise CatalogError(
+                    f"{name!r} has no chip placement: no cluster attached")
+            self._place(entry)
+        return entry.shards
+
+    def placement(self, name: str) -> Optional[ChipPlacement]:
+        return self.get(name).placement
+
+    def mask_shards(self) -> List[torch.Tensor]:
+        """`mask()` pushed through the cluster's word-shard layout."""
+        assert self._cluster is not None, "no cluster attached"
+        if self._mask_shards is None:
+            self._mask_shards = self._cluster.shard_words(self.mask())
+        return self._mask_shards
 
     # -- placement queries ----------------------------------------------------
 

@@ -8,9 +8,11 @@ optimizer toggles) in one dataclass, plus the serving-loop policy knob
     svc = QueryService(ServiceConfig(n_banks=8, device="cuda",
                                      slo=SloConfig(p99_ns=5e6)))
 
-`reliability` takes a `repro_torch.core.errors.ReliabilityConfig`. The
-chip cluster (`n_chips`, `max_chips`) and `fault_tolerance` are not ported
-yet: `QueryService` raises `NotImplementedError` when any of them is set.
+`reliability` takes a `repro_torch.core.errors.ReliabilityConfig`,
+`fault_tolerance` a `repro_torch.dist.fault_tolerance.FaultTolerance`;
+`n_chips` / `max_chips` shape the chip cluster of the distributed
+deployment (its chips on `device`: distinct cards on "cuda", the host
+repeated on "cpu").
 
 The keyword constructor `QueryService(n_banks=8, device="cpu")` routes
 every keyword through `ServiceConfig`. There is no backend knob: the VM

@@ -45,8 +45,18 @@ k of them and votes their output planes with the majority kernel,
 ``"ecc"`` runs two, accepts them when they agree and otherwise runs a
 third and votes, and opens every batch with the catalog's parity probe.
 The modeled timeline charges each replica's in-bank compute and one AAP
-per voted output plane. The chip cluster and the fault-tolerance policy
-of the reference scheduler are not ported yet.
+per voted output plane.
+
+Distributed mode (``cluster=`` a `core.cluster.ChipCluster`): every
+plan-group dispatches as one VM launch per chip over its word-shards
+(`_run_group_sharded`) and popcount/aggregate results reduce with a
+chip-axis tree psum, so only count scalars ever cross a chip boundary.
+The timeline model gains per-chip buses (transfers serialize per chip,
+chips are parallel) plus a ceil(log2 chips)-hop reduction term. Under a
+fault-tolerance policy (``fault_tolerance=`` a
+`dist.fault_tolerance.FaultTolerance`) every plan-group dispatch is
+timed, replayed on failure and flagged when it straggles
+(`_run_group_resilient`).
 """
 from __future__ import annotations
 
@@ -183,11 +193,23 @@ class Scheduler:
     planner: Planner = dataclasses.field(default_factory=Planner)
     n_banks: int = 8
     timing: DramTiming = DDR3_1600
+    #: distributed mode: a `core.cluster.ChipCluster` — plan-groups become
+    #: one VM launch per chip over (banks x queries) shards and popcounts
+    #: aggregate with a chip-axis tree psum. None = the single-process
+    #: path (one device, bank axis only).
+    cluster: Optional["ChipCluster"] = None  # noqa: F821 (forward ref)
     #: TRA reliability mode (`core.errors.ReliabilityConfig`): "vote" runs
     #: every lowered plan-group k times with independent seeded fault draws
     #: and bitwise-votes the output planes; "ecc" dual-runs with a vote
-    #: tie-break plus a catalog parity check per batch.
+    #: tie-break plus a catalog parity check per batch. Injection targets
+    #: the single-process VM path; distributed deployments handle faults
+    #: at chip granularity through `fault_tolerance` instead.
     reliability: Optional["ReliabilityConfig"] = None  # noqa: F821
+    #: chip/straggler fault policy (`dist.fault_tolerance.FaultTolerance`):
+    #: plan-group dispatches are timed, replayed on failure (after the
+    #: recovery hook — QueryService installs an elastic rescale-down), and
+    #: flagged when they straggle past the EMA threshold.
+    fault_tolerance: Optional["FaultTolerance"] = None  # noqa: F821
     #: observability sink (`repro_torch.obs.Telemetry`): span tree + modeled
     #: timeline per batch when tracing, registry counters/histograms when
     #: metering. None = `NULL_TELEMETRY` (both off, zero-allocation path).
@@ -220,6 +242,11 @@ class Scheduler:
             self._m_cse = m.counter("cse_planes_total")
             self._m_lat = m.histogram("modeled_latency_ns")
             self._m_wall = m.histogram("batch_wall_us")
+        if self._mitigated and self.cluster is not None:
+            raise ValueError(
+                "reliability injection modes run on the single-process VM "
+                "path; distributed deployments recover at chip granularity "
+                "(fault_tolerance=...), not per-TRA")
 
     # -- plumbing -----------------------------------------------------------
 
@@ -279,8 +306,12 @@ class Scheduler:
         (`_run_reliable`): they materialize, vote, then mask and count.
         The third value is the replicas run — 1 on the clean path, k under
         vote, 2 or 3 under ecc — the multiplier the modeled timeline
-        charges.
+        charges. With a cluster the group runs sharded
+        (`_run_group_sharded`).
         """
+        if self.cluster is not None:
+            words, scalars = self._run_group_sharded(members, need_words)
+            return words, scalars, 1
         input_rows = [bp.input_map() for _, bp in members]
         data = {
             name: [self._operand_words(rows[name], cse_planes)
@@ -363,6 +394,116 @@ class Scheduler:
                                    corrected_bits=stats["corrected_bits"],
                                    replicas=stats["replicas"])
         return out, replicas
+
+    def _run_group_resilient(self, members: List[Tuple[int, BoundPlan]],
+                             need_words: bool,
+                             cse_planes: Optional[Dict[str, torch.Tensor]]
+                             = None
+                             ) -> Tuple[Optional[torch.Tensor], List[int],
+                                        int]:
+        """`_run_group` under the fault policy: timed, replayed, flagged.
+
+        The chaos injector runs inside the guarded+timed window, so a
+        raising injector is indistinguishable from a chip dying
+        mid-dispatch and a sleeping one from a straggling chip. On failure
+        the recovery hook runs first (elastic rescale-down when a
+        QueryService owns this scheduler — `self.cluster` is re-read on
+        replay, so the group re-lands on the surviving chips), then the
+        whole group is re-dispatched; results are whatever the successful
+        attempt produced, which the chaos suite asserts bit-identical to a
+        never-failed run. The straggler clock reads the host: a dispatch
+        returns once its launches are queued, and count groups wait for
+        their counts.
+        """
+        ft = self.fault_tolerance
+        tel = self.telemetry
+        g = ft.groups_dispatched
+        ft.groups_dispatched += 1
+        for attempt in range(ft.max_replays + 1):
+            t0 = time.perf_counter()
+            try:
+                if ft.failure_injector is not None:
+                    ft.failure_injector(g)
+                out = self._run_group(members, need_words, cse_planes)
+            except Exception as e:  # noqa: BLE001 - any failure is replayable
+                ft.failures += 1
+                ft.timeline.append(f"failure@group{g}:{type(e).__name__}")
+                if tel.metering:
+                    tel.metrics.counter("ft_failures_total").inc()
+                if tel.tracing:
+                    tel.tracer.instant("ft_failure", group=g,
+                                       error=type(e).__name__)
+                if attempt >= ft.max_replays:
+                    raise
+                if ft.on_chip_failure is not None:
+                    ft.on_chip_failure(e)
+                ft.replays += 1
+                ft.timeline.append(f"replay@group{g}")
+                if tel.metering:
+                    tel.metrics.counter("ft_replays_total").inc()
+                if tel.tracing:
+                    tel.tracer.instant("ft_replay", group=g)
+                continue
+            if ft.monitor.observe(g, time.perf_counter() - t0):
+                ft.stragglers.append(g)
+                ft.timeline.append(f"straggler@group{g}")
+                if tel.metering:
+                    tel.metrics.counter("ft_stragglers_total").inc()
+                if tel.tracing:
+                    tel.tracer.instant("ft_straggler", group=g)
+            if tel.metering and ft.monitor.ema is not None:
+                tel.metrics.gauge("straggler_ema_s").set(ft.monitor.ema)
+            return out
+        raise AssertionError("unreachable: loop exits via return or raise")
+
+    def _run_group_sharded(self, members: List[Tuple[int, BoundPlan]],
+                           need_words: bool
+                           ) -> Tuple[Optional[torch.Tensor], List[int]]:
+        """Distributed twin of `_run_group`: one VM launch per chip.
+
+        Each canonical input stacks the group's queries along an inner
+        axis of the catalog's per-chip shards, so chip i's rows are
+        ``(local_banks, n_queries, local_words)`` on its device. Popcounts
+        reduce with the chip-axis tree psum (`ChipCluster.popcounts`) —
+        for scalar-only groups nothing but the count matrix leaves the
+        shards; materialize gathers the output rows once per group to the
+        first chip. The chips' devices pick the VM (the kernel on a card,
+        the plain loop on the CPU); a plan's recorded "cuda" / "torch"
+        choice is passed on, "interp" is not (the shards need the VM).
+        """
+        cluster = self.cluster
+        input_rows = [bp.input_map() for _, bp in members]
+        data = {
+            name: [torch.stack([self.catalog.shards(rows[name])[i]
+                                for rows in input_rows], dim=1)
+                   for i in range(cluster.n_chips)]
+            for name in input_rows[0]
+        }
+        plan = members[0][1].plan
+        backend = plan.backend if plan.backend in lowering.BACKENDS \
+            else None
+        lp = plan.lowered
+        if lp is None:      # plans built outside the cache lower here
+            lp = lowering.lower(plan.program)
+        if not need_words:
+            # scalar-only group: only the count matrix crosses chips
+            counts = cluster.popcounts(lp, data, plan.outputs,
+                                       self.catalog.mask_shards(),
+                                       backend=backend)
+            return None, _weighted(counts, len(members))
+        # materialize group: the output rows must be gathered anyway, so
+        # run ONCE and derive the counts from the gathered masked planes
+        # (exactly as the single-process twin does)
+        out = cluster.run_lowered(lp, data, plan.outputs, backend=backend)
+        n_words = self.catalog.get(
+            next(iter(input_rows[0].values()))).words.shape[0]
+        mask = self.catalog.mask()
+        # (n_outputs, len(members), n_words), output planes LSB-first
+        masked = torch.stack(
+            [cluster.unshard_words(out[o], int(n_words))
+             & mask.to(cluster.devices[0]) for o in plan.outputs])
+        counts = popcount_words(masked, axis=-1).cpu().numpy()
+        return masked.movedim(0, 1), _weighted(counts, len(members))
 
     # -- the scheduler proper ------------------------------------------------
 
@@ -480,6 +621,8 @@ class Scheduler:
         words_by_idx: Dict[int, np.ndarray] = {}
         count_by_idx: Dict[int, int] = {}
         replicas_by_idx: Dict[int, int] = {}
+        dispatch = (self._run_group_resilient
+                    if self.fault_tolerance is not None else self._run_group)
         for members in groups.values():
             need_words = any(queries[idx].mode == MATERIALIZE
                              for idx, _ in members)
@@ -487,8 +630,8 @@ class Scheduler:
                 tr.begin("group", members=[idx for idx, _ in members],
                          n_aaps=members[0][1].plan.n_aaps)
                 tr.begin("dispatch")
-            stacked, scalars, replicas = self._run_group(
-                members, need_words, cse_planes)
+            stacked, scalars, replicas = dispatch(members, need_words,
+                                                  cse_planes)
             if tracing:
                 tr.end()
                 tr.begin("readout")
@@ -509,9 +652,10 @@ class Scheduler:
                 tr.end()    # group
 
         # 3. modeled timeline (`_place_batch`): shared planes first, then
-        #    queries on least-loaded bank slots; a consumer cannot start
-        #    before the planes it reads are ready, and shared work is
-        #    placed — charged — exactly once.
+        #    queries on least-loaded (chip, bank) slots; a consumer cannot
+        #    start before the planes it reads are ready, and shared work
+        #    is placed — charged — exactly once.
+        n_chips = self.cluster.n_chips if self.cluster is not None else 1
         n_blocks = self._n_blocks
         placements, makespan = self._place_batch(
             bound, cse, replicas_by_idx, tr if tracing else None)
@@ -531,7 +675,7 @@ class Scheduler:
                     break
         results: List[QueryResult] = []
         for idx, (q, bp) in enumerate(zip(queries, bound)):
-            b, lat = placements[idx]
+            c, b, lat = placements[idx]
             replicas = replicas_by_idx.get(idx, 1)
             energy = bp.plan.energy_nj_per_block * n_blocks * replicas
             extra_aaps = 0
@@ -548,7 +692,7 @@ class Scheduler:
                 latency_ns=lat, bank=b,
                 cache_hit=orig_bound[idx].cache_hit,
                 n_aaps=bp.plan.n_aaps,
-                energy_nj=energy, tenant=q.tenant,
+                energy_nj=energy, tenant=q.tenant, chip=c,
                 scalar=count_by_idx[idx]))
             # the legacy total accumulates per query, in the same order
             # as the registry counter, so the two agree to the last bit
@@ -574,10 +718,19 @@ class Scheduler:
                     m.counter("tenant_energy_nj_total",
                               tenant=q.tenant).inc(energy)
 
+        if tracing and n_chips > 1:
+            # the chip-axis tree psum: ceil(log2 chips) serialized hops
+            # after the last bank completes (recursive doubling,
+            # `core.cluster.tree_psum`)
+            hops = int(math.ceil(math.log2(n_chips)))
+            base = makespan - hops * self.timing.aap_ns
+            for h in range(hops):
+                tr.model_event("psum_hop", base + h * self.timing.aap_ns,
+                               self.timing.aap_ns, "reduce", hop=h)
         self.queries_served += len(queries)
         self.total_modeled_ns += makespan
         return BatchReport(
-            results, makespan, self.n_banks, len(groups),
+            results, makespan, self.n_banks, len(groups), n_chips=n_chips,
             n_cse_planes=(len(cse.defs) if cse is not None else 0),
             total_aaps=n_blocks * (def_aaps
                                    + sum(bp.plan.n_aaps for bp in bound)),
@@ -590,13 +743,19 @@ class Scheduler:
     def _apply_cse(self, queries: Sequence[Query],
                    orig_bound: List[BoundPlan]
                    ) -> Tuple[List[BoundPlan], Optional[CseBatch]]:
-        """The cross-query sharing pass, on the clean path only: mitigated
-        dispatch repeats programs whole (a shared plane would be voted
-        once but consumed k times). The pass itself guarantees the rewrite
-        is kept only when it strictly lowers the batch's total AAPs
-        (`optimizer.plan_group_cse`)."""
+        """The cross-query sharing pass, where this deployment allows it.
+
+        Single-process clean path only: sharded dispatch would have to
+        ship planes between chips, mitigated dispatch repeats programs
+        whole (a shared plane would be voted once but consumed k times),
+        and the fault-tolerance chaos suite counts group dispatches. The
+        pass itself guarantees the rewrite is kept only when it strictly
+        lowers the batch's total AAPs (`optimizer.plan_group_cse`).
+        """
         opt = getattr(self.planner.cache, "optimizer", None)
         if (opt is None or not opt.enable_cse or len(queries) < 2
+                or self.cluster is not None
+                or self.fault_tolerance is not None
                 or self._mitigated):
             return orig_bound, None
         exprs = [
@@ -614,66 +773,76 @@ class Scheduler:
     def _place_batch(self, bound: Sequence[BoundPlan],
                      cse: Optional[CseBatch],
                      replicas_by_idx: Dict[int, int], tr=None
-                     ) -> Tuple[List[Tuple[int, float]], float]:
+                     ) -> Tuple[List[Tuple[int, int, float]], float]:
         """Modeled timeline placement for one batch (no execution).
 
         Shared-plane defs place first (dependency-ordered), then every
-        query lands on the least-loaded bank; operand transfers serialize
-        on the internal bus, per-bank AAP compute overlaps across banks,
-        and a consumer cannot start a block before every shared plane it
-        reads is ready. A k-replica dispatch repeats the in-bank AAP
-        compute k times (operands are already placed, so transfers are not
-        repeated) and a voted readout adds one AAP per output plane.
-        Returns (per-query [(bank, latency_ns)], makespan_ns).
+        query lands on the least-loaded (chip, bank); operand transfers
+        serialize on each chip's own internal bus, per-bank AAP compute
+        overlaps across banks, chips are fully parallel, and a consumer
+        cannot start a block before every shared plane it reads is ready.
+        A k-replica dispatch repeats the in-bank AAP compute k times
+        (operands are already placed, so transfers are not repeated) and
+        a voted readout adds one AAP per output plane. Multi-chip readout
+        adds the psum reduction tree (ceil(log2 chips) serialized hops);
+        with one chip this is exactly the single-process model.
+        Returns (per-query [(chip, bank, latency_ns)], makespan_ns).
         """
+        n_chips = self.cluster.n_chips if self.cluster is not None else 1
+        reduce_ns = (math.ceil(math.log2(n_chips)) * self.timing.aap_ns
+                     if n_chips > 1 else 0.0)
         n_blocks = self._n_blocks
-        bus_free = 0.0
-        bank_free = [0.0] * self.n_banks
+        bus_free = [0.0] * n_chips
+        bank_free = [[0.0] * self.n_banks for _ in range(n_chips)]
         cse_ready: Dict[str, float] = {}
 
-        def least_loaded() -> int:
-            return min(range(self.n_banks), key=lambda b: bank_free[b])
+        def least_loaded() -> Tuple[int, int]:
+            return min(((ci, bi) for ci in range(n_chips)
+                        for bi in range(self.n_banks)),
+                       key=lambda cb: bank_free[cb[0]][cb[1]])
 
         for d in (cse.defs if cse is not None else ()):
             plan = d.bound.plan
             deps = [n for n in d.bound.bindings if n.startswith(CSE_PREFIX)]
-            b = least_loaded()
+            c, b = least_loaded()
             xfer = self._xfer_ns(plan)
             for _ in range(n_blocks):
                 dep = max((cse_ready[p] for p in deps), default=0.0)
-                start = max(bus_free, bank_free[b], dep)
-                bus_free = start + xfer
-                bank_free[b] = bus_free + plan.latency_ns_per_block
+                start = max(bus_free[c], bank_free[c][b], dep)
+                bus_free[c] = start + xfer
+                bank_free[c][b] = bus_free[c] + plan.latency_ns_per_block
                 if tr is not None:
-                    tr.model_event("cse_xfer", start, xfer, "chip0/bus",
+                    tr.model_event("cse_xfer", start, xfer, f"chip{c}/bus",
                                    plane=d.name)
-                    tr.model_event("cse_compute", bus_free,
+                    tr.model_event("cse_compute", bus_free[c],
                                    plan.latency_ns_per_block,
-                                   f"chip0/bank{b}", plane=d.name)
-            cse_ready[d.name] = bank_free[b]
+                                   f"chip{c}/bank{b}", plane=d.name)
+            cse_ready[d.name] = bank_free[c][b]
 
-        placements: List[Tuple[int, float]] = []
+        placements: List[Tuple[int, int, float]] = []
         for idx, bp in enumerate(bound):
             deps = [n for n in bp.bindings if n.startswith(CSE_PREFIX)]
-            b = least_loaded()
+            c, b = least_loaded()
             xfer = self._xfer_ns(bp.plan)
             replicas = replicas_by_idx.get(idx, 1)
             vote_ns = (len(bp.plan.outputs) * self.timing.aap_ns
                        if replicas > 1 else 0.0)
             for _ in range(n_blocks):
                 dep = max((cse_ready[p] for p in deps), default=0.0)
-                start = max(bus_free, bank_free[b], dep)
-                bus_free = start + xfer
-                bank_free[b] = (bus_free
-                                + bp.plan.latency_ns_per_block * replicas
-                                + vote_ns)
+                start = max(bus_free[c], bank_free[c][b], dep)
+                bus_free[c] = start + xfer
+                bank_free[c][b] = (bus_free[c]
+                                   + bp.plan.latency_ns_per_block * replicas
+                                   + vote_ns)
                 if tr is not None:
-                    tr.model_event("xfer", start, xfer, "chip0/bus", q=idx)
-                    tr.model_event("compute", bus_free,
-                                   bank_free[b] - bus_free,
-                                   f"chip0/bank{b}", q=idx)
-            placements.append((b, bank_free[b]))
-        return placements, max(bank_free)
+                    tr.model_event("xfer", start, xfer, f"chip{c}/bus",
+                                   q=idx)
+                    tr.model_event("compute", bus_free[c],
+                                   bank_free[c][b] - bus_free[c],
+                                   f"chip{c}/bank{b}", q=idx)
+            placements.append((c, b, bank_free[c][b] + reduce_ns))
+        makespan = max(max(per_chip) for per_chip in bank_free) + reduce_ns
+        return placements, makespan
 
     def explain(self, queries: Sequence[Union[Query, str]]) -> ExplainReport:
         """Plan — but do not execute — a batch; report every decision.
@@ -719,7 +888,9 @@ class Scheduler:
             baseline_aaps=n_blocks * sum(
                 (bp.plan.n_aaps_unopt if bp.plan.n_aaps_unopt is not None
                  else bp.plan.n_aaps) for bp in orig_bound),
-            makespan_ns=makespan, n_banks=self.n_banks)
+            makespan_ns=makespan, n_banks=self.n_banks,
+            n_chips=(self.cluster.n_chips
+                     if self.cluster is not None else 1))
 
 
 def results_bit_identical(a: Sequence[QueryResult],

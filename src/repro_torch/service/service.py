@@ -39,9 +39,16 @@ TRA reliability is a deployment mode: with
 ``ServiceConfig(reliability=ReliabilityConfig(mode="vote" | "ecc", ...))``
 every plan group runs as seeded fault-injected replicas whose outputs are
 voted (`core.errors`, `service.scheduler`), and ``"ecc"`` checks the
-catalog's parity planes before each batch. The chip cluster (`n_chips`,
-`rescale`), the fault-tolerance policy and checkpointed `serve_stream` are
-not ported yet; each raises `NotImplementedError`.
+catalog's parity planes before each batch.
+
+The distributed deployment: ``ServiceConfig(n_chips=C, max_chips=M)``
+serves from a `core.cluster.ChipCluster` of C chips on ``config.device``
+(C distinct cards on ``"cuda"``, ``["cpu"] * C`` on the CPU), every
+catalog vector word-sharded over ``M * n_banks`` slots; `rescale(C')`
+re-places the catalog on C' chips. ``fault_tolerance=`` (a
+`dist.fault_tolerance.FaultTolerance`) replays failed plan groups, with
+a chip failure first shrinking the cluster, and `serve_stream` serves a
+stream of batches with checkpointed recovery (`checkpoint.Checkpointer`).
 """
 from __future__ import annotations
 
@@ -49,6 +56,8 @@ import dataclasses
 import threading
 import warnings
 from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
 
 from repro_torch._device import resolve_device
 from repro_torch.core.errors import ReliabilityConfig
@@ -65,15 +74,6 @@ from repro_torch.service.scheduler import (MATERIALIZE, POPCOUNT, BatchReport,
                                            Query, QueryResult, Scheduler)
 from repro_torch.service.server import QueryHandle, ServingLoop
 
-#: config fields of deployment modes this port does not serve yet, with
-#: the ROADMAP item that brings each
-_NOT_PORTED = {
-    "n_chips": "the chip cluster (ROADMAP queue A, multi-device)",
-    "max_chips": "the chip cluster (ROADMAP queue A, multi-device)",
-    "fault_tolerance": "the fault-tolerance policy (ROADMAP queue A, "
-                       "multi-device)",
-}
-
 
 class QueryService:
     """Catalog + planner + scheduler behind one serving interface.
@@ -81,8 +81,15 @@ class QueryService:
     Construct with a `ServiceConfig` or its fields as keywords; keywords
     override config fields (``reliability``, ``fault_tolerance`` and
     ``n_chips`` as keywords warn with a `DeprecationWarning`, as the
-    reference's do). Serves from one device, ``config.device``, with
-    bank-axis batching only.
+    reference's do). ``n_chips=None`` (default) is the single-process
+    deployment: one device, ``config.device``, bank-axis batching only.
+    ``n_chips=C`` is the distributed deployment: a
+    `core.cluster.ChipCluster` of C chips, catalog vectors word-sharded
+    across chips (placement recorded per vector, affinity groups
+    chip-local), every plan-group dispatched as one VM launch per chip,
+    popcounts tree-psum'd. `rescale(C')` re-plans the layout through
+    `dist.elastic.plan_rescale` and re-places the catalog without losing
+    a single registered vector.
     """
 
     def __init__(self, config: Optional[ServiceConfig] = None, **kwargs):
@@ -102,10 +109,6 @@ class QueryService:
                     f"ServiceConfig({', '.join(deprecated)}=...) instead",
                     DeprecationWarning, stacklevel=2)
             config = dataclasses.replace(config, **kwargs)
-        for field, what in _NOT_PORTED.items():
-            if getattr(config, field) is not None:
-                raise NotImplementedError(
-                    f"ServiceConfig.{field}: {what} is not ported yet")
         if config.reliability is not None \
                 and not isinstance(config.reliability, ReliabilityConfig):
             raise TypeError(
@@ -115,9 +118,10 @@ class QueryService:
         self.device = resolve_device(config.device)
         self.n_banks = config.n_banks
         self.timing = config.timing
+        self.n_chips = config.n_chips
+        self.max_chips = config.max_chips
         self.reliability = config.reliability
-        #: the serving loop reads this; no chip cluster in this port yet
-        self.cluster = None
+        self.fault_tolerance = config.fault_tolerance
         self.telemetry = config.telemetry
         self.optimize = config.optimize
         self.plan_cache_capacity = config.plan_cache_capacity
@@ -129,15 +133,25 @@ class QueryService:
         optimizer = None
         if self.optimize:
             optimizer = QueryOptimizer(params=CostParams(
-                timing=self.timing, n_banks=self.n_banks, n_chips=1,
-                device=self.device.type))
+                timing=self.timing, n_banks=self.n_banks,
+                n_chips=self.n_chips or 1, device=self.device.type))
         self.optimizer = optimizer
         self.planner = Planner(cache=PlanCache(
             timing=self.timing, optimizer=optimizer,
             capacity=self.plan_cache_capacity))
+        self.cluster = None
+        if self.n_chips is not None:
+            self.cluster = self._create_cluster(self.n_chips, self.max_chips)
+            self.max_chips = self.cluster.max_chips
+            self.catalog.attach_cluster(self.cluster)
+        if (self.fault_tolerance is not None
+                and self.fault_tolerance.on_chip_failure is None):
+            self.fault_tolerance.on_chip_failure = self._recover_chip_failure
         self.scheduler = Scheduler(catalog=self.catalog, planner=self.planner,
                                    n_banks=self.n_banks, timing=self.timing,
+                                   cluster=self.cluster,
                                    reliability=self.reliability,
+                                   fault_tolerance=self.fault_tolerance,
                                    telemetry=self.telemetry)
         self._columns: Dict[str, VerticalColumn] = {}
         #: serializes direct dispatch against a live serving loop
@@ -304,19 +318,143 @@ class QueryService:
         """
         return self.scheduler.explain(queries)
 
-    # -- not ported yet --------------------------------------------------------
+    # -- elastic deployment --------------------------------------------------
 
-    def rescale(self, n_chips: int):
-        """Elastic chip rescaling of a distributed deployment."""
-        raise NotImplementedError(
-            "rescale(): the chip cluster is not ported yet (ROADMAP "
-            "queue A, multi-device)")
+    def _create_cluster(self, n_chips: int, max_chips: Optional[int],
+                        devices=None):
+        """A cluster of `n_chips` on the service's device: distinct cards
+        on "cuda", the host repeated on "cpu" (or the given ``devices``)."""
+        from repro_torch.core.cluster import ChipCluster
 
-    def serve_stream(self, batches, checkpoint_dir: str, **kwargs):
-        """Checkpointed stream serving with replay."""
-        raise NotImplementedError(
-            "serve_stream(): checkpointed serving is not ported yet "
-            "(ROADMAP queue A, multi-device)")
+        if devices is None and self.device.type == "cpu":
+            devices = [self.device] * n_chips
+        return ChipCluster.create(n_chips, n_banks=self.n_banks,
+                                  max_chips=max_chips, devices=devices)
+
+    def rescale(self, n_chips: int, devices=None):
+        """Elastically change the chip count of a distributed deployment.
+
+        The placement granularity (``max_chips * n_banks`` word-slots) is
+        the preserved "global batch" of `dist.elastic.plan_rescale`: each
+        chip always drives `n_banks` physical banks per sweep
+        (``per_shard_batch``), and the slot grid is re-divided so the new
+        chips cover it in ``plan.grad_accum`` sequential sweeps. Raises
+        `ValueError` (from `plan_rescale`) when the layout cannot be
+        preserved exactly — e.g. 3 chips over an 8-chip-granular
+        placement. On success the catalog is re-placed onto the new
+        chips: every registered vector keeps its bits (slot contents are
+        invariant, only slot->chip assignment moves) and every derived
+        column / affinity group survives. The new chips are on the
+        service's device (distinct cards on "cuda"), or ``devices`` (e.g.
+        ``["cuda:0"] * n_chips`` for several chips on one card). Returns
+        the `RescalePlan`.
+        """
+        if self.cluster is None:
+            raise ValueError(
+                "rescale() needs a distributed service; construct with "
+                "ServiceConfig(n_chips=...)")
+        from repro_torch.dist.elastic import plan_rescale
+
+        old = self.cluster
+        plan = plan_rescale(global_batch=old.slots,
+                            old_mesh_shards=old.n_chips,
+                            new_mesh_shards=n_chips,
+                            old_accum=old.sweeps)
+        assert plan.per_shard_batch == self.n_banks
+        self.cluster = self._create_cluster(n_chips, old.max_chips, devices)
+        assert self.cluster.sweeps == plan.grad_accum
+        self.n_chips = n_chips
+        self.catalog.attach_cluster(self.cluster)
+        self.scheduler.cluster = self.cluster
+        return plan
+
+    # -- fault tolerance -----------------------------------------------------
+
+    def _recover_chip_failure(self, exc: BaseException) -> None:
+        """Default `FaultTolerance.on_chip_failure` hook: rescale down.
+
+        A `dist.fault_tolerance.ChipFailure` on a distributed deployment
+        means one chip is gone; recovery elastically re-plans the
+        placement onto the largest valid smaller chip count (the slot
+        grid constrains which counts divide evenly — `rescale` raises
+        `ValueError` for the rest) and re-places every catalog vector, so
+        the replayed plan-group lands on the surviving chips with nothing
+        lost. The survivors keep the devices of the first chips. Non-chip
+        failures (a transient kernel fault) need no topology change; the
+        scheduler's replay alone recovers them.
+        """
+        from repro_torch.dist.fault_tolerance import ChipFailure
+
+        if not isinstance(exc, ChipFailure) or self.cluster is None:
+            return
+        old = self.cluster.n_chips
+        for c in range(old - 1, 0, -1):
+            try:
+                self.rescale(c, devices=self.cluster.devices[:c])
+            except ValueError:
+                continue    # slot grid not divisible by c chips
+            if self.fault_tolerance is not None:
+                self.fault_tolerance.timeline.append(f"rescale@{old}->{c}")
+            tel = self.telemetry
+            if tel.metering:
+                tel.metrics.counter("chip_rescales_total").inc()
+            if tel.tracing:
+                tel.tracer.instant("chip_rescale", old=old, new=c)
+            return
+        raise RuntimeError(
+            f"chip failure on a {old}-chip cluster with no valid smaller "
+            "layout") from exc
+
+    def serve_stream(self, batches: Sequence[Sequence[Query]],
+                     checkpoint_dir: str, ckpt_every: int = 2,
+                     failure_injector=None, max_restores: int = 16):
+        """Serve a stream of query batches with checkpointed recovery.
+
+        Each batch is one step of a `dist.fault_tolerance.ResilientRunner`:
+        scalar results land in a flat values array inside the runner state,
+        which is checkpointed every ``ckpt_every`` batches
+        (`checkpoint.Checkpointer`, atomic + async). A failure mid-stream
+        replays from the last checkpoint; a *fresh* service pointed at the
+        same directory resumes where the previous job stopped and skips
+        the already-served prefix. Returns ``(values, RunReport)`` with
+        ``values[i]`` the scalar of the i-th query in stream order.
+
+        Scalar modes only — a materialized word vector has no slot in the
+        fixed-structure checkpoint state.
+        """
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        from repro_torch.dist.fault_tolerance import ResilientRunner
+
+        batches = [list(b) for b in batches]
+        for b in batches:
+            for q in b:
+                if q.mode == MATERIALIZE:
+                    raise ValueError(
+                        "serve_stream checkpoints scalar results; "
+                        "materialize queries don't fit the stream state")
+        sizes = [len(b) for b in batches]
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
+        n_total = int(offsets[-1])
+
+        def step_fn(state, step, batch):
+            report = self.query_batch(batch)
+            # a restored state holds CPU tensors: re-host + re-cast
+            # instead of mutating
+            values = np.asarray(state["values"]).astype(np.int64).copy()
+            lo = int(offsets[step])
+            values[lo:lo + len(batch)] = [int(r.value)
+                                          for r in report.results]
+            return {"done": np.int64(step + 1), "values": values}, {}
+
+        runner = ResilientRunner(
+            step_fn, lambda step: batches[step],
+            Checkpointer(checkpoint_dir), ckpt_every=ckpt_every,
+            max_restores=max_restores, telemetry=self.telemetry)
+        init = {"done": np.int64(0),
+                "values": np.zeros(n_total, np.int64)}
+        state, report = runner.run(init, len(batches),
+                                   failure_injector=failure_injector)
+        return np.asarray(state["values"]).astype(np.int64), report
 
     # -- observability -------------------------------------------------------
 
@@ -326,11 +464,12 @@ class QueryService:
         With metering on (the default), the counter-backed keys read
         through `telemetry.metrics`; with metering off they fall back to
         the always-maintained legacy attributes, so the dict shape is
-        stable either way. The keys of the reference's distributed and
-        fault-tolerance modes read 0 here.
+        stable either way; with metering on the dict also carries latency
+        percentiles plus the reliability / fault-tolerance totals.
         """
         cache = self.planner.cache
         tel = self.telemetry
+        ft = self.fault_tolerance
         if tel.metering:
             m = tel.metrics
             s: Dict[str, float] = {
@@ -348,8 +487,8 @@ class QueryService:
                 "total_modeled_ns": m.counter("modeled_ns_total").value,
                 "total_energy_nj": m.counter(
                     "modeled_energy_nj_total").value,
-                "n_chips": 1,
-                "chip_sweeps": 0,
+                "n_chips": self.n_chips or 1,
+                "chip_sweeps": self.cluster.sweeps if self.cluster else 0,
                 "parity_checks": int(
                     m.counter("parity_checks_total").value),
                 "batches": int(m.counter("batches_total").value),
@@ -381,15 +520,19 @@ class QueryService:
                 "compile_count": self.planner.compile_count,
                 "total_modeled_ns": self.scheduler.total_modeled_ns,
                 "total_energy_nj": self.scheduler.total_energy_nj,
-                "n_chips": 1,
-                "chip_sweeps": 0,
+                "n_chips": self.n_chips or 1,
+                "chip_sweeps": self.cluster.sweeps if self.cluster else 0,
                 "parity_checks": self.scheduler.parity_checks,
-                "chip_rescales": 0,
+                "chip_rescales": (sum(
+                    1 for t in ft.timeline if t.startswith("rescale@"))
+                    if ft else 0),
             }
-        s["replays"] = 0
-        s["failures"] = 0
-        s["stragglers"] = 0
-        s["straggler_ema_s"] = 0.0
+        # fault-tolerance state folds in from the policy object (the
+        # legacy source of truth); the registry's ft_* counters mirror it
+        s["replays"] = ft.replays if ft else 0
+        s["failures"] = ft.failures if ft else 0
+        s["stragglers"] = len(ft.stragglers) if ft else 0
+        s["straggler_ema_s"] = (ft.monitor.ema or 0.0) if ft else 0.0
         return s
 
     def export_chrome_trace(self, path=None):

@@ -207,6 +207,131 @@ def test_unpinned_plans_and_direct_calls_launch_the_kernel(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the chip cluster: C chips on the one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_chips", [1, 2, 4])
+def test_cluster_shards_launch_the_vm_on_every_chip(cuda, n_chips):
+    """`ChipCluster` on ``["cuda:0"] * C``: each chip's shard is one VM
+    launch (both modes), the counts tree-psum'd, equal to the cluster on
+    ``["cpu"] * C`` and to the unsharded program."""
+    from repro_torch.core.bitplane import tail_mask
+    from repro_torch.core.cluster import ChipCluster
+
+    lp = tlow.lower(_program(n_chips))
+    rng = np.random.default_rng(n_chips)
+    words, n_bits = 1_003, 1_003 * 32 - 5
+    data = {f"D{i}": rng.integers(0, 1 << 32, (3, words), dtype=np.uint32)
+            for i in range(6)}
+    clusters = [ChipCluster.create(n_chips, n_banks=8, max_chips=8,
+                                   devices=[d] * n_chips)
+                for d in ("cuda:0", "cpu")]
+    rows, counts = [], []
+    for cl in clusters:
+        sharded = {k: cl.shard_words(v) for k, v in data.items()}
+        mask = cl.shard_words(tail_mask(n_bits))
+        before = dict(LAUNCHES)
+        out = cl.run_lowered(lp, sharded, ["OUT"])
+        rows.append(cl.unshard_words(out["OUT"], words).cpu())
+        counts.append(cl.popcounts(lp, sharded, ["OUT"], mask))
+        if cl.devices[0].type == "cuda":
+            assert LAUNCHES["vm_materialize"] - \
+                before.get("vm_materialize", 0) == n_chips
+            assert LAUNCHES["vm_popcount"] - \
+                before.get("vm_popcount", 0) == n_chips
+    assert torch.equal(rows[0], rows[1])
+    assert counts[0].dtype == np.int32 and np.array_equal(*counts)
+    flat = tlow.execute_lowered(lp, {k: as_words(v, cuda)
+                                     for k, v in data.items()},
+                                outputs=["OUT"])["OUT"]
+    assert torch.equal(rows[0], flat.cpu())
+
+
+def test_tree_psum_on_one_card(cuda):
+    from repro_torch.core.cluster import tree_psum
+
+    xs = [torch.full((3,), i + 1, dtype=torch.int32, device="cuda:0")
+          for i in range(4)]
+    out = tree_psum(xs)
+    assert all(o.device.type == "cuda" and torch.equal(
+        o.cpu(), torch.full((3,), 10, dtype=torch.int32)) for o in out)
+
+
+def test_cluster_of_more_chips_than_cards_raises(cuda):
+    from repro_torch.core import engine
+    from repro_torch.core.cluster import ChipCluster, ClusterError
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ClusterError, match=f"need {n + 1} devices"):
+        ChipCluster.create(n + 1)
+    if n == 1:
+        with pytest.raises(ClusterError, match="need 2 devices"):
+            ChipCluster.create(2)
+        prog = _program(0)
+        rows = {f"D{i}": torch.zeros(8, dtype=torch.int32, device=cuda)
+                for i in range(6)}
+        with pytest.raises(ClusterError):
+            engine.execute(prog, rows, n_chips=2)
+
+
+def test_distributed_service_on_the_card_matches_the_host(cuda):
+    """The §8 stream through ``ServiceConfig(n_chips=1, max_chips=8)`` on
+    the card, rescaled onto 4 chips of the one card, equal to the
+    single-device service on the host; no plain VM on the card."""
+    from repro_torch.service import (ServiceConfig, WorkloadSpec,
+                                     build_service, query_stream)
+
+    spec = WorkloadSpec(domain_bits=(1 << 14) + 7)
+    host = build_service(spec, device="cpu")
+    queries = query_stream(spec, host)
+    want = [r.scalar for r in host.query_batch(queries).results]
+    svc = build_service(spec, config=ServiceConfig(
+        n_chips=1, max_chips=8, device="cuda"))
+    LAUNCHES.clear()
+    assert [r.scalar for r in svc.query_batch(queries).results] == want
+    assert LAUNCHES["vm_popcount"] > 0
+    svc.rescale(4, devices=["cuda:0"] * 4)
+    assert [r.scalar for r in svc.query_batch(queries).results] == want
+    assert svc.stats()["n_chips"] == 4
+
+
+def test_distributed_service_across_cards_matches_the_host(cuda):
+    """With several cards, ``ServiceConfig(n_chips=C)`` puts chip i on
+    card i: shards live on their own cards, counts cross cards only
+    through `tree_psum`, and a chip kill shrinks the cluster onto the
+    first cards; every answer equals the host's."""
+    from repro_torch.dist.fault_tolerance import ChipFailure, FaultTolerance
+    from repro_torch.service import (ServiceConfig, WorkloadSpec,
+                                     build_service, query_stream)
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    c = 4 if n >= 4 else 2
+    spec = WorkloadSpec(domain_bits=(1 << 14) + 7)
+    host = build_service(spec, device="cpu")
+    queries = query_stream(spec, host)
+    want = [r.scalar for r in host.query_batch(queries).results]
+    armed = {"live": True}
+
+    def inject(g):
+        if g == 3 and armed["live"]:
+            armed["live"] = False
+            raise ChipFailure(c - 1)
+
+    ft = FaultTolerance(failure_injector=inject)
+    svc = build_service(spec, config=ServiceConfig(
+        n_chips=c, max_chips=8, device="cuda", fault_tolerance=ft))
+    assert [d.index for d in svc.cluster.devices] == list(range(c))
+    shards = svc.catalog.shards("t0/male")
+    assert [s.device.index for s in shards] == list(range(c))
+    assert [r.scalar for r in svc.query_batch(queries).results] == want
+    assert svc.n_chips == c // 2 and ft.failures == 1
+    assert [r.scalar for r in svc.query_batch(queries).results] == want
+
+
+# ---------------------------------------------------------------------------
 # the direct bulk-bitwise path: bitwise, banked bitwise, popcount, scan
 # ---------------------------------------------------------------------------
 

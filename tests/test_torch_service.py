@@ -241,7 +241,7 @@ def test_forced_cuda_backend_routes_through_the_wrappers():
         T.query_stream(spec, svc)).plans} == {"torch"}
 
 
-def test_device_default_and_unported_modes():
+def test_device_default_and_unported_modes(tmp_path):
     if torch.cuda.is_available():
         assert T.QueryService().device.type == "cuda"
     else:
@@ -249,10 +249,22 @@ def test_device_default_and_unported_modes():
             T.QueryService()
         with pytest.raises(RuntimeError):
             T.build_service(T.WorkloadSpec(**SPEC))
-    for field, value in (("n_chips", 2), ("max_chips", 4),
-                         ("fault_tolerance", object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.QueryService(T.ServiceConfig(device="cpu", **{field: value}))
+    # the deployment modes are ported: n_chips builds a chip cluster on
+    # the service's device, max_chips alone is only recorded, and a
+    # fault-tolerance policy gets the chip-failure recovery hook
+    from repro_torch.dist.fault_tolerance import FaultTolerance
+
+    dist = T.QueryService(T.ServiceConfig(device="cpu", n_chips=2))
+    assert dist.cluster.n_chips == 2 and dist.max_chips == 8
+    assert {d.type for d in dist.cluster.devices} == {"cpu"}
+    assert dist.scheduler.cluster is dist.cluster
+    solo = T.QueryService(T.ServiceConfig(device="cpu", max_chips=4))
+    assert solo.cluster is None and solo.max_chips == 4
+    ft = FaultTolerance()
+    guarded = T.QueryService(T.ServiceConfig(device="cpu",
+                                             fault_tolerance=ft))
+    assert guarded.scheduler.fault_tolerance is ft
+    assert ft.on_chip_failure == guarded._recover_chip_failure
     # TRA reliability is ported: a ReliabilityConfig is taken, anything
     # else raises
     from repro_torch.core.errors import ReliabilityConfig
@@ -263,10 +275,11 @@ def test_device_default_and_unported_modes():
     with pytest.raises(TypeError, match="ReliabilityConfig"):
         T.QueryService(T.ServiceConfig(device="cpu", reliability=object()))
     svc = T.QueryService(T.ServiceConfig(device="cpu"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="n_chips"):
         svc.rescale(2)
-    with pytest.raises(NotImplementedError):
-        svc.serve_stream([], "unused")
+    assert dist.rescale(4).grad_accum == 2 and dist.cluster.n_chips == 4
+    vals, rep = svc.serve_stream([], str(tmp_path / "ck"))
+    assert vals.shape == (0,) and rep.timeline == ["ckpt@0"]
     assert svc.catalog.device.type == "cpu"
     assert T.choose_backend(
         T.Planner().cache.lookup(
@@ -297,12 +310,16 @@ def test_service_config_consolidation_and_shims():
     with pytest.warns(DeprecationWarning, match="ServiceConfig") as seen:
         svc2 = T.QueryService(n_banks=4, device="cpu", reliability=rel)
     assert len(seen) == 1 and svc2.config.reliability is rel
-    # the unported modes warn first, then raise
-    for field, value in (("n_chips", 2), ("fault_tolerance", object())):
+    # the deployment keywords warn, then configure the deployment
+    from repro_torch.dist.fault_tolerance import FaultTolerance
+
+    ft = FaultTolerance()
+    for field, value in (("n_chips", 2), ("fault_tolerance", ft)):
         with pytest.warns(DeprecationWarning, match=f"{field}=.*"
-                          "ServiceConfig"):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                T.QueryService(device="cpu", **{field: value})
+                          "ServiceConfig") as seen:
+            svc3 = T.QueryService(device="cpu", **{field: value})
+        assert len(seen) == 1 and getattr(svc3.config, field) is value
+    assert svc3.scheduler.fault_tolerance is ft
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         T.QueryService(n_banks=4, device="cpu", optimize=False)
