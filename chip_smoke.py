@@ -67,7 +67,11 @@ Phases; the first failure exits non-zero:
    ``moe_ffn`` in float32 at reduced widths (d_model 1,024, 16 experts,
    top-2, 2,048 tokens at a capacity that drops some) against the same
    call on the CPU: the same routing, the output within 1e-4 of its
-   largest magnitude, the aux loss within 1e-5.
+   largest magnitude, the aux loss within 1e-5. The flash launches that
+   no main path makes (float32, and bf16 at head dims 16 and 32) are
+   timed there too, the serving forward and the backward, beside their
+   bound and ``scaled_dot_product_attention`` (its backward alone), and
+   their totals by dtype and head dim printed ("off the main path").
 3. slice   — (a) serve the §8 multi-tenant workload at full width (2**24-bit
    vectors) through ``build_service -> query_stream -> query_batch``, plus
    a batch of materialize queries. Every result must equal the unbatched
@@ -131,14 +135,18 @@ Phases; the first failure exits non-zero:
    (g) MoE serving at Llama-4 Maverick's published widths (d_model 5,120,
    40 / 8 heads of 128, 128 experts of d_ff 8,192, top-1, one shared,
    dense d_ff 16,384, vocab 202,048) in bf16, its depth cut from 48 layers
-   to 2 (one dense, one MoE: one super-layer; 37.4 GB of weights), through
-   ``build -> init -> generate`` with 3e's traffic: 2 flash launches; the
-   prefill's dropped slots (16,384 tokens at capacity 160) must equal a
-   host recount from the router's ids, every logit finite, ids in vocab;
-   it prints the cold and warm prefill wall, ms per decode step and tok/s,
-   peak memory, the dropped share and the experts' max / mean load, and
-   the warm prefill's device ms by kind and idle share. (h) the paper's
-   §3, §6.2 and §8.4 at real sizes, each against numpy on the host: Table
+   to 2 (one dense, one MoE: one super-layer; 37.4 GB of weights), and
+   Kimi K2's (d_model 7,168, 64 / 8 heads of 112, 384 experts of d_ff
+   2,048, top-8, one shared, dense d_ff 16,384, vocab 163,840) cut from 61
+   layers to 2 (its leading dense layer and one MoE layer of all 384
+   experts; 39.8 GB), each through ``build -> init -> generate`` with
+   3e's traffic: 2 flash launches (Kimi K2's at head dim 112); the
+   prefill's dropped slots (16,384 tokens at capacity 160 / 432) must
+   equal a host recount from the router's ids, every logit finite, ids
+   in vocab; each prints the cold and warm prefill wall, ms per decode
+   step and tok/s, peak memory, the dropped share and the experts' max /
+   mean load, and the warm prefill's device ms by kind and idle share.
+   (h) the paper's §3, §6.2 and §8.4 at real sizes, each against numpy on the host: Table
    1 and ``monte_carlo_tra`` at 2**20 trials (sigma 0.06 and 0.25); five
    ``bop``s over 8 KiB rows taking the Buddy and the CPU path; masked init
    over 2**23 pixels; XOR encrypt / decrypt of 2**23 words; a 16-base read
@@ -193,7 +201,17 @@ Phases; the first failure exits non-zero:
    none) and nothing else. Each prints the cold and warm step, tok/s,
    peak memory, a warm step's device ms by kind with its idle share, and
    for the SSD families the scan's forward and backward at one layer's
-   shape.
+   shape. (p) training the MoE family as (n) (Adafactor, global batch 1
+   of 4,096 in one microbatch): Llama-4 Maverick and Kimi K2 at their
+   published widths cut to 2 layers (one dense, one MoE) and half their
+   experts (64 of 128: 10.63 B parameters; 192 of 384: 11.43 B; at all
+   the experts weights, gradients and Adafactor's statistics take 96.8
+   and 102.7 GB), with (n)'s checks: the first loss within 10% of ln V +
+   0.02^2 d_model / 2 + 0.01 aux; every gradient leaf against the plain
+   attention (that set held on the host); three steps lower the loss;
+   per step 4 lse forwards and 2 backwards (hd 128 / 112), and no call of
+   a plain flash function; each prints (n)'s numbers, the aux loss and
+   each MoE layer's dropped slots.
    (o) the §8 stream of (a) through the chip cluster on the card:
    ``ServiceConfig(n_banks=8, n_chips=1, max_chips=8)`` (64 slots of
    8,192 words a 2 MiB vector), cold, warm and materialize, each answer
@@ -209,7 +227,7 @@ Phases; the first failure exits non-zero:
    fresh service resuming there after the last checkpoint is removed,
    both runs' values equal to (a)'s. Each wall is printed beside the
    card's name and power limit.
-   Each of (a)-(o) starts with every launch count at 0 and must launch
+   Each of (a)-(p) starts with every launch count at 0 and must launch
    each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
@@ -250,9 +268,10 @@ Phases; the first failure exits non-zero:
    design); of (h), every
    launch; of (l)-(n), the first microbatch's lse forward and backward
    launches as (f)'s, with per-shape and per-route lines for both
-   kernels. Phase 4 runs for (a)-(e) before (f) starts, for (f) before
-   (g), for (g)-(h) before (i) and for (i)-(k) before (l), so their
-   recorded arguments are freed first.
+   kernels; of (p) likewise, at head dims 128 and 112. Phase 4 runs for
+   (a)-(e) before (f) starts, for (f) before (g), for (g)-(h) before (i),
+   for (i)-(k) before (l) and for each trained model before the next, so
+   their recorded arguments are freed first.
 
 Output: the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as the last line ``{"ok": true, "device": {...}}``. ``--out DIR``
@@ -904,11 +923,103 @@ def _hm(x):
     return x.transpose(1, 2)
 
 
-def phase_flash_kernels(torch) -> float:
+def _flash_cost(kind: str, q, k, causal: bool):
+    """(flops, bytes, bytes ms, ops ms) of one launch of flash kernel
+    ``kind`` on model-layout q (B, Sq, H, hd) and k (B, Sk, KV, hd): the
+    unmasked (query, key) pairs, two products of hd MACs each for a
+    forward (five for the backward: s, dp, dv, dq, dk); q, k, v read and
+    o written (the lse forward also writes the lse; the backward reads
+    q, k, v, o, do and the lse and writes dq, dk, dv); bytes over the
+    card's memory rate, FLOPs over its dense rate for the dtype."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal \
+        else Sq * Sk
+    es = q.element_size()
+    if kind == "flash_attention_bwd":
+        flops = 10 * B * H * hd * pairs
+        nbytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * Sq
+    else:
+        flops = 4 * B * H * hd * pairs
+        nbytes = es * (2 * q.numel() + 2 * k.numel()) + (
+            4 * B * H * Sq if kind == "flash_attention_fwd" else 0)
+    dtype = str(q.dtype).split(".")[-1]
+    return (flops, nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
+            flops / FLOPS_PER_S[dtype] * 1e3)
+
+
+def _off_path(dtype: str, hd: int) -> bool:
+    """A flash launch that no main path makes: float32, or bf16 at a head
+    dim no config uses (16, 32)."""
+    return dtype == "float32" or hd in (16, 32)
+
+
+def _time_off_path(torch, kind, q, k, v, causal, clock_hz, into, bwd=None):
+    """Phase 2's numbers for one off-path launch of flash kernel ``kind``
+    (`_off_path`): the kernel's device ms beside its bound, the plain
+    version's and the library call's (``scaled_dot_product_attention``,
+    for the backward that call's backward alone), added into
+    ``into[kind][group]``, the group being its dtype and head dim.
+    ``bwd``: (o, lse, do) for the backward."""
+    from repro_torch.kernels import flashattn
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qc, kc, vc = (_hm(x).contiguous() for x in (q, k, v))
+    if kind == "flash_attention":
+        _, k_ms, _ = _time_ms(torch, lambda: flashattn.
+                              flash_attention_kernel(q, k, v, causal), 3,
+                              clock_hz)
+        _, p_ms, _ = _time_ms(torch, lambda: flashattn.
+                              flash_attention_plain(_hm(q), _hm(k), _hm(v),
+                                                    causal), 1, clock_hz)
+        _, lib_ms, _ = _time_ms(torch, lambda: sdpa(
+            qc, kc, vc, is_causal=causal, enable_gqa=True), 3, clock_hz)
+    else:
+        o, lse, do = bwd
+        _, k_ms, _ = _time_ms(torch, lambda: flashattn.
+                              flash_attention_bwd_kernel(
+                                  q, k, v, o, lse, do, causal), 3, clock_hz)
+        _, p_ms, _ = _time_ms(torch, lambda: flashattn.
+                              flash_attention_bwd_plain(
+                                  _hm(q), _hm(k), _hm(v), _hm(o), lse,
+                                  _hm(do), causal), 1, clock_hz)
+        qg, kg, vg = (x.requires_grad_() for x in (qc, kc, vc))
+        with torch.enable_grad():
+            lib_o = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=True)
+        doc = _hm(do).contiguous()
+        _, lib_ms, _ = _time_ms(torch, lambda: torch.autograd.grad(
+            lib_o, (qg, kg, vg), doc, retain_graph=True), 3, clock_hz)
+        del lib_o, doc, qg, kg, vg
+    del qc, kc, vc
+    _, _, b_ms, o_ms = _flash_cost(kind, q, k, causal)
+    group = f"{str(q.dtype).split('.')[-1]} hd {q.shape[-1]}"
+    row = into.setdefault(kind, {}).setdefault(group, {
+        "cases": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": 0.0})
+    row["cases"] += 1
+    for key, val in (("ms", k_ms), ("plain_ms", p_ms),
+                     ("bound_ms", max(b_ms, o_ms)), ("bytes_ms", b_ms),
+                     ("ops_ms", o_ms), ("library_ms", lib_ms)):
+        row[key] += val
+
+
+def _print_off_path(off: dict) -> None:
+    for kind, groups in off.items():
+        for group, r in groups.items():
+            print(f"[kernels] off the main path, {kind} {group}: "
+                  f"{r['cases']} phase-2 launches, kernel {r['ms']:.3f} ms, "
+                  f"bound {r['bound_ms']:.3f} ms ("
+                  f"{'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}"
+                  f"), plain {r['plain_ms']:.3f} ms, library "
+                  f"{r['library_ms']:.3f} ms")
+
+
+def phase_flash_kernels(torch, clock_hz, off) -> float:
     """The flash kernel against its plain version in both dtypes, and on
     `SERVE_FLASH_CASES` also the lse forward (its output equal to the
     serving kernel's, the lse within 1e-4); returns the largest absolute
-    difference."""
+    difference. Each off-path launch (`_off_path`) is also timed beside
+    its bound and the library call into ``off`` (`_time_off_path`)."""
     from repro_torch.kernels.flashattn import (flash_attention_fwd_kernel,
                                                flash_attention_fwd_plain,
                                                flash_attention_kernel)
@@ -929,6 +1040,9 @@ def phase_flash_kernels(torch) -> float:
             want, lse_want = flash_attention_fwd_plain(
                 _hm(q), _hm(k), _hm(v), causal, bq, bk)
             err, share = _close(label, got, _hm(want), tol)
+            if _off_path(name, hd):
+                _time_off_path(torch, "flash_attention", q, k, v, causal,
+                               clock_hz, off)
             if case in SERVE_FLASH_CASES:
                 o, lse = flash_attention_fwd_kernel(q, k, v, causal)
                 check(torch.equal(o, got), f"{label}: the lse forward's "
@@ -993,11 +1107,12 @@ def _close_all(label, got, want, tol):
     return worst, most
 
 
-def phase_train_kernels(torch) -> dict:
+def phase_train_kernels(torch, clock_hz, off) -> dict:
     """The lse-emitting forward and the backward against their plain
     versions in both dtypes (the lse to 1e-4 of its RMS plus each
     element), and the sign pack / unpack bit for bit; returns the largest
-    absolute difference per kernel."""
+    absolute difference per kernel. Each off-path backward launch
+    (`_off_path`) is also timed into ``off`` (`_time_off_path`)."""
     from repro_torch.kernels import flashattn, ref, signpack
 
     gen = torch.Generator(device="cuda").manual_seed(107)
@@ -1036,6 +1151,10 @@ def phase_train_kernels(torch) -> dict:
                 bk)
             err_b, share_b = _close_all(f"flash_attention_bwd {label}",
                                         grads, [_hm(w) for w in want], tol)
+            del grads, want
+            if _off_path(name, hd):
+                _time_off_path(torch, "flash_attention_bwd", q, k, v,
+                               causal, clock_hz, off, bwd=(o, lse, do))
             worst["flash_attention_fwd"] = max(
                 worst["flash_attention_fwd"], err_o, err_l)
             worst["flash_attention_bwd"] = max(
@@ -2134,10 +2253,24 @@ def _plain_attention(flashattn, block=None):
     return fwd, bwd
 
 
+#: the most elements `_rel_rms` takes in float32 at once
+REL_RMS_SLICE = 1 << 26
+
+
 def _rel_rms(got, want) -> float:
-    g, w = got.float(), want.float()
-    return float((g - w).pow(2).mean().sqrt()
-                 / w.pow(2).mean().sqrt().clamp_min(1e-30))
+    """RMS of ``got - want`` over the RMS of ``want``, summed in float32
+    slices along the leading axis (so a 10 GB expert weight takes no
+    whole float32 copy); ``want`` may lie on the host."""
+    rows = max(1, REL_RMS_SLICE // max(1, got[0].numel())) \
+        if got.dim() else 1
+    num = den = 0.0
+    for i in (range(0, got.shape[0], rows) if got.dim() else [None]):
+        part = (slice(i, i + rows),) if i is not None else ()
+        g = got[part].float()
+        w = want[part].to(got.device).float()
+        num += float((g - w).pow(2).sum())
+        den += float(w.pow(2).sum())
+    return (num / max(den, 1e-60)) ** 0.5
 
 
 def _free_port() -> int:
@@ -2373,18 +2506,24 @@ def phase_train(torch, rec):
 # phase 3g: MoE serving
 # ---------------------------------------------------------------------------
 
-#: phase 3g: Llama-4 Maverick at its published widths, its depth cut from
-#: 48 layers to 2 (one dense and one MoE layer: one super-layer of the
-#: reference's scan; the 128 experts of one MoE layer alone hold 32.2 GB),
-#: served with 3e's traffic (LM_BATCH prompts of LM_PROMPT ids, LM_NEW new)
-MOE_ARCH, MOE_LAYERS, MOE_SEED = "llama4_maverick_400b_a17b", 2, 18
+#: phase 3g: (arch, depth, seed) of the MoE models served at their
+#: published widths with 3e's traffic (LM_BATCH prompts of LM_PROMPT ids,
+#: LM_NEW new), each depth cut to 2 layers, one dense and one MoE: Llama-4
+#: Maverick (one super-layer of the reference's scan; its 128 experts of
+#: one MoE layer alone hold 32.2 GB; 18.69 B parameters, 37.4 GB) and
+#: Kimi K2 (its leading dense layer and one MoE layer of all 384 experts;
+#: 19.89 B parameters, 39.8 GB; head dim 112)
+MOE_PHASES = (("llama4_maverick_400b_a17b", 2, 18),
+              ("kimi_k2_1t_a32b", 2, 29))
+MOE_ARCH = MOE_PHASES[0][0]
 MOE_KERNELS = ("flash_attention",)
 
 
-def phase_moe(torch, rec):
-    """MoE serving at Maverick's published widths (2 layers) through
-    ``build -> init -> generate`` on the card: the prefill's drops against
-    a host recount from the router's ids, finite logits, ids in vocab."""
+def phase_moe(torch, rec, arch, n_layers, seed):
+    """MoE serving at ``arch``'s published widths (``n_layers`` layers)
+    through ``build -> init -> generate`` on the card: the prefill's
+    drops against a host recount from the router's ids, finite logits,
+    ids in vocab."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -2393,13 +2532,14 @@ def phase_moe(torch, rec):
     from repro_torch.models.transformer import layer_kinds
     from repro_torch.serve import generate
 
-    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    published = get_config(arch).n_layers
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     check(layer_kinds(cfg) == ("dense", "moe"),
-          f"{cfg.name} at {MOE_LAYERS} layers is {layer_kinds(cfg)}")
+          f"{cfg.name} at {n_layers} layers is {layer_kinds(cfg)}")
     torch.cuda.empty_cache()
     bundle = build(cfg)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=bundle.device).manual_seed(MOE_SEED)
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
     params = bundle.init(gen)
     prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                             generator=gen, device=bundle.device)
@@ -2443,7 +2583,7 @@ def phase_moe(torch, rec):
         torch.cuda.reset_peak_memory_stats()
         LAUNCHES.clear()
         seen["routed"] = []
-        rec.stage, rec.only = "moe prefill", {"flash_attention"}
+        rec.stage, rec.only = f"{cfg.name} prefill", {"flash_attention"}
         t0 = time.perf_counter()
         toks = generate(served, params, batch, LM_NEW)
         torch.cuda.synchronize()
@@ -2474,7 +2614,7 @@ def phase_moe(torch, rec):
     finally:
         moe.dispatch = dispatch
         rec.stage = rec.only = None
-    print(f"[moe] launches while generate ran: {launches}")
+    print(f"[moe] {cfg.name}: launches while generate ran: {launches}")
     for name in MOE_KERNELS:
         check(launches.get(name, 0) > 0,
               f"kernel {name} was never launched on the MoE serving path")
@@ -2513,47 +2653,48 @@ def phase_moe(torch, rec):
     decode_ms = (t_gen - t_prefill) / (LM_NEW - 1) * 1e3
     warm_decode_ms = (t_warm - t_warm_prefill) / (LM_NEW - 1) * 1e3
     busy = sum(device.values())
-    info = {"moe_arch": cfg.name, "moe_layers": cfg.n_layers,
-            "moe_params": n_params, "moe_weight_bytes": w_bytes,
-            "moe_init_s": t_init, "moe_generate_s": t_gen,
-            "moe_prefill_s": t_prefill, "moe_decode_ms": decode_ms,
-            "moe_tok_per_s": LM_BATCH * LM_NEW / t_gen,
-            "moe_prefill_tok_per_s": T / t_prefill,
-            "moe_warm_generate_s": t_warm,
-            "moe_warm_prefill_s": t_warm_prefill,
-            "moe_warm_decode_ms": warm_decode_ms,
-            "moe_warm_tok_per_s": LM_BATCH * LM_NEW / t_warm,
-            "moe_peak_device_bytes": peak, "moe_capacity": C,
-            "moe_dropped_slots": dropped, "moe_drop_share": drop_share,
-            "moe_load_max": float(load.max()),
-            "moe_load_mean": float(load.mean()),
-            "moe_prefill_device_ms": device,
-            "moe_prefill_device_events": events}
-    print(f"[moe] {cfg.name} at its published widths, depth cut from 48 to "
-          f"{cfg.n_layers} layers (one dense at d_ff {cfg.dense_d_ff}, one "
+    info = {"arch": cfg.name, "layers": cfg.n_layers,
+            "params": n_params, "weight_bytes": w_bytes,
+            "init_s": t_init, "generate_s": t_gen,
+            "prefill_s": t_prefill, "decode_ms": decode_ms,
+            "tok_per_s": LM_BATCH * LM_NEW / t_gen,
+            "prefill_tok_per_s": T / t_prefill,
+            "warm_generate_s": t_warm,
+            "warm_prefill_s": t_warm_prefill,
+            "warm_decode_ms": warm_decode_ms,
+            "warm_tok_per_s": LM_BATCH * LM_NEW / t_warm,
+            "peak_device_bytes": peak, "capacity": C,
+            "dropped_slots": dropped, "drop_share": drop_share,
+            "load_max": float(load.max()),
+            "load_mean": float(load.mean()),
+            "prefill_device_ms": device,
+            "prefill_device_events": events}
+    print(f"[moe] {cfg.name} at its published widths, depth cut from "
+          f"{published} to {cfg.n_layers} layers (one dense at d_ff "
+          f"{cfg.dense_d_ff}, one "
           f"MoE: {cfg.n_experts} experts of d_ff {cfg.d_ff}, top-"
           f"{cfg.top_k}, {cfg.n_shared_experts} shared): d_model "
           f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
           f"{cfg.head_dim_}, vocab {cfg.padded_vocab} padded, "
           f"{n_params / 1e9:.3f} B parameters ({w_bytes / 2**30:.2f} GiB) "
           f"in bf16 (init {t_init:.2f} s)")
-    print(f"[moe] cold generate: {LM_BATCH} prompts of {LM_PROMPT} ids, "
-          f"{LM_NEW} new, greedy: {t_gen:.3f} s wall, prefill "
+    print(f"[moe] {cfg.name} cold generate: {LM_BATCH} prompts of "
+          f"{LM_PROMPT} ids, {LM_NEW} new, greedy: {t_gen:.3f} s wall, prefill "
           f"{t_prefill * 1e3:.1f} ms ({T / t_prefill:.0f} prompt tok/s), "
           f"{decode_ms:.2f} ms per decode step (the cache extension "
           f"included), {LM_BATCH * LM_NEW / t_gen:.1f} generated tok/s; "
           f"peak device memory {peak / 2**30:.2f} GiB")
-    print(f"[moe] warm generate: {t_warm:.3f} s wall, prefill "
+    print(f"[moe] {cfg.name} warm generate: {t_warm:.3f} s wall, prefill "
           f"{t_warm_prefill * 1e3:.1f} ms, {warm_decode_ms:.2f} ms per "
           f"decode step, {LM_BATCH * LM_NEW / t_warm:.1f} generated tok/s")
-    print(f"[moe] prefill dispatch: {T} tokens, capacity {C}: {dropped} of "
-          f"{T * cfg.top_k} routed slots dropped ({drop_share:.2%}), equal "
+    print(f"[moe] {cfg.name} prefill dispatch: {T} tokens, capacity {C}: "
+          f"{dropped} of {T * cfg.top_k} routed slots dropped ({drop_share:.2%}), equal "
           f"to the host's recount; expert load max {float(load.max()):.0f} "
           f"/ mean {float(load.mean()):.1f}; the {LM_NEW - 1} decode "
           f"dispatches ({LM_BATCH} tokens, capacity "
           f"{moe.expert_capacity(cfg, LM_BATCH)}) drop "
           f"{sum(int((~k).sum()) for _, k, _, _ in routed[1:])}")
-    print(f"[moe] warm prefill under the profiler: device "
+    print(f"[moe] {cfg.name} warm prefill under the profiler: device "
           + (f"{busy:.2f} ms over {events} kernels and copies "
              f"(torch.profiler: "
              + ", ".join(f"{k} {v:.2f}" for k, v in device.items())
@@ -2562,7 +2703,8 @@ def phase_moe(torch, rec):
              "time not measured (the profiler saw no device events)"))
     del params, prof, routed, first_logits
     torch.cuda.empty_cache()
-    return launches, info
+    return launches, {f"moe_{arch.split('_')[0]}_{k}": v
+                      for k, v in info.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3098,6 +3240,20 @@ TRAIN_FAMILY_PHASES = (
     ("3m", "seamless_m4t_medium", None, 25, "adamw", 4, 2, 36),
     ("3n", "llama_3p2_vision_90b", 5, 26, "adafactor", 2, 1, 6),
 )
+#: phase 3p: the MoE family trained, as 3n (Adafactor, global batch 1 of
+#: train_4k's sequence in one microbatch: a second microbatch would add
+#: 42-46 GB of float32 sums), each model at its published widths with its
+#: depth cut to 2 layers (one dense, one MoE) and its expert count halved
+#: (``n_experts``, the one width cut): Llama-4 Maverick at 64 of 128
+#: experts (10.63 B parameters: 21.3 GB of bf16 weights, as much again of
+#: gradients, 11.3 GB of Adafactor statistics) and Kimi K2 at 192 of 384
+#: (11.43 B: 22.9 + 22.9 + 11.9 GB); at all the experts these take 96.8
+#: and 102.7 GB, past the card's 80 GB. Fields as TRAIN_FAMILY_PHASES',
+#: then the expert count.
+TRAIN_MOE_PHASES = (
+    ("3p", "llama4_maverick_400b_a17b", 2, 27, "adafactor", 1, 1, 2, 64),
+    ("3p", "kimi_k2_1t_a32b", 2, 28, "adafactor", 1, 1, 2, 192),
+)
 #: the cold step and three warm ones, on one batch
 TRAIN_FAMILY_STEPS = 4
 #: the schedule: one warm-up step (at rate 0, so the cold step leaves the
@@ -3111,13 +3267,18 @@ TRAIN_FAMILY_LR = (1e-3, 1, 100)
 TRAIN_SPREAD_MULT = 2.0
 
 
-def _plain_grad_check(bundle, params, batch, accum, name) -> dict:
-    """Check (ii) of 3l-3n: the loss and every gradient leaf of one batch
-    with the kernels against the plain attention swapped in (loss within
-    TRAIN_LOSS_TOL relative; each leaf's RMS difference within
-    TRAIN_GRAD_TOL of its RMS or TRAIN_SPREAD_MULT times the plain
+def _plain_grad_check(bundle, params, batch, accum, name,
+                      host: bool = False) -> dict:
+    """Check (ii) of 3l-3n and 3p: the loss and every gradient leaf of
+    one batch with the kernels against the plain attention swapped in
+    (loss within TRAIN_LOSS_TOL relative; each leaf's RMS difference
+    within TRAIN_GRAD_TOL of its RMS or TRAIN_SPREAD_MULT times the plain
     attention's own spread). At most two gradient sets are alive at
-    once."""
+    once; with ``host`` the plain attention's set waits on the host, so
+    that only one set is ever on the card (3p: the MoE's 21-23 GB of
+    bf16 gradients beside its weights and Adafactor's statistics)."""
+    import torch
+
     from repro_torch.kernels import flashattn
     from repro_torch.train.step import loss_and_grads
 
@@ -3134,6 +3295,9 @@ def _plain_grad_check(bundle, params, batch, accum, name) -> dict:
                 flashattn.flash_attention_bwd_kernel = saved
 
     loss_p, _, grads_p = run(_plain_attention(flashattn))
+    if host:
+        grads_p = {n: g.cpu() for n, g in grads_p.items()}
+        torch.cuda.empty_cache()
     loss_k, _, grads_k = run(None)
     err = {n: _rel_rms(grads_k[n], grads_p[n]) for n in grads_p}
     del grads_k
@@ -3201,37 +3365,50 @@ def _ssd_ms(torch, cfg, batch: int):
     return tuple(out)
 
 
+#: the plain flash functions, which no launch on the card may reach
+PLAIN_FLASH = ("flash_attention_plain", "flash_attention_fwd_plain",
+               "flash_attention_bwd_plain")
+
+
 def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
-                       batch_size, accum, n_attn):
-    """One model of phases 3l-3n trained at its published widths through
-    ``build -> init -> make_train_step`` on the card, with the checks of
-    3f: (i) the first loss finite and within 10% of its value at the
-    initial weights, ln(padded vocab) + INIT_STD^2 d_model / 2;
-    (ii) the first step's loss and every gradient leaf against the same
-    step with the plain attention forward and backward swapped in
-    (`_plain_grad_check`; not for Mamba2, which has no attention); (iii)
-    three steps on one batch lower the loss; (iv) with two microbatches,
-    ``grad_accum`` 2 and 1 on one main-path microbatch agree in loss; (v)
-    the exact launches of a step.
+                       batch_size, accum, n_attn, n_experts=None):
+    """One model of phases 3l-3n and 3p trained at its published widths
+    (``n_experts``: the MoE's expert count, cut) through ``build -> init
+    -> make_train_step`` on the card, with the checks of 3f: (i) the
+    first loss finite and within 10% of its value at the initial
+    weights, ln(padded vocab) + INIT_STD^2 d_model / 2, for the MoE plus
+    the weighted load-balancing loss (MOE_AUX_WEIGHT x the first step's
+    aux); (ii) the first step's loss and every gradient leaf against the
+    same step with the plain attention forward and backward swapped in
+    (`_plain_grad_check`, the plain set held on the host for the MoE;
+    not for Mamba2, which has no attention); (iii) three steps on one
+    batch lower the loss; (iv) with two microbatches, ``grad_accum`` 2
+    and 1 on one main-path microbatch agree in loss; (v) the exact
+    launches of a step, and no call of a plain flash function.
     The first microbatch's flash launches are recorded for phase 4.
     Prints the cold and warm step, tokens/s, peak memory, a warm step's
-    device ms by kind with its idle share and, for the SSD families, the
-    scan's forward and backward at one layer's shape."""
+    device ms by kind with its idle share, for the SSD families the
+    scan's forward and backward at one layer's shape, and for the MoE
+    the aux loss and each MoE layer's dropped slots."""
     import dataclasses
 
     from repro_torch.configs.base import ShapeConfig, get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels import LAUNCHES
-    from repro_torch.models import build
+    from repro_torch.kernels import LAUNCHES, flashattn
+    from repro_torch.models import build, moe
     from repro_torch.models.layers import INIT_STD
+    from repro_torch.models.transformer import MOE_AUX_WEIGHT, layer_kinds
     from repro_torch.optim import get_optimizer, warmup_cosine
     from repro_torch.train import make_train_step
     from repro_torch.train.step import loss_and_grads
 
     cfg = get_config(arch)
-    published = cfg.n_layers
+    published, published_experts = cfg.n_layers, cfg.n_experts
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if n_experts is not None:
+        cfg = dataclasses.replace(cfg, n_experts=n_experts)
+    n_moe = layer_kinds(cfg).count("moe") if cfg.family == "moe" else 0
     check(_attentions(cfg) == n_attn, f"{cfg.name}: {_attentions(cfg)} "
           f"attentions a forward by its layout, {n_attn} expected")
     torch.cuda.empty_cache()
@@ -3245,7 +3422,8 @@ def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
     w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     check(bundle.device.type == "cuda" and all(
         p.dtype == torch.bfloat16 for n, p in params.named_parameters()
-        if n.rsplit(".", 1)[-1] not in ("a_log", "d_skip", "dt_bias")),
+        if n.rsplit(".", 1)[-1] not in ("a_log", "d_skip", "dt_bias",
+                                        "router")),
         f"{cfg.name} is not in bf16 on the card")
     batch = SyntheticLM.for_cell(
         cfg, ShapeConfig("train_4k", TRAIN_SEQ, batch_size, "train"),
@@ -3267,11 +3445,31 @@ def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
                               grad_accum=accum)
     tokens = batch_size * TRAIN_SEQ
 
-    # the main path: the cold first step
+    # the main path: the cold first step, the plain flash functions
+    # counted (none may run) and the MoE dispatches kept
+    plain = {"calls": 0}
+    saved = {n: getattr(flashattn, n) for n in PLAIN_FLASH}
+
+    def counted(fn):
+        def call(*a, **kw):
+            plain["calls"] += 1
+            return fn(*a, **kw)
+        return call
+
+    dispatch, drops = moe.dispatch, []
+
+    def spy(idx, n_experts, capacity):
+        d = dispatch(idx, n_experts, capacity)
+        drops.append((int((~d.keep).sum()), d.keep.numel(), capacity))
+        return d
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     rec.stage, rec.only = f"{cfg.name} train step", set(TRAIN_KERNELS)
+    for n, fn in saved.items():
+        setattr(flashattn, n, counted(fn))
+    moe.dispatch = spy
     try:
         t0 = time.perf_counter()
         params, state, metrics = step_fn(params, state, 0, batch)
@@ -3280,7 +3478,18 @@ def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
         launches = dict(LAUNCHES)
     finally:
         rec.stage = rec.only = None
+        for n, fn in saved.items():
+            setattr(flashattn, n, fn)
+        moe.dispatch = dispatch
+    # the load-balancing loss (one microbatch's metrics carry it)
+    aux = float(metrics["aux"]) if n_moe else 0.0
     peak = torch.cuda.max_memory_allocated()
+    check(plain["calls"] == 0, f"{cfg.name}: the step called a plain "
+          f"flash function {plain['calls']} times")
+    # the forward's dispatches (the checkpointed recompute repeats them)
+    check(len(drops) == 2 * n_moe * accum, f"{cfg.name}: {len(drops)} "
+          f"MoE dispatches in a step of {n_moe} MoE layers")
+    drops = drops[:n_moe]
     print(f"[{tag}] {cfg.name}: launches in the first step: {launches}"
           + ("" if n_attn else " (the SSM family launches no kernel: its "
              "mixer is plain PyTorch, as the reference's is plain jnp)"))
@@ -3295,16 +3504,16 @@ def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
     # have variance INIT_STD^2 d_model, which lifts the cross-entropy over
     # ln V by half of it (1.64 at the VLM's d_model of 8,192, 14% of ln V)
     ln_v = float(np.log(cfg.padded_vocab))
-    want_loss = ln_v + INIT_STD ** 2 * cfg.d_model / 2
+    want_loss = ln_v + INIT_STD ** 2 * cfg.d_model / 2 + MOE_AUX_WEIGHT * aux
     check(np.isfinite(losses[0])
           and abs(losses[0] - want_loss) < 0.1 * want_loss,
           f"{cfg.name}: first loss {losses[0]:.4f} is not within 10% of ln "
-          f"{cfg.padded_vocab} + {INIT_STD}^2 d_model / 2 = "
-          f"{want_loss:.4f}")
+          f"{cfg.padded_vocab} + {INIT_STD}^2 d_model / 2 + "
+          f"{MOE_AUX_WEIGHT} aux ({aux:.4f}) = {want_loss:.4f}")
     # (ii) the first step's loss and gradients (at rate 0 it left the
     # initial parameters) against the plain attention swapped in
-    info = (_plain_grad_check(bundle, params, batch, accum, cfg.name)
-            if n_attn else {})
+    info = (_plain_grad_check(bundle, params, batch, accum, cfg.name,
+                              host=n_moe > 0) if n_attn else {})
     # (iii) three steps on the one batch lower the loss; the warm ones
     # timed (the peak memory is the steps', not the check's)
     torch.cuda.reset_peak_memory_stats()
@@ -3351,6 +3560,11 @@ def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
         else None
     busy = sum(device.values())
     key = arch.split("_")[0]
+    if n_moe:
+        info.update(experts=cfg.n_experts,
+                    published_experts=published_experts, aux=aux,
+                    dropped_slots=[d for d, _, _ in drops],
+                    routed_slots=drops[0][1], capacity=drops[0][2])
     info.update(arch=cfg.name, layers=cfg.n_layers,
                 published_layers=published, params=n_params,
                 weight_bytes=w_bytes, optimizer=opt_name,
@@ -3362,6 +3576,10 @@ def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
                 device_events=events, launches=launches, ssd_ms=ssd)
     depth = (f"{cfg.n_layers} layers" if n_layers is None else
              f"depth cut from {published} to {cfg.n_layers} layers")
+    if n_experts is not None:
+        depth += (f", experts cut from {published_experts} to "
+                  f"{cfg.n_experts} (top-{cfg.top_k}, "
+                  f"{cfg.n_shared_experts} shared)")
     print(f"[{tag}] {cfg.name} trained at its published widths, {depth}: "
           f"d_model {cfg.d_model}, vocab {cfg.padded_vocab} padded, "
           f"{n_params / 1e9:.3f} B parameters ({w_bytes / 2**30:.2f} GiB) "
@@ -3377,6 +3595,11 @@ def phase_train_family(torch, rec, tag, arch, n_layers, seed, opt_name,
           f"one batch: " + ", ".join(f"{x:.4f}" for x in losses)
           + f" (ln V = {ln_v:.4f}; at the initial weights "
           f"{want_loss:.4f} expected)")
+    if n_moe:
+        print(f"[{tag}] {cfg.name} first step: aux {aux:.4f} (x "
+              f"{MOE_AUX_WEIGHT} in the loss); dropped slots per MoE layer "
+              f"of the forward: "
+              + ", ".join(f"{d} of {n} at capacity {c}" for d, n, c in drops))
     print(f"[{tag}] {cfg.name} warm step under the profiler: "
           f"{t_prof * 1e3:.1f} ms wall; device "
           + (f"{busy:.1f} ms over {events} kernels and copies ("
@@ -3817,13 +4040,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         del qc, kc, vc, qh, kh, vh
         B, Sq, H, hd = q.shape
         Sk = k.shape[1]
-        # the unmasked (query, key) pairs, two products of hd MACs each
-        pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal \
-            else Sq * Sk
-        flops = 4 * B * H * hd * pairs
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = flops / FLOPS_PER_S[str(q.dtype).split(".")[-1]] * 1e3
+        flops, nbytes, b_ms, o_ms = _flash_cost(kind, q, k, causal)
         shape = {"B": B, "H": H, "KV": k.shape[2], "Sq": Sq, "Sk": Sk,
                  "hd": hd, "causal": causal, "dtype": str(q.dtype),
                  "flops": flops, "bytes": nbytes}
@@ -3833,9 +4050,6 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         causal = kw.get("causal", True)
         B, Sq, H, hd = q.shape
         Sk = k.shape[1]
-        dtype = str(q.dtype).split(".")[-1]
-        pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal \
-            else Sq * Sk
         # the library call, on head-major contiguous copies (the port
         # never calls it)
         qc, kc, vc = (_hm(x).contiguous() for x in (q, k, v))
@@ -3853,11 +4067,6 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
                 qc, kc, vc, is_causal=causal, enable_gqa=True), 10,
                 clock_hz)
             lib_out = (_hm(lib_out),)
-            # two products of hd MACs over the unmasked pairs; q, k, v
-            # read, o and lse written
-            flops = 4 * B * H * hd * pairs
-            nbytes = q.element_size() * (2 * q.numel() + k.numel()
-                                         + v.numel()) + 4 * B * H * Sq
         else:
             o, lse, do = args[3:]
             got, k_ms, c_ms = _time_ms(torch, lambda: flashattn.
@@ -3878,14 +4087,8 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
                 lib_o, (qg, kg, vg), doc, retain_graph=True), 10, clock_hz)
             lib_out = tuple(_hm(g) for g in lib_out)
             del lib_o, doc, qg, kg, vg
-            # five products of hd MACs over the unmasked pairs (s, dp,
-            # dv, dq, dk); q, k, v, o, do, lse read, dq, dk, dv written
-            flops = 10 * B * H * hd * pairs
-            nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) \
-                + 4 * B * H * Sq
         del qc, kc, vc
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = flops / FLOPS_PER_S[dtype] * 1e3
+        flops, nbytes, b_ms, o_ms = _flash_cost(kind, q, k, causal)
         shape = {"B": B, "H": H, "KV": k.shape[2], "Sq": Sq, "Sk": Sk,
                  "hd": hd, "causal": causal, "dtype": str(q.dtype),
                  "flops": flops, "bytes": nbytes}
@@ -4312,8 +4515,12 @@ def main() -> int:
         max_err = phase_kernels(torch, build_service(small, device="cuda"),
                                 small)
         sm90 = phase_sm90_report(_build)
-        float_err = {"flash_attention": phase_flash_kernels(torch)}
-        float_err.update(phase_train_kernels(torch))
+        off_path = {}
+        float_err = {"flash_attention": phase_flash_kernels(
+            torch, max_mhz * 1e6, off_path)}
+        float_err.update(phase_train_kernels(torch, max_mhz * 1e6,
+                                             off_path))
+        _print_off_path(off_path)
         phase_moe_ffn(torch)
         spec = spec3a = WorkloadSpec(n_tenants=4, n_weeks=3,
                                      domain_bits=1 << 24, n_queries=96)
@@ -4339,7 +4546,8 @@ def main() -> int:
             phase_numbers(torch, rec.calls, numbers, int_rate,
                           max_mhz * 1e6)
             rec.drop()
-            later.append(phase_moe(torch, rec))
+            for spec in MOE_PHASES:
+                later.append(phase_moe(torch, rec, *spec))
             later.append(phase_paper(torch, rec))
             # phase 4 for 3g-3h, which frees their recorded arguments
             # before the serving families take the card
@@ -4353,7 +4561,7 @@ def main() -> int:
             phase_numbers(torch, rec.calls, numbers, int_rate,
                           max_mhz * 1e6)
             rec.drop()
-            for spec in TRAIN_FAMILY_PHASES:
+            for spec in TRAIN_FAMILY_PHASES + TRAIN_MOE_PHASES:
                 later.append(phase_train_family(torch, rec, *spec))
                 # phase 4 for each model before the next takes the card
                 if rec.calls:
@@ -4378,6 +4586,7 @@ def main() -> int:
             "card": card, "int32_ops_per_s": int_rate, "slice": slice_info,
             "ptxas_sm90": sm90,
             "kernel_ms_by_stage": numbers.stages,
+            "off_path_flash": off_path,
             "kernels": rows, "launches": numbers.per_kernel}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -99,8 +99,14 @@ class Checkpointer:
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
         """Snapshot to host, then serialize (async unless async_save=False)."""
-        host = [(name, _to_host(leaf))
-                for name, leaf in _flatten_with_paths(tree)]
+        self._submit(step, [(name, _to_host(leaf))
+                            for name, leaf in _flatten_with_paths(tree)],
+                     extra)
+
+    def _submit(self, step: int, host: List[Tuple[str, Any]],
+                extra: Optional[Dict]):
+        """Serialize ``(path name, host leaf)`` pairs that the caller no
+        longer writes (async unless async_save=False)."""
         self.wait()
         if self.async_save:
             self._thread = threading.Thread(

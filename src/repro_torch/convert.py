@@ -116,10 +116,11 @@ def _copy_blocks(blocks, tree, n: int) -> None:
 
 def _copy_transformer(model, cfg, params) -> None:
     blocks = _stacked_blocks(cfg, params)
-    if len(blocks) != len(model.layers):
+    layers = model.blocks()
+    if len(blocks) != len(layers):
         raise ValueError(f"{len(blocks)} reference blocks for "
-                         f"{len(model.layers)} layers")
-    for block, (tree, index) in zip(model.layers, blocks):
+                         f"{len(layers)} layers")
+    for block, (tree, index) in zip(layers, blocks):
         _copy_tree(block, tree, index=index)
 
 
@@ -158,9 +159,9 @@ def model_params_from_reference(cfg, params, device="cuda"):
     (``repro.models.build(cfg).init(key)``: a pytree of arrays with the
     layers stacked on leading axes), cast to ``cfg.dtype`` (the MoE router
     and the SSM's ``a_log`` / ``d_skip`` / ``dt_bias`` stay float32) on
-    ``device``: a `transformer.Transformer` (dense: ``layers``; MoE: the
-    leading dense blocks under ``lead`` and the super-layers under
-    ``groups``), a `hybrid.Hybrid` (Mamba2: ``layers``; Zamba2: ``groups
+    ``device``: a `transformer.Transformer` (dense: ``layers``; MoE:
+    ``lead`` and ``groups.<g>.dense.<j>`` / ``groups.<g>.moe``, the
+    reference's tree), a `hybrid.Hybrid` (Mamba2: ``layers``; Zamba2: ``groups
     (n_groups, attn_every, ...)`` and ``shared``), an `encdec.EncDec`
     (``enc``, ``dec``) or a `vision.VLM` (``groups.self (n_groups,
     n_self, ...)``, ``groups.cross``), one module per block."""

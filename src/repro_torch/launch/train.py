@@ -2,16 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_0p6b \
         --steps 200 --batch 8 --seq 128 [--full] [--opt adamw|signum] \
-        [--device cpu]
+        [--ckpt-dir DIR [--ckpt-every N]] [--device cpu]
 
 Runs on the card (``--device cuda``, the default) unless asked for the
-CPU; the reduced config unless ``--full``. Every arch but the MoE ones
-trains (``--arch mamba2_1p3b``, ``zamba2_2p7b``, ``seamless_m4t_medium``,
-``llama_3p2_vision_90b`` beside the dense ones); `SyntheticLM.for_cell`
-adds the enc-dec / VLM stub frames / patches to each batch. One process
-trains on one device: ``--opt signum`` is then the local sign step, as
-the reference's is on one device. Checkpointing (``--ckpt-dir``) and
-model parallelism (``--model-parallel``) wait for ROADMAP §A8.
+CPU; the reduced config unless ``--full``. Every arch trains: the dense
+and MoE ones (``--arch llama4_maverick_400b_a17b``, ``kimi_k2_1t_a32b``,
+whose loss adds the load-balancing term), ``mamba2_1p3b``,
+``zamba2_2p7b``, ``seamless_m4t_medium`` and ``llama_3p2_vision_90b``;
+`SyntheticLM.for_cell` adds the enc-dec / VLM stub frames / patches to
+each batch. One process trains on one device: ``--opt signum`` is then
+the local sign step, as the reference's is on one device.
+``--ckpt-dir`` runs the reference's resilient loop: a `ResilientRunner`
+over a `train.state.TrainCheckpointer` (the reference's checkpoint files,
+every ``--ckpt-every`` steps and at the end), resuming from the newest
+checkpoint in the directory, with a `StragglerMonitor` on each step's
+wall. Model parallelism (``--model-parallel``) waits for ROADMAP §A8.
 """
 from __future__ import annotations
 
@@ -22,9 +27,11 @@ import torch
 
 from repro_torch.configs.base import ShapeConfig, get_config, reduced
 from repro_torch.data import SyntheticLM
+from repro_torch.dist.fault_tolerance import ResilientRunner, StragglerMonitor
 from repro_torch.models import build
 from repro_torch.optim import get_optimizer, warmup_cosine
 from repro_torch.train import make_train_step
+from repro_torch.train.state import TrainCheckpointer
 
 
 def main(argv=None):
@@ -44,9 +51,6 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpointing and resilient "
-                                  "runs wait for ROADMAP §A8")
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel: sharded models wait "
                                   "for ROADMAP §A8")
@@ -68,6 +72,9 @@ def main(argv=None):
     opt = get_optimizer(args.opt, lr_fn)
     step_fn = make_train_step(bundle, opt, grad_accum=args.grad_accum)
     opt_state = opt.init(params)
+    if args.ckpt_dir:
+        _run_resilient(args, step_fn, data, (params, opt_state))
+        return 0
     t0 = time.time()
     for i in range(args.steps):
         params, opt_state, metrics = step_fn(params, opt_state, i,
@@ -77,6 +84,36 @@ def main(argv=None):
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({(time.time() - t0) / (i + 1):.2f}s/step)")
     return 0
+
+
+def _run_resilient(args, step_fn, data, state) -> None:
+    """The reference's ``--ckpt-dir`` loop: `ResilientRunner` over a
+    `TrainCheckpointer` in ``args.ckpt_dir``, each step's wall observed
+    by a `StragglerMonitor`."""
+    monitor = StragglerMonitor()
+    seen = {"stragglers": 0, "metrics": {}}
+
+    def timed_step(state, step, batch):
+        t = time.perf_counter()
+        params, opt_state, metrics = step_fn(*state, step, batch)
+        seen["metrics"] = {k: float(v) for k, v in metrics.items()}
+        if monitor.observe(step, time.perf_counter() - t):
+            seen["stragglers"] += 1
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {seen['metrics']['loss']:.4f} "
+                  f"gnorm {seen['metrics']['grad_norm']:.3f}")
+        return (params, opt_state), metrics
+
+    ck = TrainCheckpointer(args.ckpt_dir, keep=3)
+    runner = ResilientRunner(timed_step, data.batch, ck,
+                             ckpt_every=args.ckpt_every)
+    t0 = time.time()
+    _, rep = runner.run(state, args.steps)
+    print(f"ran {rep.steps_run} steps in {time.time() - t0:.1f}s "
+          f"({rep.checkpoints} ckpts, {rep.restores} restores, "
+          f"{seen['stragglers']} stragglers); timeline "
+          f"{' '.join(rep.timeline)}")
+    print("final metrics:", seen["metrics"])
 
 
 if __name__ == "__main__":

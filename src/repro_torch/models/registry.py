@@ -13,12 +13,13 @@ The counterpart of `repro.models.registry`, with the same field names.
 frontend's stub embeddings from the batch (``frames`` / ``patches``).
 Token tensors and frontend embeddings keep their device; host arrays
 (numpy, lists) go to the model's device; tensors on another device than
-the model raise. ``loss`` trains every family but MoE, through
+the model raise. ``loss`` trains every family, through
 `transformer.lm_loss` with the family's stack as its ``apply_fn``
-(`hybrid.hybrid_apply`, `encdec.encdec_apply` over ``batch["frames"]``,
-`vision.vlm_apply` over ``batch["patches"]``), as the reference's
-``build`` does; the MoE family's waits for ROADMAP §A4b (in §A8).
-``abstract`` (shapes without allocating, for the dry run and the sharded
+(`transformer.transformer_apply` for the dense and MoE families, the
+MoE's load-balancing loss in ``metrics["aux"]`` and weighted into the
+loss; `hybrid.hybrid_apply`, `encdec.encdec_apply` over
+``batch["frames"]``, `vision.vlm_apply` over ``batch["patches"]``), as
+the reference's ``build`` does. ``abstract`` (shapes without allocating, for the dry run and the sharded
 cells) waits for §A8.
 """
 from __future__ import annotations
@@ -96,7 +97,7 @@ def _apply_fn(cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
         return functools.partial(ED.encdec_apply, frames=batch["frames"])
     if cfg.family == "vlm":
         return functools.partial(VI.vlm_apply, patches=batch["patches"])
-    return TF.transformer_apply          # raises for MoE: ROADMAP §A4b
+    return TF.transformer_apply
 
 
 def _family(cfg: ModelConfig, dev: torch.device):
@@ -139,11 +140,10 @@ def build(cfg: ModelConfig, device=None, remat: str = "block"
           ) -> ModelBundle:
     """The bundle of ``cfg`` on ``device`` (default ``"cuda"``; asking for
     the card where there is none raises). Every family serves
-    (``prefill``, ``decode_step``, ``cache_init``). ``loss`` trains every
-    family but MoE, with ``remat`` "block" or "full" (each block
-    recomputed in the backward, the reference's ``nothing_saveable``;
-    "dots" waits for ROADMAP §A8); for the MoE family it raises, naming
-    §A4b."""
+    (``prefill``, ``decode_step``, ``cache_init``) and trains (``loss``),
+    with ``remat`` "block" or "full" (each block recomputed in the
+    backward, the reference's ``nothing_saveable``; "dots" waits for
+    ROADMAP §A8)."""
     TF.check_remat(remat)
     dev = resolve_device(DEFAULT_DEVICE if device is None else device)
     init, prefill, decode, cache_init = _family(cfg, dev)

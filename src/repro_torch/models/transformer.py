@@ -1,26 +1,27 @@
 """Decoder-only transformer stack, dense and MoE families: the training
-forward and LM loss (dense family), prefill and one decode step.
+forward and LM loss, prefill and one decode step.
 
 The counterpart of `repro.models.transformer`. The reference scans over
 layers stacked on a leading axis (the MoE family over super-layers of
 ``moe_every - 1`` dense blocks and one MoE block, after ``n_dense_layers``
-leading dense blocks); here a `Transformer` holds an `nn.ModuleList` with
-one block per layer in that order (`layer_kinds`) and a Python loop walks
-them (PyTorch runs eagerly). The MoE family's dense blocks take
-``dense_d_ff`` where it is set. The reference rematerialises each
-scanned block (``jax.checkpoint`` with ``nothing_saveable`` for ``remat=
-"block"`` and ``"full"``); here each block runs under non-reentrant
-`torch.utils.checkpoint.checkpoint` while grad is on (`remat_call`, which
-the other families' training stacks use too), so its forward runs again
-in the backward. Its ``"dots"`` policy (keep the matmul outputs)
-waits for ROADMAP §A8. The reference's sharding constraints are the
-identity on one card and are dropped. Training the MoE family (its loss
-with the aux term) waits for ROADMAP §A4b: `transformer_apply` raises for
-it.
+leading dense blocks); here a `Transformer` holds one module per block in
+the reference's tree: the dense family's ``layers.<i>``, the MoE family's
+``lead.<i>`` and ``groups.<g>.dense.<j>`` / ``groups.<g>.moe`` (a
+`MoEGroup` per super-layer), so that `optim.optimizers.leaves` stacks them
+into the reference's leaves. `Transformer.blocks` lists the blocks in
+layer order (`layer_kinds`) and a Python loop walks them (PyTorch runs
+eagerly). The MoE family's dense blocks take ``dense_d_ff`` where it is
+set. The reference rematerialises each scanned block (``jax.checkpoint``
+with ``nothing_saveable`` for ``remat="block"`` and ``"full"``); here each
+block runs under non-reentrant `torch.utils.checkpoint.checkpoint` while
+grad is on (`remat_call`, which the other families' training stacks use
+too), so its forward runs again in the backward. Its ``"dots"`` policy
+(keep the matmul outputs) waits for ROADMAP §A8. The reference's sharding
+constraints are the identity on one card and are dropped.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -77,14 +78,35 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     dense blocks and one MoE block."""
     if cfg.family != "moe":
         return ("dense",) * cfg.n_layers
-    n_groups = (cfg.n_layers - cfg.n_dense_layers) // cfg.moe_every
     group = ("dense",) * (cfg.moe_every - 1) + ("moe",)
-    return ("dense",) * cfg.n_dense_layers + group * n_groups
+    return ("dense",) * cfg.n_dense_layers + group * _n_groups(cfg)
+
+
+def _n_groups(cfg: ModelConfig) -> int:
+    return (cfg.n_layers - cfg.n_dense_layers) // cfg.moe_every
+
+
+class MoEGroup(nn.Module):
+    """One super-layer of the MoE family: ``dense`` (``moe_every - 1``
+    `DenseBlock`s, absent when that is 0) and ``moe`` (a `MoEBlock`)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        if cfg.moe_every > 1:
+            self.dense = nn.ModuleList(
+                DenseBlock(cfg, device, d_ff=cfg.dense_d_ff or None)
+                for _ in range(cfg.moe_every - 1))
+        self.moe = MoEBlock(cfg, device)
+
+    def blocks(self) -> List[nn.Module]:
+        return [*getattr(self, "dense", ()), self.moe]
 
 
 class Transformer(nn.Module):
-    """``embed``, ``layers`` (one `DenseBlock` or `MoEBlock` per layer, by
-    `layer_kinds`), ``final_norm``."""
+    """``embed``, the blocks and ``final_norm``. The dense family's
+    blocks are ``layers`` (one `DenseBlock` a layer); the MoE family's
+    are ``lead`` (``n_dense_layers`` `DenseBlock`s, absent when 0) and
+    ``groups`` (one `MoEGroup` a super-layer), the reference's tree."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -93,14 +115,28 @@ class Transformer(nn.Module):
                 f"the port's transformer holds the dense and MoE families; "
                 f"{cfg.name} is {cfg.family!r}")
         self.embed = L.Embed(cfg, device)
-        # the MoE family's dense blocks run at dense_d_ff where it is set
-        d_ff = (cfg.dense_d_ff or None) if cfg.family == "moe" else None
-        self.layers = nn.ModuleList(
-            MoEBlock(cfg, device) if kind == "moe"
-            else DenseBlock(cfg, device, d_ff=d_ff)
-            for kind in layer_kinds(cfg))
+        if cfg.family == "moe":
+            if cfg.n_dense_layers:
+                self.lead = nn.ModuleList(
+                    DenseBlock(cfg, device, d_ff=cfg.dense_d_ff or None)
+                    for _ in range(cfg.n_dense_layers))
+            self.groups = nn.ModuleList(MoEGroup(cfg, device)
+                                        for _ in range(_n_groups(cfg)))
+        else:
+            self.layers = nn.ModuleList(DenseBlock(cfg, device)
+                                        for _ in range(cfg.n_layers))
         self.final_norm = L._param((cfg.d_model,), L.torch_dtype(cfg),
                                    device)
+
+    def blocks(self) -> List[nn.Module]:
+        """Every block in layer order (`layer_kinds`): the order of the
+        KV cache's layers."""
+        if "layers" in self._modules:
+            return list(self.layers)
+        out = list(getattr(self, "lead", ()))
+        for group in self.groups:
+            out += group.blocks()
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -117,7 +153,7 @@ def transformer_init(generator: torch.Generator, cfg: ModelConfig,
     with torch.no_grad():
         model.embed.init_(generator, cfg)
         model.final_norm.fill_(1)
-        for block in model.layers:
+        for block in model.blocks():
             block.init_(generator, cfg)
     return model
 
@@ -132,6 +168,16 @@ def dense_block(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig,
                               cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
     h = h + L.mlp(p.mlp, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
     return h
+
+
+def moe_block(p: MoEBlock, x: torch.Tensor, cfg: ModelConfig,
+              q_chunk: int = 512, kv_chunk: int = 512
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block's training forward: (output, its aux loss)."""
+    h = x + L.attention_train(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps),
+                              cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    y, aux = M.moe_ffn(p.moe, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
+    return h + y, aux
 
 
 def _ffn(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -189,24 +235,23 @@ def remat_call(fn, *args):
 def transformer_apply(params: Transformer, tokens: torch.Tensor,
                       cfg: ModelConfig, remat: str = "block"
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) -> (hidden (B, S, D), aux_loss). While grad is on,
-    each block is checkpointed (``remat``: "block" or "full", the
+    """tokens: (B, S) -> (hidden (B, S, D), aux_loss: the sum of the MoE
+    blocks' load-balancing losses, 0 for the dense family). While grad is
+    on, each block is checkpointed (``remat``: "block" or "full", the
     reference's ``nothing_saveable``): only its input is kept, and its
-    forward runs again in the backward. The MoE family raises: its
-    training (the aux loss in the loss and the trainer) waits for ROADMAP
-    §A4b."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: training the MoE family waits for ROADMAP §A4b "
-            "(MoE training: bundle.loss, the aux loss in the trainer); the "
-            "port serves it (bundle.prefill / bundle.decode_step)")
+    forward runs again in the backward."""
     check_remat(remat)
     qc, kc = _chunks_for(tokens.shape[1])
     x = L.embed(params.embed, tokens)
-    for block in params.layers:
-        x = remat_call(dense_block, block, x, cfg, qc, kc)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block in params.blocks():
+        if isinstance(block, MoEBlock):
+            x, a = remat_call(moe_block, block, x, cfg, qc, kc)
+            aux = aux + a
+        else:
+            x = remat_call(dense_block, block, x, cfg, qc, kc)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -252,8 +297,9 @@ def transformer_prefill(params: Transformer, tokens: torch.Tensor,
     B, S = tokens.shape
     x = L.embed(params.embed, tokens)
     positions = torch.arange(S, device=x.device)[None, :]
-    cache = L.kv_cache_init(cfg, len(params.layers), B, S, x.device)
-    for i, p in enumerate(params.layers):
+    blocks = params.blocks()
+    cache = L.kv_cache_init(cfg, len(blocks), B, S, x.device)
+    for i, p in enumerate(blocks):
         h, k, v = attention_prefill(p, x, cfg, positions)
         x = h + _ffn(p, h, cfg)
         cache["k"][i] = k.reshape(B, S, -1)
@@ -272,7 +318,7 @@ def transformer_decode_step(params: Transformer, token: torch.Tensor,
     S_max, KV * hd), written in place at ``pos``. Returns (logits (B, V),
     the cache)."""
     x = L.embed(params.embed, token[:, None])
-    for i, p in enumerate(params.layers):
+    for i, p in enumerate(params.blocks()):
         x, _, _ = block_decode(p, x, cache["k"][i], cache["v"][i], pos,
                                cfg)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)

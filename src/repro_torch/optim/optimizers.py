@@ -23,6 +23,12 @@ D)`` norm scales, exactly as the reference does. The elementwise updates
 (SGD, AdamW, and adafactor's within one layer) run one layer at a time
 on views of the stacked state, so that no stacked copy of a leaf (5.8 GB
 in float32 for Zamba2-2.7B's ``groups.ssm.in_proj``) arises beside it.
+Within a layer, a parameter of more than `CHUNK_ELEMS` elements is
+updated in slices along its leading axis (the MoE experts' ``wi``, 21.5
+GB in float32 for Maverick's 64 experts, would otherwise take several
+float32 copies at once), and `clip_by_global_norm` scales the gradients
+in place the same way; only the order of the float32 norm and RMS sums
+changes with the slicing.
 """
 from __future__ import annotations
 
@@ -98,10 +104,12 @@ def leaves(names) -> List[Leaf]:
     (dict keys sorted at every level): the names that differ only in
     their layer indices (the all-digit parts) form one leaf, named
     without them and stacked on one axis per index: ``layers.<i>.<rest>``
-    forms ``layers.<rest>``, ``groups.<g>.<j>.<rest>`` ``groups.<rest>``.
-    Raises unless each leaf's indices fill its grid (the MoE family's
-    flat list of dense and MoE layers does not: its leaves come with MoE
-    training, ROADMAP §A4b)."""
+    forms ``layers.<rest>``, ``groups.<g>.<j>.<rest>`` ``groups.<rest>``,
+    and the MoE family's ``lead.<i>.<rest>``, ``groups.<g>.dense.<j>.
+    <rest>`` and ``groups.<g>.moe.<rest>`` its ``lead.<rest>`` (``(n_lead,
+    ...)``), ``groups.dense.<rest>`` (``(G, moe_every - 1, ...)``) and
+    ``groups.moe.<rest>`` (``(G, ...)``). Raises unless each leaf's
+    indices fill its grid."""
     groups: Dict[str, List[Tuple[Tuple[int, ...], str]]] = {}
     for n in names:
         parts = n.split(".")
@@ -127,16 +135,41 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+#: the most elements of a parameter that the optimizers and the clip
+#: take at once: a larger one is taken in slices along its leading axis,
+#: so that its float32 temporaries stay near 256 MB each
+CHUNK_ELEMS = 1 << 26
+
+
+def _row_slices(x: torch.Tensor) -> list:
+    """Indices of ``x`` along its leading axis, each of at most
+    `CHUNK_ELEMS` elements and at least one row: ``[...]`` (the whole)
+    when it fits."""
+    if x.dim() == 0 or x.numel() <= CHUNK_ELEMS:
+        return [...]
+    rows = max(1, CHUNK_ELEMS // x[0].numel())
+    return [slice(i, i + rows) for i in range(0, x.shape[0], rows)]
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float
                         ) -> Tuple[Tree, torch.Tensor]:
-    """Scale every gradient by ``min(1, max_norm / ||grads||)`` (float32
-    norm over all of them, scale applied in float32, cast back to each
-    gradient's dtype); returns (grads, the norm before clipping)."""
-    gs = list(grads.values())
-    gn = torch.sqrt(sum((g.float() * g.float()).sum() for g in gs))
+    """Scale every gradient in place by ``min(1, max_norm / ||grads||)``
+    (float32 norm over all of them, scale applied in float32, cast back to
+    each gradient's dtype), slice by slice (`_row_slices`), so that no
+    float32 copy of a large gradient and no second set of gradients
+    arises; returns (``grads`` itself, the norm before clipping)."""
+    total = 0
+    for g in grads.values():
+        for s in _row_slices(g):
+            c = g[s].float()
+            total = total + (c * c).sum()
+    gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return {k: (g.float() * scale).to(g.dtype)
-            for k, g in grads.items()}, gn
+    for g in grads.values():
+        for s in _row_slices(g):
+            c = g[s]
+            c.copy_((c.float() * scale).to(c.dtype))
+    return grads, gn
 
 
 def _zeros(params, dtype=None) -> Tree:
@@ -198,14 +231,15 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         t = np.float32(int(step)) + np.float32(1.0)
         c1 = _f32(np.float32(1.0) - np.float32(b1) ** t)
         c2 = _f32(np.float32(1.0) - np.float32(b2) ** t)
-        for g, p, m, v in _each_member(grads, params, state["m"],
-                                       state["v"]):
-            g = g.float()
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            u = (m / c1) / (torch.sqrt(v / c2) + eps)
-            p32 = p.float()
-            p.copy_((p32 - lr * (u + weight_decay * p32)).to(p.dtype))
+        for g_, p_, m_, v_ in _each_member(grads, params, state["m"],
+                                           state["v"]):
+            for s in _row_slices(p_):
+                g, p, m, v = g_[s].float(), p_[s], m_[s], v_[s]
+                m.copy_(b1 * m + (1 - b1) * g)
+                v.copy_(b2 * v + (1 - b2) * g * g)
+                u = (m / c1) / (torch.sqrt(v / c2) + eps)
+                p32 = p.float()
+                p.copy_((p32 - lr * (u + weight_decay * p32)).to(p.dtype))
         return params, state
 
     return Optimizer(init, update, "adamw")
@@ -222,7 +256,12 @@ def adafactor(lr_fn, decay: float = 0.8, eps: float = 1e-30,
     own, so the leaf is updated one layer at a time in two passes (the
     statistics and the sum of u^2, then the clipped update, u computed
     again), and no stacked copy of it arises; the stacked vectors (whose
-    column statistics span the layers) are updated whole."""
+    column statistics span the layers) are updated whole. A layer's
+    parameter of more than `CHUNK_ELEMS` elements is taken in slices
+    along its leading axis: with three or more dimensions that axis is
+    one the statistics keep (an expert, a model row), so each slice's
+    are its own; a matrix sums its column statistics over the slices
+    first (`_matrix_stats`)."""
 
     def init(params):
         tensors = named(params)
@@ -239,12 +278,62 @@ def adafactor(lr_fn, decay: float = 0.8, eps: float = 1e-30,
                 out[leaf.name] = {"v": torch.zeros(shape, **z)}
         return {"f": out}
 
-    def factored_u(g, r, c):
+    def factored_u(g, r, c, r_mean=None):
         """g over the root of its factored second moment, in one
-        temporary of g's shape (the same operations, in place)."""
+        temporary of g's shape (the same operations, in place);
+        ``r_mean``: the mean of the whole ``r`` over its last axis, where
+        ``r`` is a slice of a matrix's row statistics."""
         u = r[..., None] * c[..., None, :]
-        u.div_(torch.clamp(r.mean(-1)[..., None, None], min=eps))
+        if r_mean is None:
+            r_mean = r.mean(-1)
+        u.div_(torch.clamp(r_mean[..., None, None], min=eps))
         return u.add_(eps).rsqrt_().mul_(g)
+
+    def member_stats(g, r, c, beta):
+        """Update a layer's statistics ``r``, ``c`` in place from its
+        gradient ``g``; returns the sum of u^2 over the layer."""
+        slices = _row_slices(g)
+        if g.dim() == 2 and len(slices) > 1:
+            return _matrix_stats(g, r, c, beta, slices)
+        sumsq = 0.0
+        for i in slices:
+            gi = g[i].float()
+            g2 = gi * gi + eps
+            r[i].copy_(beta * r[i] + (1 - beta) * g2.mean(-1))
+            c[i].copy_(beta * c[i] + (1 - beta) * g2.mean(-2))
+            del g2
+            u = factored_u(gi, r[i], c[i])
+            sumsq = sumsq + torch.sum(u * u)
+            del u
+        return sumsq
+
+    def _matrix_stats(g, r, c, beta, slices):
+        """`member_stats` of a matrix taken in row slices: its column
+        statistics are means over every row, summed slice by slice."""
+        col = torch.zeros(c.shape, dtype=torch.float32, device=c.device)
+        for i in slices:
+            gi = g[i].float()
+            g2 = gi * gi + eps
+            r[i].copy_(beta * r[i] + (1 - beta) * g2.mean(-1))
+            col += g2.sum(-2)
+            del g2
+        c.copy_(beta * c + (1 - beta) * (col / g.shape[-2]))
+        r_mean, sumsq = r.mean(-1), 0.0
+        for i in slices:
+            u = factored_u(g[i].float(), r[i], c, r_mean)
+            sumsq = sumsq + torch.sum(u * u)
+            del u
+        return sumsq
+
+    def member_step(p, g, r, c, rms, lr):
+        """Write a layer's clipped update into ``p``, slice by slice."""
+        slices = _row_slices(g)
+        matrix = g.dim() == 2
+        r_mean = r.mean(-1) if matrix and len(slices) > 1 else None
+        for i in slices:
+            u = factored_u(g[i].float(), r[i], c if matrix else c[i],
+                           r_mean)
+            p[i].copy_(stepped(p[i], u, rms, lr))
 
     def stepped(p, u, rms, lr):
         """``p`` after its update ``u`` (a temporary, overwritten),
@@ -266,19 +355,11 @@ def adafactor(lr_fn, decay: float = 0.8, eps: float = 1e-30,
                                    leaf.views(s["c"])))
                 sumsq = 0.0
                 for name, r, c in members:
-                    g = grads[name].float()
-                    g2 = g * g + eps
-                    r.copy_(beta * r + (1 - beta) * g2.mean(-1))
-                    c.copy_(beta * c + (1 - beta) * g2.mean(-2))
-                    del g2
-                    u = factored_u(g, r, c)
-                    sumsq = sumsq + torch.sum(u * u)
-                    del u
+                    sumsq = sumsq + member_stats(grads[name], r, c, beta)
                 n = leaf.shape(tensors).numel()
                 rms = torch.sqrt(sumsq / n)
                 for name, r, c in members:
-                    u = factored_u(grads[name].float(), r, c)
-                    tensors[name].copy_(stepped(tensors[name], u, rms, lr))
+                    member_step(tensors[name], grads[name], r, c, rms, lr)
                 continue
             g, p = leaf.gather(grads).float(), leaf.gather(tensors)
             g2 = g * g + eps

@@ -9,7 +9,8 @@ The counterpart of `repro.train.step`. Two variants:
   gradients are summed into float32 zeros and divided by ``grad_accum``,
   as the reference's ``lax.scan`` does, so the activations are sized by
   the microbatch. With one microbatch the gradients keep the parameters'
-  dtype.
+  dtype. Either way one set of gradients is alive after the backward,
+  and `optim.clip_by_global_norm` scales it in place.
 * `make_train_step_compressed`: data parallel over a `torch.distributed`
   process group (in place of the reference's mesh and ``shard_map``).
   Every worker holds the whole parameters and the global batch, and
@@ -80,8 +81,9 @@ def loss_and_grads(bundle, params, batch, grad_accum: int = 1
             a += g.float()
         lsum = lsum + loss
         del grads
-    return lsum / grad_accum, {}, \
-        {n: a / grad_accum for n, a in zip(names, acc)}
+    for a in acc:
+        a /= grad_accum
+    return lsum / grad_accum, {}, dict(zip(names, acc))
 
 
 def make_train_step(bundle, optimizer: Optimizer, grad_accum: int = 1,

@@ -3,9 +3,12 @@
 `test_torch_train_step_adaptive.py` (adamw, adafactor) and
 `test_torch_train_step_signum.py`; the same three with ``_bf16`` in bf16,
 split by optimizer so that each file stays short on its test worker;
-`test_torch_train_step_bias.py`, a QKV-bias model in float32; and one
+`test_torch_train_step_bias.py`, a QKV-bias model in float32; one
 file per other trained family, `test_torch_train_step_{ssm,hybrid,
-encdec,vlm}.py` (reduced Mamba2, Zamba2, SeamlessM4T, Llama-3.2-Vision).
+encdec,vlm}.py` (reduced Mamba2, Zamba2, SeamlessM4T, Llama-3.2-Vision);
+and the MoE family's three, `test_torch_train_step_moe{,_kimi,_steps}.py`
+(reduced Llama-4 Maverick and Kimi K2, whose routing `check_routes`
+holds first).
 
 The JAX package's reduced Qwen3-0.6B (4 layers, d_model 128, 4 heads, 2
 KV heads, head_dim 32, vocab 512 padded to 2,048) and its parameters
@@ -54,12 +57,15 @@ import repro.configs.base as RC
 import repro.optim as ropt
 from repro.data import SyntheticLM as RSyntheticLM
 from repro.models import build as rbuild
+from repro.models import moe as rmoe
 from repro.train import make_train_step as rmake_train_step
 from repro_torch import configs as TC
 from repro_torch import optim as topt
 from repro_torch.convert import (model_params_from_reference,
                                  opt_state_from_reference)
 from repro_torch.models import build
+from repro_torch.models import moe as tmoe
+from repro_torch.models.transformer import MoEBlock, layer_kinds
 from repro_torch.optim.optimizers import leaves
 from repro_torch.train import make_train_step
 from repro_torch.train.step import loss_and_grads
@@ -83,9 +89,14 @@ SEQ_OTHER = 40
 
 
 @functools.lru_cache(None)
-def _setup(dtype, arch="qwen3_0p6b"):
-    rcfg = dataclasses.replace(RC.reduced(RC.get_config(arch)), dtype=dtype)
-    cfg = dataclasses.replace(TC.reduced(TC.get_config(arch)), dtype=dtype)
+def _setup(dtype, arch="qwen3_0p6b", cf=None):
+    """The reduced configs of both packages (``cf``: an MoE capacity
+    factor in place of the config's), the reference's bundle,
+    parameters, two batches and jitted gradient."""
+    kw = {"dtype": dtype} if cf is None else {"dtype": dtype,
+                                              "capacity_factor": cf}
+    rcfg = dataclasses.replace(RC.reduced(RC.get_config(arch)), **kw)
+    cfg = dataclasses.replace(TC.reduced(TC.get_config(arch)), **kw)
     rb = rbuild(rcfg)
     rp = rb.init(jax.random.PRNGKey(0))
     # with the frontend's stub embeddings (frames / patches) where the
@@ -126,10 +137,10 @@ def _ref_grads(grad, params, batch, accum):
 
 
 @functools.lru_cache(None)
-def _first_grads(dtype, arch, accum):
+def _first_grads(dtype, arch, accum, cf=None):
     """The reference's gradients of the first batch at its initial
     parameters, which every case of a process shares: computed once."""
-    _, _, rp, batches, grad = _setup(dtype, arch)
+    _, _, rp, batches, grad = _setup(dtype, arch, cf)
     return _ref_grads(grad, rp, batches[0], accum)
 
 
@@ -246,12 +257,12 @@ def _one_thread():
 
 
 @functools.lru_cache(None)
-def _exact_grads(arch, accum):
+def _exact_grads(arch, accum, cf=None):
     """The reference's float32 gradients of the first batch at its bf16
     parameters (cast up): the bf16 model's gradients without its
     roundings."""
-    _, _, rp, batches, _ = _setup("bfloat16", arch)
-    grad = _setup("float32", arch)[4]
+    _, _, rp, batches, _ = _setup("bfloat16", arch, cf)
+    grad = _setup("float32", arch, cf)[4]
     rp32 = jax.tree.map(lambda x: x.astype(jnp.float32), rp)
     return _ref_grads(grad, rp32, batches[0], accum)
 
@@ -261,23 +272,40 @@ def _rel_max(got, want):
 
 
 @_one_thread()
-def loss_and_grads_case(dtype, accum, arch="qwen3_0p6b"):
-    """Loss, metrics and every gradient leaf of one batch. In bf16 a leaf
-    whose reference gradient lies `TOL` or more from the reference's own
-    float32 gradient at the same parameters (`_exact_grads`; Zamba2's
-    ``groups.ssm.d_skip``, at 0.089 of its largest value where the
-    port's lies at 0.011) is held to that float32 gradient instead, at
-    the same tolerance."""
-    cfg, rb, rp, batches, grad = _setup(dtype, arch)
-    want = _flat(_first_grads(dtype, arch, accum))
+def loss_and_grads_case(dtype, accum, arch="qwen3_0p6b", cf=None,
+                        check=None):
+    """Loss, metrics and every gradient leaf of one batch (``cf``: an MoE
+    capacity factor; ``check(cfg, rb, rp, bundle, model, batch)``: run
+    before the gradients, as the MoE cases' routing check). In bf16 a
+    leaf whose reference gradient lies `TOL` or more from the
+    reference's own float32 gradient at the same parameters
+    (`_exact_grads`; Zamba2's ``groups.ssm.d_skip``, at 0.089 of its
+    largest value where the port's lies at 0.011) is held to that
+    float32 gradient instead, at the same tolerance."""
+    cfg, rb, rp, batches, grad = _setup(dtype, arch, cf)
+    want = _flat(_first_grads(dtype, arch, accum, cf))
     bundle = build(cfg, device="cpu")
     model = model_params_from_reference(cfg, rp, device="cpu")
+    if check is not None:
+        check(cfg, rb, rp, bundle, model, batches[0])
     loss, metrics, grads = loss_and_grads(bundle, model,
                                           _torch_batch(batches[0]), accum)
-    ref_loss, _ = rb.loss(rp, batches[0])
+    # the reference's step averages its microbatches' losses (for the
+    # dense families that is the whole batch's loss; an MoE layer's
+    # capacity and load-balancing loss depend on the microbatch)
+    ref_loss, ref_metrics = rb.loss(rp, batches[0])
+    if accum > 1:
+        ref_loss = sum(rb.loss(rp, jax.tree.map(
+            lambda x, i=i: x.reshape(accum, -1, *x.shape[1:])[i],
+            batches[0]))[0] for i in range(accum)) / accum
     assert abs(float(loss) - float(ref_loss)) < TOL[dtype] * abs(
         float(ref_loss))
     assert set(metrics) == ({"xent", "aux"} if accum == 1 else set())
+    if accum == 1:
+        # the MoE load-balancing loss (0 for the other families)
+        ref_aux = float(ref_metrics["aux"])
+        assert abs(float(metrics["aux"]) - ref_aux) <= TOL[dtype] * abs(
+            ref_aux)
     named = dict(model.named_parameters())
     for leaf in leaves(named):
         g = leaf.gather(grads)
@@ -287,7 +315,7 @@ def loss_and_grads_case(dtype, accum, arch="qwen3_0p6b"):
                            else leaf.gather(named).dtype)
         w = want[leaf.name]
         if dtype == "bfloat16" and _rel_max(_f32(g), w) >= TOL[dtype]:
-            exact = _flat(_exact_grads(arch, accum))[leaf.name]
+            exact = _flat(_exact_grads(arch, accum, cf))[leaf.name]
             if _rel_max(w, exact) >= TOL[dtype]:
                 w = exact
         _close(_f32(g), w, TOL[dtype], f"grad {leaf.name}")
@@ -332,3 +360,116 @@ def train_step_case(dtype, name, accum, arch="qwen3_0p6b", noise=False):
                     float(rm2["grad_norm"]), rs1)
     _check_params(model, rp2, name, dec, dtype, "step 2",
                   noise_exempt(name, dec) if noise else None)
+
+
+# --------------------------------------------------------------------------
+# the MoE family's routing (`test_torch_train_step_moe*.py`)
+# --------------------------------------------------------------------------
+
+#: a capacity factor at which both reduced MoE configs drop tokens
+#: (capacity 8 against a mean load of 20 for Maverick, 16 against 40 for
+#: Kimi K2)
+DROP_CF = 0.25
+
+
+def _ref_routes(rb, rp, batch, n_moe):
+    """The reference's expert ids (T, k) per MoE layer on ``batch``, as
+    its jitted gradient routes them (XLA's fusion can round bf16
+    activations otherwise than an eager forward, and flip a near-tie):
+    its router's top-k over the same float32 probabilities, read by a
+    callback inside the jitted gradient's forward (the rematerialised
+    forward in its backward routes the same)."""
+    seen = []
+    orig = rmoe.moe_ffn
+
+    def spy(p, x, cfg):
+        xt = x.reshape(-1, x.shape[-1]).astype(jnp.float32)
+        probs = jax.nn.softmax(xt @ p["router"], axis=-1)
+        _, idx = jax.lax.top_k(probs, cfg.top_k)
+        jax.debug.callback(lambda i: seen.append(np.asarray(i)), idx,
+                           ordered=True)
+        return orig(p, x, cfg)
+
+    rmoe.moe_ffn = spy
+    try:
+        grad = jax.jit(jax.grad(lambda p, b: rb.loss(p, b)[0]))
+        jax.block_until_ready(grad(rp, batch))
+        jax.effects_barrier()
+    finally:
+        rmoe.moe_ffn = orig
+    return seen[:n_moe]
+
+
+def _port_routes(bundle, model, batch):
+    """The port's (expert ids (T, k), router probabilities (T, E)) per
+    MoE layer on ``batch``."""
+    seen = []
+    orig = tmoe.route
+
+    def spy(router, xt, top_k):
+        probs, gate, idx = orig(router, xt, top_k)
+        seen.append((idx.numpy().copy(), probs.numpy().copy()))
+        return probs, gate, idx
+
+    tmoe.route = spy
+    try:
+        with torch.no_grad():
+            bundle.loss(model, _torch_batch(batch))
+    finally:
+        tmoe.route = orig
+    return seen
+
+
+#: bf16: a token whose two candidate experts' router probabilities lie
+#: within this share of each other is a near-tie, which one rounding of
+#: the bf16 activations (2^-8 relative) may flip between the packages
+NEAR_TIE = 0.02
+#: and at most this share of the routed slots may be such flips
+MAX_FLIPS = 0.02
+
+
+def check_routes(cfg, rb, rp, bundle, model, batch, monkeypatch=None):
+    """Both packages route every token of ``batch`` to the same experts
+    in every MoE layer, and at a dropping capacity the dispatch drops
+    slots. With ``monkeypatch`` (the bf16 case) a slot may differ where
+    it is a near-tie (`NEAR_TIE`, at most `MAX_FLIPS` of the slots); the
+    port's router is then pinned to the reference's ids for the rest of
+    the test (its gates still its own probabilities at those ids), so
+    that the gradients compare the same dispatch."""
+    n_moe = layer_kinds(cfg).count("moe")
+    want = _ref_routes(rb, rp, batch, n_moe)
+    got = _port_routes(bundle, model, batch)
+    assert len(want) == len(got) == n_moe, (len(want), len(got))
+    T = batch["tokens"].size
+    C = tmoe.expert_capacity(cfg, T)
+    for layer, ((g, probs), w) in enumerate(zip(got, want)):
+        assert g.shape == (T, cfg.top_k)
+        if monkeypatch is None:
+            np.testing.assert_array_equal(
+                g, w, err_msg=f"MoE layer {layer} routes differently")
+        else:
+            rows = np.nonzero((g != w).any(-1))[0]
+            assert len(rows) <= MAX_FLIPS * T, (layer, len(rows))
+            for t in rows:
+                pg = probs[t, g[t]].sum()
+                pw = probs[t, w[t]].sum()
+                assert abs(pg - pw) <= NEAR_TIE * max(pg, pw), \
+                    (layer, t, g[t], w[t], pg, pw)
+        counts = np.bincount(g.reshape(-1), minlength=cfg.n_experts)
+        if cfg.capacity_factor == DROP_CF:
+            assert np.maximum(counts - C, 0).sum() > 0, layer
+    if monkeypatch is not None:
+        routers = [b.moe.router for b in model.blocks()
+                   if isinstance(b, MoEBlock)]
+        pinned = {id(r): torch.from_numpy(np.array(w)).long()
+                  for r, w in zip(routers, want)}
+        orig = tmoe.route
+
+        def route(router, xt, top_k):
+            probs, _, _ = orig(router, xt, top_k)
+            idx = pinned[id(router)]
+            gate = probs.gather(-1, idx)
+            gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            return probs, gate, idx
+
+        monkeypatch.setattr(tmoe, "route", route)

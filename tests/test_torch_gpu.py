@@ -1196,3 +1196,154 @@ def test_training_families_on_the_card(cuda, arch):
     step = make_train_step(bundle, opt, grad_accum=2)
     _, _, m = step(params, opt.init(params), 0, batch)
     assert bool(torch.isfinite(m["loss"])) and m["loss"].is_cuda
+
+
+@pytest.mark.parametrize("dtype,B,Sq,Sk,causal", [
+    (torch.bfloat16, 1, 4096, 4096, True),
+    (torch.bfloat16, 1, 300, 1000, False),
+    (torch.float32, 1, 300, 1000, False)])
+def test_flash_fwd_and_bwd_at_kimi_head_layout(cuda, dtype, B, Sq, Sk,
+                                               causal):
+    """Head dim 112 at Kimi K2's heads (64 query heads over 8): the lse
+    forward and the backward (the first design's `flash_mma_kernel<112>`
+    and `flash_bwd_{dq,dkv}_mma_kernel<112>` in bf16) against their plain
+    versions, at the training path's causal 4,096 and a ragged
+    non-causal shape."""
+    from repro_torch.kernels import flashattn as F
+
+    q, k, v = _qkv(cuda, Sq + Sk, dtype, B, Sq, Sk, 64, 8, 112)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(Sk), device=cuda).to(dtype)
+    LAUNCHES.clear()
+    o, lse = F.flash_attention_fwd_kernel(q, k, v, causal)
+    dq, dk, dv = F.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"flash_attention_fwd": 1,
+                              "flash_attention_bwd": 1}
+    po, plse = F.flash_attention_fwd_plain(_hm(q), _hm(k), _hm(v), causal,
+                                           512, 512)
+    _assert_flash_close(o, _hm(po), FLASH_TOL[dtype])
+    _assert_flash_close(lse, plse, 1e-4)
+    want = F.flash_attention_bwd_plain(_hm(q), _hm(k), _hm(v), _hm(o), lse,
+                                       _hm(do), causal, 512, 512)
+    for got, w in zip((dq, dk, dv), want):
+        _assert_flash_close(got, _hm(w), FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["llama4_maverick_400b_a17b",
+                                  "kimi_k2_1t_a32b"])
+def test_moe_training_on_the_card(cuda, arch):
+    """Reduced Maverick and Kimi K2 in float32 at their published head
+    dims (128, 112) on the card: one microbatch launches the lse forward
+    twice per attention and the backward once; the loss, its aux and
+    every gradient leaf agree with the same step with the plain attention
+    forward and backward swapped in (loss within 1e-4 relative, each leaf
+    within 1e-3 of its largest magnitude); the gradients keep the
+    parameters' dtypes; an Adafactor step gives a finite loss."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flashattn as F
+    from repro_torch.models import build
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.optim import adafactor, constant
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(
+        reduced(get_config(arch)), dtype="float32",
+        head_dim=get_config(arch).head_dim)
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device=cuda).manual_seed(5))
+    batch = SyntheticLM.for_cell(cfg, ShapeConfig("card", 200, 2, "train"),
+                                 seed=6, device=cuda).batch(0)
+    LAUNCHES.clear()
+    loss, metrics, grads = loss_and_grads(bundle, params, batch, 1)
+    torch.cuda.synchronize()
+    n = len(layer_kinds(cfg))
+    assert {k: c for k, c in LAUNCHES.items() if c} == {
+        "flash_attention_fwd": 2 * n, "flash_attention_bwd": n}
+    named = dict(params.named_parameters())
+    assert all(g.dtype == named[k].dtype and g.is_cuda
+               for k, g in grads.items())
+
+    def fwd(q, k, v, causal=True, block_q=512, block_k=512):
+        o, lse = F.flash_attention_fwd_plain(_hm(q), _hm(k), _hm(v), causal,
+                                             block_q, block_k)
+        return _hm(o), lse
+
+    def bwd(q, k, v, o, lse, do, causal=True, block_q=512, block_k=512):
+        return tuple(_hm(g) for g in F.flash_attention_bwd_plain(
+            _hm(q), _hm(k), _hm(v), _hm(o), lse, _hm(do), causal, block_q,
+            block_k))
+
+    saved = F.flash_attention_fwd_kernel, F.flash_attention_bwd_kernel
+    F.flash_attention_fwd_kernel, F.flash_attention_bwd_kernel = fwd, bwd
+    try:
+        ploss, pmetrics, pgrads = loss_and_grads(bundle, params, batch, 1)
+    finally:
+        F.flash_attention_fwd_kernel, F.flash_attention_bwd_kernel = saved
+    assert abs(float(loss) - float(ploss)) < 1e-4 * abs(float(ploss))
+    assert float(metrics["aux"]) == pytest.approx(float(pmetrics["aux"]),
+                                                  rel=1e-4)
+    for name, g in pgrads.items():
+        d = (grads[name] - g).abs().max()
+        assert float(d) <= 1e-3 * float(g.abs().max()) + 1e-12, name
+    opt = adafactor(constant(1e-3))
+    step = make_train_step(bundle, opt)
+    _, _, m = step(params, opt.init(params), 0, batch)
+    assert bool(torch.isfinite(m["loss"])) and m["loss"].is_cuda
+
+
+def test_clip_makes_no_float32_copy_of_a_large_gradient(cuda):
+    """`clip_by_global_norm` on a bf16 gradient of 2^29 elements (an
+    expert weight's size class) scales it in place, a slice of
+    `CHUNK_ELEMS` at a time: the card's peak memory grows by at most two
+    float32 slices (512 MB), a quarter of the 2 GiB float32 copy that a
+    whole-tensor pass would make."""
+    from repro_torch.optim import optimizers as O
+
+    g = torch.randn(1 << 13, 1 << 16, device=cuda).to(torch.bfloat16)
+    want = (g.float() * torch.clamp(1.0 / g.float().norm(), max=1.0)).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = {"wi": g}
+    out, _ = O.clip_by_global_norm(grads, 1.0)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert out is grads and out["wi"] is g
+    assert grown <= 2 * 4 * O.CHUNK_ELEMS + (1 << 20), grown
+    assert (g.float() - want.float()).abs().max() <= 2 ** -7 * float(
+        want.float().abs().max())
+
+
+@pytest.mark.parametrize("name", ["adafactor", "adamw"])
+def test_optimizers_make_no_float32_copy_of_an_expert_weight(cuda, name):
+    """One Adafactor / AdamW update of a bf16 expert weight of 2^29
+    elements ((E, D, 2, F) = (64, 1,024, 2, 4,096)) takes it in slices
+    of `CHUNK_ELEMS`: beyond the state, the card's peak memory grows by
+    less than one float32 copy of the whole weight (2 GiB; a whole-leaf
+    pass holds three), and the updated weight is finite and moved. The
+    CPU tests hold the sliced arithmetic to the whole-leaf one."""
+    from repro_torch.optim import constant, get_optimizer
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    shape = (64, 1024, 2, 4096)
+    p = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    before = p[:2].clone()
+    g = (0.01 * torch.randn(shape, generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    opt = get_optimizer(name, constant(1e-3))
+    state = opt.init({"wi": p})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    opt.update({"wi": g}, state, {"wi": p}, 0)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown < 4 * p.numel(), grown
+    assert bool(torch.isfinite(p[:2].float()).all())
+    assert not torch.equal(p[:2], before)

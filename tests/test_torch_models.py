@@ -247,9 +247,10 @@ def test_sampling_is_deterministic_per_generator():
 
 @pytest.mark.parametrize("arch", RC.ARCH_IDS)
 def test_build_serves_every_family_and_trains_all_but_moe(arch):
-    """Every family builds and serves; every family but MoE trains (the
-    MoE family's loss waits for ROADMAP §A4b); the abstract shapes wait
-    for the sharded cells (§A8)."""
+    """Every family builds, serves and trains (the name predates MoE
+    training: the MoE family's loss carries its load-balancing loss in
+    ``metrics["aux"]``, positive, and weighted into the loss); the
+    abstract shapes wait for the sharded cells (§A8)."""
     cfg = TC.reduced(TC.get_config(arch))
     bundle = build(cfg, device="cpu")
     params = bundle.init(torch.Generator().manual_seed(0))
@@ -265,12 +266,14 @@ def test_build_serves_every_family_and_trains_all_but_moe(arch):
             cfg.n_kv_heads * cfg.head_dim_ * 2
     toks = _prompts()[:, :9]
     batch.update(tokens=toks[:, :8], labels=toks[:, 1:])
+    loss, metrics = bundle.loss(params, batch)
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"xent", "aux"}
     if cfg.family == "moe":
-        with pytest.raises(NotImplementedError, match="ROADMAP §A4b"):
-            bundle.loss(params, batch)
+        assert float(metrics["aux"]) > 0
+        assert float(loss) == pytest.approx(
+            float(metrics["xent"]) + 0.01 * float(metrics["aux"]), rel=1e-6)
     else:
-        loss, metrics = bundle.loss(params, batch)
-        assert bool(torch.isfinite(loss)) and set(metrics) == {"xent", "aux"}
+        assert float(metrics["aux"]) == 0
     with pytest.raises(NotImplementedError, match="§A8"):
         bundle.abstract()
 

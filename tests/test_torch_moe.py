@@ -16,8 +16,9 @@ reference's `bundle.prefill` (its Pallas flash kernel in interpret mode)
 and `bundle.decode_step`: in float32 (1e-4 of the largest logit and
 cache entry, as the dense models) at the configs' capacity factor and at
 one that drops tokens, in bf16 (0.05 of the largest logit, the cache to
-0.05 of its RMS) at the configs' capacity factor. `bundle.loss` must
-raise for the MoE family."""
+0.05 of its RMS) at the configs' capacity factor. The MoE loss (its
+load-balancing term included) equals the reference's `bundle.loss`; its
+training is held in `tests/test_torch_train_step_moe.py`."""
 import dataclasses
 import functools
 
@@ -177,8 +178,9 @@ def test_convert_carries_every_moe_leaf(arch):
     rb, rp, tb, tp = _models(arch, "float32", None)
     cfg = tb.cfg
     kinds = layer_kinds(cfg)
-    assert len(kinds) == len(tp.layers) == cfg.n_layers
-    assert [isinstance(b, MoEBlock) for b in tp.layers] == \
+    blocks = tp.blocks()
+    assert len(kinds) == len(blocks) == cfg.n_layers
+    assert [isinstance(b, MoEBlock) for b in blocks] == \
         [k == "moe" for k in kinds]
     if arch.startswith("llama4"):
         assert kinds == ("dense", "moe") * (cfg.n_layers // 2)
@@ -191,7 +193,7 @@ def test_convert_carries_every_moe_leaf(arch):
         ref_blocks += [(rp["groups"]["dense"], (g, j))
                        for j in range(cfg.moe_every - 1)]
         ref_blocks.append((rp["groups"]["moe"], (g,)))
-    for (tree, index), block in zip(ref_blocks, tp.layers):
+    for (tree, index), block in zip(ref_blocks, blocks):
         names = dict(block.named_parameters())
         leaves = dict(_leaves(tree))
         assert set(names) == set(leaves), layer
@@ -200,7 +202,12 @@ def test_convert_carries_every_moe_leaf(arch):
             np.testing.assert_array_equal(_f32(names[name]), want)
         layer += 1
     dense_ff = cfg.dense_d_ff or cfg.d_ff
-    for block in tp.layers:
+    # the parameters are named by the reference's tree: lead.<i>,
+    # groups.<g>.dense.<j>, groups.<g>.moe
+    names = {n.split(".")[0] for n, _ in tp.named_parameters()}
+    assert names == {"embed", "final_norm", "groups"} | (
+        {"lead"} if cfg.n_dense_layers else set())
+    for block in blocks:
         if not isinstance(block, MoEBlock):
             assert block.mlp.wo.shape == (dense_ff, cfg.d_model)
         else:
@@ -280,11 +287,22 @@ def test_prefill_drops_tokens_at_the_small_capacity(arch):
     assert all(a == b for a, b in seen) and seen[0][0] > 0
 
 
-def test_moe_loss_raises():
-    _, _, tb, tp = _models("llama4_maverick_400b_a17b", "float32", None)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_matches_reference(arch):
+    """The MoE loss is finite and equals the reference's, its xent and
+    its aux (the load-balancing loss summed over the MoE layers) too, in
+    float32 to 1e-5 relative."""
+    rb, rp, tb, tp = _models(arch, "float32", None)
     toks = _prompts()
-    with pytest.raises(NotImplementedError, match="ROADMAP §A4b"):
-        tb.loss(tp, {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]})
+    batch = {"tokens": toks[:, :S], "labels": toks[:, 1:S + 1]}
+    rl, rm = rb.loss(rp, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        tl, tm = tb.loss(tp, batch)
+    assert bool(torch.isfinite(tl))
+    assert float(tl) == pytest.approx(float(rl), rel=1e-5)
+    for k in ("xent", "aux"):
+        assert float(tm[k]) == pytest.approx(float(rm[k]), rel=1e-5), k
+    assert float(tm["aux"]) > 0
 
 
 def test_serve_cli_runs_a_moe_arch_on_the_cpu(capsys):

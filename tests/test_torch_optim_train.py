@@ -111,6 +111,73 @@ def test_clip_by_global_norm():
 
 
 # ---------------------------------------------------------------------------
+# large parameters taken in slices along their leading axis
+# ---------------------------------------------------------------------------
+
+
+def _slicing_case(seed=0):
+    """Parameters and gradients of every shape the slicing meets: an
+    expert weight (E, D, 2, F), a stacked one, a matrix, a 3-D weight, a
+    vector, a stacked vector; float32, and one bf16 gradient."""
+    rng = np.random.default_rng(seed)
+    shapes = {"moe.wi": (6, 8, 2, 16), "layers.0.wo": (5, 4, 10),
+              "layers.1.wo": (5, 4, 10), "embed.tok": (40, 24),
+              "head": (12, 4, 10), "final_norm": (30,),
+              "layers.0.ln": (24,), "layers.1.ln": (24,)}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in shapes.items()}
+    grads = {k: torch.from_numpy(
+        (rng.standard_normal(s) * rng.uniform(0.1, 3.0)).astype(np.float32))
+        for k, s in shapes.items()}
+    grads["head"] = grads["head"].to(torch.bfloat16)
+    return params, grads
+
+
+@pytest.mark.parametrize("name", ["clip", "adamw", "adafactor"])
+def test_sliced_updates_equal_the_whole(name, monkeypatch):
+    """With `CHUNK_ELEMS` forced below every parameter (100 elements: an
+    expert's row of 256 is one slice of its own), the clip and the
+    optimizers give what they give on whole parameters: AdamW and the
+    clip's scaled gradients element for element, the norm and
+    Adafactor's statistics and update to float32 rounding (their sums
+    run in another order); the clip scales the gradients in place and
+    returns the same tree."""
+    from repro_torch.optim import optimizers as O
+
+    out = {}
+    for chunk in (1 << 26, 100):
+        monkeypatch.setattr(O, "CHUNK_ELEMS", chunk)
+        params, grads = _slicing_case()
+        if name == "clip":
+            ids = {k: id(g) for k, g in grads.items()}
+            clipped, gn = O.clip_by_global_norm(grads, 1.0)
+            assert clipped is grads
+            assert {k: id(g) for k, g in clipped.items()} == ids
+            out[chunk] = ({k: g.float() for k, g in clipped.items()},
+                          {"norm": gn})
+            continue
+        opt = O.get_optimizer(name, topt.constant(1e-2))
+        state = opt.init(params)
+        for step in range(2):
+            opt.update(grads, state, params, step)
+        flat = {}
+        for key, entries in state.items():
+            for leaf, v in entries.items():
+                for k, x in (v.items() if isinstance(v, dict)
+                             else [("", v)]):
+                    flat[f"{key}.{leaf}.{k}"] = x
+        out[chunk] = (params, flat)
+    whole, sliced = out[1 << 26], out[100]
+    for tree_w, tree_s in zip(whole, sliced):
+        for k in tree_w:
+            w, g = tree_w[k].float(), tree_s[k].float()
+            if name == "adamw" or (name == "clip" and k != "norm"):
+                assert torch.equal(g, w), k
+            else:
+                assert torch.allclose(g, w, rtol=1e-5, atol=1e-6), k
+
+
+# ---------------------------------------------------------------------------
 # statistics over the reference's stacked leaves
 # ---------------------------------------------------------------------------
 
@@ -312,9 +379,59 @@ def test_train_cli_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "device=cpu" in out and "step     1 loss" in out
     with pytest.raises(NotImplementedError, match="§A8"):
-        ttrain.main(["--device", "cpu", "--ckpt-dir", "ckpt"])
-    with pytest.raises(NotImplementedError, match="§A8"):
         ttrain.main(["--device", "cpu", "--model-parallel", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.main(["--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", ["llama4_maverick_400b_a17b",
+                                  "kimi_k2_1t_a32b"])
+def test_train_cli_checkpoints_and_resumes_an_moe_arch(arch, tmp_path,
+                                                       capsys):
+    """``--ckpt-dir``: the reference's resilient loop trains a reduced MoE
+    arch 3 steps (checkpoints at 2 and 3), a second run resumes at step 3
+    and runs to 5; the reference's ``Checkpointer`` restores the port's
+    files into its own ``(params, adamw state)``, every leaf under the
+    reference's path and equal to the port's."""
+    from repro.checkpoint.checkpointer import Checkpointer as RCheckpointer
+    from repro.checkpoint.checkpointer import _flatten_with_paths as rpaths
+    from repro_torch.checkpoint.checkpointer import \
+        _flatten_with_paths as tpaths
+    from repro_torch.train.state import TrainCheckpointer, reference_tree
+
+    ck = str(tmp_path / "ck")
+    args = ["--device", "cpu", "--arch", arch, "--batch", "2", "--seq",
+            "16", "--ckpt-dir", ck, "--ckpt-every", "2", "--log-every", "1"]
+    assert ttrain.main(args + ["--steps", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "ran 3 steps" in out and "timeline ckpt@2 ckpt@3" in out
+    assert ttrain.main(args + ["--steps", "5"]) == 0
+    out = capsys.readouterr().out
+    assert "ran 2 steps" in out and "timeline resume@3 ckpt@4 ckpt@5" in out
+    assert "step     3 loss" in out and "step     2 loss" not in out
+
+    # the reference's own (params, adamw state) tree, by shape only
+    rcfg = RC.reduced(RC.get_config(arch))
+    rp = jax.eval_shape(rbuild(rcfg).init, jax.random.PRNGKey(1))
+    rs = jax.eval_shape(ropt.adamw(ropt.constant(1e-3)).init, rp)
+    step, (rp5, rs5), _ = RCheckpointer(ck).restore((rp, rs))
+    assert step == 5
+    for (_, w), (_, like) in zip(rpaths((rp5, rs5)), rpaths((rp, rs))):
+        assert w.shape == like.shape and w.dtype == like.dtype
+    # the port's own restore of the same files, into a fresh model
+    cfg = TC.reduced(TC.get_config(arch))
+    model = build(cfg, device="cpu").init(torch.Generator().manual_seed(1))
+    opt = topt.get_optimizer("adamw", topt.constant(1e-3))
+    state = opt.init(model)
+    assert TrainCheckpointer(ck).restore((model, state))[0] == 5
+    ours = reference_tree(model, state)
+    want = rpaths((rp5, rs5))
+    got = tpaths(ours)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g), (_, w) in zip(got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape and str(g.dtype).split(".")[-1] \
+            == str(w.dtype), name
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      w.astype(np.float32), err_msg=name)
