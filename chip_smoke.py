@@ -29,9 +29,9 @@ Phases; the first failure exits non-zero:
    width; the bit untranspose with fewer than 32 planes, ragged group
    counts and a round trip through the bit transpose; ptxas's registers
    and spill bytes of the Hopper flash kernels (the forward's and the
-   backward's instances at head dims 64, 80 and 128 each required; the
-   first design's bf16 instances at 64 and 80 must be gone), the VM and
-   the bit transpose (any spill fails); flash attention in float32 and
+   backward's instances at head dims 64, 80, 112 and 128 each required;
+   the first design's bf16 instances at 64, 80 and 112 must be gone),
+   the VM and the bit transpose (any spill fails); flash attention in float32 and
    bf16 at the JAX package's five test shapes, a cross-attention shape (64
    queries over 100 keys), B = 2,
    S = 1,000 causal at hd 128, and the hd-128 kernels' edges (100 queries
@@ -47,15 +47,18 @@ Phases; the first failure exits non-zero:
    cross-attention on the hd-128 Hopper kernel (2,048 queries over 1,600
    keys, 64 heads over 8), and the Hopper route's edges at head dims 64
    and 80 (100 keys, under one key tile, and 1,000; 130 and 300
-   queries; GQA groups of 2; B H = 144 and 160); the training kernels at
+   queries; GQA groups of 2; B H = 144 and 160; at head dim 112 100 keys
+   under 130 queries at Kimi K2's group of 8, and 300 queries over 1,000
+   keys at B H = 144); the training kernels at
    the same shapes and
    at B = 1, S = 4,096 causal, and the trained families' shapes (Zamba2's
    head dim 80: 32 heads over 32 at 1,000 queries causal and not, a GQA
    group of 2, 100 keys, B H = 160; SeamlessM4T's head dim 64 at B 2:
    1,024 x 1,024, causal 4,096 and 4,096 x 1,024; the VLM's cross
    attention, 4,096 x 1,600 at 64 / 8 heads of 128; the Hopper
-   backward's edges at head dim 64: 100 keys, 130 and 300 queries, GQA
-   groups of 2, B H = 144 and 160), both dtypes: the
+   backward's edges at head dims 64 and 112: 100 keys, 130 and 300
+   queries, GQA groups of 2 and 8, B H = 144 and 160, and at 112 Sq !=
+   Sk causal both ways and not), both dtypes: the
    lse-emitting forward (its
    output equal to the serving kernel's, the lse within 1e-4) and the
    backward (dq, dk, dv; two runs bit-identical) against their plain
@@ -723,7 +726,7 @@ def _vote_arith_kernel_cases(torch, device, errs) -> int:
 #: multiple of their 128-row tiles (130, 1,000), and B H = 144 query heads,
 #: more than the card's 132 SMs; then the MoE configs' heads: Llama-4
 #: Maverick's (40 query heads over 8, a group of 5, at S 2,048) and Kimi
-#: K2's (64 over 8 at head dim 112, the first design's instantiation)
+#: K2's (64 over 8 at head dim 112, on the Hopper route)
 FLASH_CASES = (
     (2, 128, 128, 4, 2, 32, True, 32, 32),
     (2, 128, 128, 4, 2, 32, False, 32, 32),
@@ -741,15 +744,16 @@ FLASH_CASES = (
 )
 #: the serving families' new flash shapes, forward and lse forward only
 #: (their backward comes with training them): Zamba2's shared attention at
-#: head dim 80 (32 query heads over 32, the first design's instantiation)
-#: with a ragged Sq, causal and not; SeamlessM4T's head dim 64 non-causal,
+#: head dim 80 (32 query heads over 32) with a ragged Sq, causal and not;
+#: SeamlessM4T's head dim 64 non-causal,
 #: its cross-attention (2,048 queries over 1,024 frames) and its encoder
 #: (1,024 over 1,024); the VLM's cross-attention on the Hopper kernel at
 #: head dim 128 (2,048 queries over 1,600 patches, not a multiple of the
 #: key tile, a GQA group of 8); then the edges of the Hopper route at
-#: head dims 64 and 80: Sk 100 (under one 128-key tile) and 1,000, Sq 130
-#: and 300 (ragged query tiles), a GQA group of 2, and B H = 144 and 160
-#: query heads, more than the card's 132 SMs
+#: head dims 64, 80 and 112: Sk 100 (under one 128-key tile) and 1,000, Sq
+#: 130 and 300 (ragged query tiles), GQA groups of 2 and 8 (Kimi K2's),
+#: Sq != Sk causal and not, and B H = 144 and 160 query heads, more than
+#: the card's 132 SMs
 SERVE_FLASH_CASES = (
     (2, 1000, 1000, 32, 32, 80, True, 512, 512),
     (2, 1000, 1000, 32, 32, 80, False, 512, 512),
@@ -760,23 +764,28 @@ SERVE_FLASH_CASES = (
     (9, 130, 1000, 16, 8, 64, False, 128, 512),
     (1, 130, 100, 16, 8, 80, True, 64, 64),
     (5, 300, 100, 32, 16, 80, False, 128, 128),
+    (1, 130, 100, 64, 8, 112, True, 64, 64),
+    (9, 300, 1000, 16, 8, 112, False, 128, 512),
 )
 #: the kernels redesigned for Hopper that `phase_sm90_report` holds to
 #: zero spills, by source: the bf16 flash kernels (TMA ring + wgmma; the
-#: forward and the backward at head dims 64, 80 and 128, each instance
+#: forward and the backward at head dims 64, 80, 112 and 128, each instance
 #: required by name: the backward's `<HD, true>` enter p and ds as hi + lo
 #: parts, `<128, false>` rounds them once to time what the split costs),
 #: the VM (pre-decoded program, cp.async tile ring) and the bit transpose
 #: (register butterfly)
 SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel<64>",
                               "flash_fwd_sm90_kernel<80>",
+                              "flash_fwd_sm90_kernel<112>",
                               "flash_fwd_sm90_kernel<128>"),
                 "flashattn_bwd": ("flash_bwd_dq_sm90_kernel<64, true>",
                                   "flash_bwd_dq_sm90_kernel<80, true>",
+                                  "flash_bwd_dq_sm90_kernel<112, true>",
                                   "flash_bwd_dq_sm90_kernel<128, true>",
                                   "flash_bwd_dq_sm90_kernel<128, false>",
                                   "flash_bwd_dkv_sm90_kernel<64, true>",
                                   "flash_bwd_dkv_sm90_kernel<80, true>",
+                                  "flash_bwd_dkv_sm90_kernel<112, true>",
                                   "flash_bwd_dkv_sm90_kernel<128, true>",
                                   "flash_bwd_dkv_sm90_kernel<128, false>"),
                 "vm": ("vm_kernel",),
@@ -784,11 +793,14 @@ SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel<64>",
 #: the first design's bf16 instances that the Hopper route replaced: a
 #: build that still holds one fails
 RETIRED_KERNELS = {"flashattn": ("flash_mma_kernel<64>",
-                                 "flash_mma_kernel<80>"),
+                                 "flash_mma_kernel<80>",
+                                 "flash_mma_kernel<112>"),
                    "flashattn_bwd": ("flash_bwd_dq_mma_kernel<64>",
                                      "flash_bwd_dq_mma_kernel<80>",
+                                     "flash_bwd_dq_mma_kernel<112>",
                                      "flash_bwd_dkv_mma_kernel<64>",
-                                     "flash_bwd_dkv_mma_kernel<80>")}
+                                     "flash_bwd_dkv_mma_kernel<80>",
+                                     "flash_bwd_dkv_mma_kernel<112>")}
 #: first-design instances whose registers and spill bytes
 #: `phase_sm90_report` prints without gating them: the float32 backward
 #: at head dim 80 (scalar FMAs)
@@ -1057,9 +1069,10 @@ def phase_flash_kernels(torch, clock_hz, off) -> float:
           f"tolerance of the plain version (float32 {FLASH_TOL['float32']}, "
           f"bf16 {FLASH_TOL['bfloat16']}, of the output's RMS plus each "
           f"element's magnitude), {n_lse} of them (the serving families' "
-          f"head dims 80, 64 and 128 with Sq != Sk) also through the lse "
-          f"forward (its output equal, the lse within 1e-4); largest max "
-          f"abs err {worst:.3g}, largest share of the tolerance {most:.3g}")
+          f"head dims 80, 64, 112 and 128 with Sq != Sk) also through the "
+          f"lse forward (its output equal, the lse within 1e-4); largest "
+          f"max abs err {worst:.3g}, largest share of the tolerance "
+          f"{most:.3g}")
     return worst
 
 
@@ -1075,10 +1088,12 @@ def phase_flash_kernels(torch, clock_hz, off) -> float:
 #: attention of 4,096 queries over 1,024 frames) and the VLM's cross
 #: attention on the head-dim-128 Hopper backward (4,096 queries over
 #: 1,600 patches, not a multiple of its key tile, 64 heads over 8); then
-#: the Hopper backward's edges at head dim 64 (those at 80 are above):
-#: 100 keys (under one 128-key tile of the dk / dv kernel), 130 and 300
-#: queries (ragged query tiles), GQA groups of 2, and B H = 144 and 160
-#: query heads, more than the card's 132 SMs
+#: the Hopper backward's edges at head dims 64 and 112 (those at 80 are
+#: above): 100 keys (under one 128-key tile of the dk / dv kernel), 130
+#: and 300 queries (ragged query tiles), GQA groups of 2 and 8 (Kimi
+#: K2's), B H = 144 and 160 query heads, more than the card's 132 SMs,
+#: and at 112 Sq != Sk causal both ways (300 queries over 1,000 keys:
+#: the keys past the last query take no gradient) and not
 TRAIN_FLASH_CASES = FLASH_CASES + (
     (1, 4096, 4096, 16, 8, 128, True, 512, 512),
     (2, 1000, 1000, 32, 32, 80, True, 512, 512),
@@ -1094,6 +1109,11 @@ TRAIN_FLASH_CASES = FLASH_CASES + (
     (9, 130, 1000, 16, 8, 64, False, 128, 512),
     (2, 300, 300, 8, 4, 64, True, 128, 128),
     (5, 300, 100, 32, 16, 64, False, 128, 128),
+    (1, 130, 100, 64, 8, 112, True, 64, 64),
+    (9, 300, 1000, 16, 8, 112, False, 128, 512),
+    (2, 300, 300, 16, 2, 112, True, 128, 128),
+    (1, 300, 1000, 64, 8, 112, True, 128, 512),
+    (5, 300, 100, 32, 16, 112, False, 128, 128),
 )
 
 

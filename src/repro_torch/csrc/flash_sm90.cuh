@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels in bf16
 // (flashattn.cu: the forward, flashattn_bwd.cu: the backward, both at head
-// dims 64, 80 and 128): TMA tensor maps built on the host,
+// dims 64, 80, 112 and 128): TMA tensor maps built on the host,
 // mbarriers, the bulk tensor copy, warpgroup register hand-over
 // (setmaxnreg) and wgmma with its shared-memory descriptors. Everything has
 // internal linkage: each source that includes this builds into its own
@@ -8,20 +8,22 @@
 //
 // Layout convention. Every operand tile is a run of rows of head-dim
 // values in bf16, brought in by TMA as ceil(hd / 64) "halves" of 64
-// columns (128 bytes a row; one half at hd 64, two at 80 and 128), each
-// half stored row after row with the 128-byte swizzle (16-byte chunk c of
-// row r lands at chunk c ^ (r % 8)). At hd 80 the second half's columns
-// 80-127 lie past the tensor and TMA fills them with zeros. A half of R
-// rows takes R * 128 bytes and starts on a 1024-byte boundary. wgmma reads
-// a half in one of two ways:
+// columns (128 bytes a row; one half at hd 64, two at 80, 112 and 128),
+// each half stored row after row with the 128-byte swizzle (16-byte chunk
+// c of row r lands at chunk c ^ (r % 8)). At hd 80 and 112 the second
+// half's columns past the head dim (80-127, 112-127) lie past the tensor
+// and TMA fills them with zeros. A half of R rows takes R * 128 bytes and
+// starts on a 1024-byte boundary. wgmma reads a half in one of two ways:
 //   K-major (the product runs over head dims: Q K^T, dO V^T, K Q^T, ...):
 //   8-row groups 1024 bytes apart (SBO); the 16-deep k-step s of a tile
-//   starts 32 (s % 4) bytes into half s / 4.
+//   starts 32 (s % 4) bytes into half s / 4, so hd / 16 k-steps run (5 at
+//   hd 80, 7 at 112) and those from 4 on read the second half.
 //   N-major (the product runs over rows, the head dim is the output
 //   column: P V, dS K, P^T dO, dS^T Q): the transpose bit is set, the
 //   16-deep k-step s starts 16 rows (2048 bytes) in, 8-row groups are
 //   1024 bytes apart (SBO) and output columns 64 onwards are the other
-//   half (LBO = its distance).
+//   half (LBO = its distance): one m64nHDk16 wgmma writes exactly the hd
+//   real columns.
 #pragma once
 #include <cstdint>
 #include <cuda.h>
@@ -305,11 +307,11 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x N, float32) = A B, or += where `accumulate`, for N = 64, 80:
-// A 64 x 16 bf16 from registers (each warp's 16 rows in the mma.sync A
-// fragment layout), B 16 x N bf16 from shared memory, N-major (the
-// transpose bit set). Columns 64 onwards (n80) are read from the other
-// half, LBO bytes on.
+// d (64 x N, float32) = A B, or += where `accumulate`, for N = 64, 80,
+// 112: A 64 x 16 bf16 from registers (each warp's 16 rows in the mma.sync
+// A fragment layout), B 16 x N bf16 from shared memory, N-major (the
+// transpose bit set). Columns 64 onwards (n80, n112) are read from the
+// other half, LBO bytes on.
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db, int accumulate) {
@@ -359,6 +361,38 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
         "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // d (64 x 128, float32) = A B, or += where `accumulate`: A 64 x 16 bf16
 // from registers (each
 // warp's 16 rows in the mma.sync A fragment layout), B 16 x 128 bf16 from
@@ -398,17 +432,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "r"(accumulate));
 }
 // d (64 x HD, float32) += A B over one 16-deep k-step at head dim HD = 64,
-// 80 or 128: A from registers, B N-major in shared memory (the products
-// whose output columns are the head dim: P V, dS K, P^T dO, dS^T Q).
+// 80, 112 or 128: A from registers, B N-major in shared memory (the
+// products whose output columns are the head dim: P V, dS K, P^T dO, dS^T
+// Q).
 template <int HD>
 __device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  static_assert(HD == 64 || HD == 80 || HD == 128, "head dim");
+  static_assert(HD == 64 || HD == 80 || HD == 112 || HD == 128, "head dim");
   if constexpr (HD == 64) {
     wgmma_rs_n64(d, a, db, 1);
   } else if constexpr (HD == 80) {
     wgmma_rs_n80(d, a, db, 1);
+  } else if constexpr (HD == 112) {
+    wgmma_rs_n112(d, a, db, 1);
   } else {
     wgmma_rs_n128(d, a, db, 1);
   }

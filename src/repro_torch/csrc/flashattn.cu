@@ -19,7 +19,9 @@
 // TB/s; the training path's lse forward (B = 2, S = 4096) has the same
 // 0.139 ms bound. Zamba2's shared attention (hd 80, B = 8, H = 32, S =
 // 2048, causal) is bound at 0.174 ms, SeamlessM4T's hd-64 launches (B =
-// 8, H = 16) at 0.035-0.070 ms.
+// 8, H = 16) at 0.035-0.070 ms, Kimi K2's (hd 112, 64 query heads over 8,
+// causal) at 0.487 ms served (B 8, S 2,048) and 0.243 ms trained (B 1, S
+// 4,096).
 //
 // Design. Blocks run in no order, so the TPU's sequential key axis becomes
 // a loop inside the block: a CTA per (query tile, head, batch) walks the
@@ -36,26 +38,27 @@
 // The launcher's switch on the head dim and dtype picks the kernel; none
 // falls back on another:
 //
-//   bf16, head dims 64, 80 and 128 (every dense config the port serves
-//   and trains at 128; SeamlessM4T at 64, Zamba2's shared attention at
-//   80): flash_fwd_sm90_kernel<HD>. Against the operation bound it keeps
-//   the tensor cores fed: a CTA of 128 query rows, two consumer
-//   warpgroups of 64 rows on wgmma and one producer thread that streams
-//   128-key K and V tiles by TMA (a tensor map per operand, built on the
-//   host over the model's layout; 128-byte swizzle) through a ring of
-//   full / empty mbarriers (two stages at hd 128, three at 80, four at
-//   64: as deep as shared memory allows at 80, and at 64 never slower
-//   than two or three; times below); setmaxnreg gives the producer's
-//   registers to the consumers. S = Q K^T reads both operands from
-//   shared memory, K-major, in HD / 16 k-steps; O += P V takes P from
+//   bf16, head dims 64, 80, 112 and 128 (every dense config the port
+//   serves and trains at 128; SeamlessM4T at 64, Zamba2's shared attention
+//   at 80, Kimi K2 at 112): flash_fwd_sm90_kernel<HD>. Against the
+//   operation bound it keeps the tensor cores fed: a CTA of 128 query
+//   rows, two consumer warpgroups of 64 rows on wgmma and one producer
+//   thread that streams 128-key K and V tiles by TMA (a tensor map per
+//   operand, built on the host over the model's layout; 128-byte swizzle)
+//   through a ring of full / empty mbarriers (two stages at hd 112 and
+//   128, three at 80, four at 64: as deep as shared memory allows at 80,
+//   and elsewhere the fastest measured; times below); setmaxnreg gives the
+//   producer's registers to the consumers. S = Q K^T reads both operands
+//   from shared memory, K-major, in HD / 16 k-steps; O += P V takes P from
 //   registers (the S accumulator rounded to bf16 is the A fragment) and
 //   reads V in its [key][hd] layout through the descriptor's transpose
 //   bit, so nothing is staged transposed. A tile row is ceil(HD / 64)
-//   64-column boxes: one at hd 64 (16 KB tiles), two at 80 and 128 (32
-//   KB). At hd 80 the second box's columns 80-127 lie past the tensor and
-//   TMA fills them with zeros; S's fifth k-step reads columns 64-79 of
-//   the second box, and P V is one m64n80k16 wgmma across both boxes
-//   (LBO = the second box's distance), which writes exactly the 40
+//   64-column boxes: one at hd 64 (16 KB tiles), two at 80, 112 and 128
+//   (32 KB). At hd 80 and 112 the second box's columns past the head dim
+//   (80-127, 112-127) lie past the tensor and TMA fills them with zeros;
+//   S's k-steps from the fifth on (one at 80, three at 112) read the
+//   second box, and P V is one m64nHDk16 wgmma across both boxes (LBO =
+//   the second box's distance), which writes exactly the HD / 2
 //   accumulator floats a thread that the output has. The variants timed
 //   while choosing, each in turns in one call on an H100 80GB HBM3 at
 //   700 W (ms a launch; only the chosen ones were kept): at hd 80, B 8,
@@ -63,18 +66,20 @@
 //   n128 over the zeros 0.627, and a ring of three 0.608 against two
 //   0.625; at hd 64, B 8, 16 heads, over 1,024 x 1,024 / causal 2,048 /
 //   2,048 x 1,024 keys, a ring of four 0.118 / 0.238 / 0.223, of three
-//   0.123 / 0.247 / 0.230, of two 0.118 / 0.250 / 0.223. The epilogue
-//   stores the HD real columns only. The online softmax runs in exp2 with scale
+//   0.123 / 0.247 / 0.230, of two 0.118 / 0.250 / 0.223; at hd 112, 64
+//   heads over 8, causal, a ring of two 1.147 (B 8, S 2,048) and 0.510
+//   (lse, B 1, S 4,096) against three 1.208 and 0.519 (the first design
+//   on mma.sync: 3.833 and 2.011). The epilogue stores the HD real
+//   columns only. The online softmax runs in exp2 with scale
 //   log2(e) folded in; p enters P V in bf16 while the denominator sums it
 //   in float32; lse is written in natural log. Masking runs only on
 //   tiles that cross the diagonal or the keys' end, and the heaviest
 //   (last) query tiles launch first. A refused tensor map or launch
 //   returns its error. Not done yet: the two consumer warpgroups wait on
-//   the same barriers and so run in lockstep, and at hd 64 / 80 the
-//   softmax's exp2 work, about as long as a tile's products, is never
-//   hidden under the other warpgroup's wgmma (FlashAttention-3's
-//   ping-pong would order them).
-//   bf16, head dims 16, 32 (test shapes) and 112 (Kimi K2's head): the
+//   the same barriers and so run in lockstep, and the softmax's exp2
+//   work is never hidden under the other warpgroup's wgmma
+//   (FlashAttention-3's ping-pong would order them).
+//   bf16, head dims 16 and 32 (test shapes, off every main path): the
 //   first design, flash_mma_kernel: four warps, 16 query rows each, on
 //   mma.sync.m16n8k16 with float32 accumulation; Q's fragments stay in
 //   registers, each 64-key tile is staged in shared memory (K row-major,
@@ -431,7 +436,7 @@ flash_simt_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64, 80, 128: TMA ring + wgmma (sm_90a)
+// bf16, head dims 64, 80, 112, 128: TMA ring + wgmma (sm_90a)
 // ---------------------------------------------------------------------------
 
 constexpr int kFwdBM = 128;          // query rows per CTA (two warpgroups)
@@ -439,8 +444,9 @@ constexpr int kFwdBN = 128;          // keys per tile
 constexpr int kFwdThreads = 384;     // consumers: warpgroups 0, 1; producer: 2
 
 // The forward's shape at head dim HD: a tile of 128 rows is ceil(HD / 64)
-// halves of 128 x 128 bytes; O's accumulator is HD / 2 floats a thread.
-// The ring is as deep as was measured fastest (times in the header).
+// halves of 128 x 128 bytes (two at hd 80, 112 and 128); O's accumulator
+// is HD / 2 floats a thread (56 at hd 112). The ring is as deep as was
+// measured fastest (times in the header).
 template <int HD>
 struct Fwd {
   static constexpr int kHalves = (HD + 63) / 64;
@@ -448,7 +454,7 @@ struct Fwd {
   static constexpr int kStages = HD == 64 ? 4 : HD == 80 ? 3 : 2;
   static constexpr int kBars = 1 + 3 * kStages;    // q, k / v full, empty
   static constexpr int kSmem = 1024 + (1 + 2 * kStages) * kTile + 8 * kBars;
-  static_assert(HD == 64 || HD == 80 || HD == 128, "head dim");
+  static_assert(HD == 64 || HD == 80 || HD == 112 || HD == 128, "head dim");
   static_assert(kSmem <= 232448, "shared memory");
 };
 
@@ -545,7 +551,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
       const int k0 = j * kFwdBN;
 
       // S = Q K^T over the head dim's HD / 16 k-steps (k-step 4 onwards in
-      // the second half)
+      // the second half: one at hd 80, three at 112, four at 128)
       float sc[64];
       mbar_wait(&k_full[s], parity);
       wgmma_fence();
@@ -662,7 +668,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Sm90Params p) {
   }
 }
 
-// The bf16 launch at head dims 64, 80 and 128: a tensor map per operand,
+// The bf16 launch at head dims 64, 80, 112 and 128: a tensor map per operand,
 // a CTA per (query tile, head, batch). A refused map or launch returns its
 // error; nothing retries on another kernel.
 template <int HD>
@@ -717,9 +723,9 @@ template <int HD>
 cudaError_t launch_hd(int dtype, const Params& p, int batch,
                       cudaStream_t stream) {
   if (dtype == 1) {
-    // head dims 64, 80, 128: the Hopper kernel; 16, 32, 112: the mma.sync
-    // kernel
-    if constexpr (HD == 64 || HD == 80 || HD == 128) {
+    // head dims 64, 80, 112, 128: the Hopper kernel; 16, 32 (test shapes):
+    // the mma.sync kernel
+    if constexpr (HD >= 64) {
       return launch_sm90<HD>(p, batch, p.heads / p.group, stream);
     } else {
       const size_t smem = sizeof(__nv_bfloat16) *

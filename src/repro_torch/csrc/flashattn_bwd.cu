@@ -16,7 +16,8 @@
 // 3.4e11 FLOP, 0.348 ms at 989 TFLOP/s, against q, k, v, o, do, lse, dq,
 // dk, dv = 0.20 GB, 0.060 ms at 3.35 TB/s. Zamba2's shared attention (hd
 // 80, B 2, 32 heads, causal 4,096) is bound at 0.434 ms, SeamlessM4T's
-// hd-64 launches (B 2, 16 heads) at 0.022-0.174 ms.
+// hd-64 launches (B 2, 16 heads) at 0.022-0.174 ms, Kimi K2's (hd 112, B
+// 1, 64 heads over 8, causal 4,096) at 0.608 ms.
 //
 // Design. Blocks run in no order, so each output gets the CTA that owns
 // it and a loop takes the place of the TPU's sequential grid axis:
@@ -44,58 +45,61 @@
 // and dv, which keeps about 16 bits of p and ds. The launcher's switch on
 // the head dim and dtype picks the kernels; none falls back on another:
 //
-//   bf16, head dims 64, 80 and 128 (every dense config the port trains at
-//   128; SeamlessM4T at 64, Zamba2's shared attention at 80):
-//   flash_bwd_dq_sm90_kernel<HD, true>, then flash_bwd_dkv_sm90_kernel<HD,
-//   true>. Against the operation bound they keep the tensor cores fed:
-//   each CTA has two consumer warpgroups on wgmma and a producer that
-//   streams tiles by TMA (tensor maps over the model's layout, 128-byte
-//   swizzle) through a ring of full / empty mbarriers, and setmaxnreg
-//   gives the producer's registers to the consumers. A tile row is
-//   ceil(HD / 64) boxes of 64 columns: one at hd 64, two at 80 and 128; at
-//   80 TMA fills columns 80-127 of the second box with zeros. The products
+//   bf16, head dims 64, 80, 112 and 128 (every dense config the port
+//   trains at 128; SeamlessM4T at 64, Zamba2's shared attention at 80,
+//   Kimi K2 at 112): flash_bwd_dq_sm90_kernel<HD, true>, then
+//   flash_bwd_dkv_sm90_kernel<HD, true>. Against the operation bound they
+//   keep the tensor cores fed: each CTA has two consumer warpgroups on
+//   wgmma and a producer that streams tiles by TMA (tensor maps over the
+//   model's layout, 128-byte swizzle) through a ring of full / empty
+//   mbarriers, and setmaxnreg gives the producer's registers to the
+//   consumers. A tile row is ceil(HD / 64) boxes of 64 columns: one at hd
+//   64, two at 80, 112 and 128; at 80 and 112 TMA fills the second box's
+//   columns past the head dim (80-127, 112-127) with zeros. The products
 //   over the head dim (S, dP; S^T, dP^T) read both operands from shared
-//   memory, K-major, in HD / 16 k-steps (at hd 80 the fifth reads columns
-//   64-79 of the second box); the products over keys or queries (dQ += dS
-//   K, dV += P^T dO, dK += dS^T Q) take dS, P^T, dS^T from registers (their
-//   accumulators are the A fragments) and read K, dO, Q in their natural
-//   [row][hd] layout through the descriptor's transpose bit, one
-//   m64nHDk16 wgmma a 16-deep step (at hd 80 across both boxes, LBO = the
-//   second box's distance), which writes exactly the HD / 2 accumulator
-//   floats a thread; nothing is staged transposed, the lo part of the
-//   split is one more product on the same descriptor, and the epilogue
-//   stores the HD real columns. dq: 128 query rows a CTA, 64-key tiles.
-//   dk / dv: 128 keys a CTA, K and V loaded once, 64-query tiles with their
-//   lse and delta rows. At hd 128 in two passes (dV, then dK), so that one
-//   accumulator of 64 registers a thread is live beside S^T and dP^T; with
-//   both live ptxas spilled. At hd 64 and 80 in one pass: dK and dV (32 +
-//   32 or 40 + 40 floats a thread) stay live, S^T is computed once and Q,
-//   dO stream once; a tile runs S^T, p^T and its fragments, dV += P^T dO,
-//   dP^T, ds^T, dK += dS^T Q, each product waited for before the next.
-//   p is 2^(s scale log2(e) - lse log2(e)). The ring has three stages at
-//   hd 80 and 128 and six at 64. The variants timed while choosing, each
-//   in turns in one call on an H100 80GB HBM3 at 700 W (ms a launch, B 2;
-//   only the chosen ones were kept): at hd 64, 16 heads, over 1,024 x
-//   1,024 / causal 4,096 / 4,096 x 1,024 keys, a ring of six 0.150 /
-//   0.893 / 0.519, of eight 0.155 / 0.908 / 0.537, of four 0.156 / 0.915
-//   / 0.538, of three 0.154 / 0.908 / 0.536, of two 0.156 / 0.917 /
-//   0.546; at hd 80, 32 heads, causal 4,096, rings of two, three and four
-//   2.004, 2.040 and 2.051 (two builds of three: 1.993 and 2.040). Tried
-//   and not kept: dP^T issued with dV in one batch (ptxas spilled 12 bytes
-//   at hd 64 and serialized the wgmmas at 80: 2.15 against 2.02); dQ's
-//   product left in flight while the next tile's S and dP are issued
-//   (2.05-2.15 against 1.97-2.02 at hd 80); 288 threads, one producer
-//   warp and no setmaxnreg (the consumers then report 127-164 registers):
-//   no faster, and sharing a batch still spills or serializes.
-//   bf16, head dims 16, 32 (test shapes) and 112 (Kimi K2's head): the
+//   memory, K-major, in HD / 16 k-steps (those from the fifth on read the
+//   second box: one at hd 80, three at 112); the products over keys or
+//   queries (dQ += dS K, dV += P^T dO, dK += dS^T Q) take dS, P^T, dS^T
+//   from registers (their accumulators are the A fragments) and read K,
+//   dO, Q in their natural [row][hd] layout through the descriptor's
+//   transpose bit, one m64nHDk16 wgmma a 16-deep step (at hd 80 and 112
+//   across both boxes, LBO = the second box's distance), which writes
+//   exactly the HD / 2 accumulator floats a thread; nothing is staged
+//   transposed, the lo part of the split is one more product on the same
+//   descriptor, and the epilogue stores the HD real columns. dq: 128
+//   query rows a CTA, 64-key tiles. dk / dv: 128 keys a CTA, K and V
+//   loaded once, 64-query tiles with their lse and delta rows. At hd 112
+//   and 128 in two passes (dV, then dK), so that one accumulator of 56 or
+//   64 registers a thread is live beside S^T and dP^T; with both live
+//   ptxas spilled (at hd 112 272 bytes, and it serialized the wgmmas). At
+//   hd 64 and 80 in one pass: dK and dV (32 + 32 or 40 + 40 floats a
+//   thread) stay live, S^T is computed once and Q, dO stream once; a tile
+//   runs S^T, p^T and its fragments, dV += P^T dO, dP^T, ds^T, dK += dS^T
+//   Q, each product waited for before the next. p is 2^(s scale log2(e) -
+//   lse log2(e)). The ring has three stages at hd 80, 112 and 128 and six
+//   at 64. The variants timed while choosing, each in turns in one call on
+//   an H100 80GB HBM3 at 700 W (ms a launch; only the chosen ones were
+//   kept): at hd 64, B 2, 16 heads, over 1,024 x 1,024 / causal 4,096 /
+//   4,096 x 1,024 keys, a ring of six 0.150 / 0.893 / 0.519, of eight
+//   0.155 / 0.908 / 0.537, of four 0.156 / 0.915 / 0.538, of three 0.154 /
+//   0.908 / 0.536, of two 0.156 / 0.917 / 0.546; at hd 80, B 2, 32 heads,
+//   causal 4,096, rings of two, three and four 2.004, 2.040 and 2.051 (two
+//   builds of three: 1.993 and 2.040); at hd 112, B 1, 64 heads over 8,
+//   causal 4,096, two passes with a ring of three 2.903 and of four 2.942,
+//   one pass (spilling) with three 3.013 and four 3.271 (the first design
+//   on mma.sync: 10.063). Tried and not kept: dP^T issued with dV in one
+//   batch (ptxas spilled 12 bytes at hd 64 and serialized the wgmmas at
+//   80: 2.15 against 2.02); dQ's product left in flight while the next
+//   tile's S and dP are issued (2.05-2.15 against 1.97-2.02 at hd 80); 288
+//   threads, one producer warp and no setmaxnreg (the consumers then
+//   report 127-164 registers): no faster, and sharing a batch still spills
+//   or serializes.
+//   bf16, head dims 16 and 32 (test shapes, off every main path): the
 //   first design, flash_bwd_dq_mma_kernel and flash_bwd_dkv_mma_kernel:
 //   four warps on mma.sync.m16n8k16 with float32 accumulation, 64 x 64
 //   tiles staged in shared memory (row-major where they are an A operand
 //   or the B operand of a product over hd, transposed where they are the
 //   B operand of a product over keys or queries), the same hi + lo split.
-//   Every loop over the head dim runs HD / 16 k-steps or HD / 8 n-tiles,
-//   and a staged 64-row tile is 64 x HD / 8 16-byte chunks over 128
-//   threads, so no power of two is needed.
 //   float32, every head dim: scalar FP32 FMAs, 256 threads, each owning a
 //   4 x 4 block of the 64 x 64 score tile and a 4 x (hd / 16) block of its
 //   accumulators.
@@ -710,30 +714,30 @@ flash_bwd_dkv_simt_kernel(const BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64, 80, 128: TMA ring + wgmma (sm_90a)
+// bf16, head dims 64, 80, 112, 128: TMA ring + wgmma (sm_90a)
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 384;     // consumers: warpgroups 0, 1; producer: 2
 
 // The backward's shape at head dim HD: a tile row is ceil(HD / 64) halves
-// of 64 columns (128 bytes a row each; at hd 80 TMA zero-fills columns
-// 80-127 of the second); a warpgroup's 64 x HD accumulator is HD / 2
-// floats a thread. Below 128 the dk / dv kernel makes one pass (dK and dV
-// live together). The ring is as deep as was measured fastest (times in
-// the header).
+// of 64 columns (128 bytes a row each; at hd 80 and 112 TMA zero-fills the
+// second's columns past the head dim); a warpgroup's 64 x HD accumulator
+// is HD / 2 floats a thread. At hd 64 and 80 the dk / dv kernel makes one
+// pass (dK and dV live together), at 112 and 128 two (one pass spilled).
+// The ring is as deep as was measured fastest (times in the header).
 template <int HD>
 struct Bwd {
   static constexpr int kHalves = (HD + 63) / 64;
   static constexpr int kRows128 = 128 * 128 * kHalves;  // bytes of 128 rows
   static constexpr int kRows64 = 64 * 128 * kHalves;    // bytes of 64 rows
   static constexpr int kStages = HD == 64 ? 6 : 3;
-  static constexpr bool kOnePass = HD < 128;
+  static constexpr bool kOnePass = HD < 112;
   static constexpr int kAcc = HD / 2;
   static constexpr int kBars = 1 + 2 * kStages;  // loaded once; full, empty
   static constexpr int kDqSmem =
       1024 + 2 * kRows128 + 2 * kStages * kRows64 + 8 * kBars;
   static constexpr int kDkvSmem = kDqSmem + 2 * kStages * 64 * 4;
-  static_assert(HD == 64 || HD == 80 || HD == 128, "head dim");
+  static_assert(HD == 64 || HD == 80 || HD == 112 || HD == 128, "head dim");
   static_assert(kDkvSmem <= 232448, "shared memory");
 };
 
@@ -1006,12 +1010,12 @@ __device__ __forceinline__ void p_to_ds(float (&pt)[32],
 // stream through the ring with their lse and delta rows. Each consumer
 // warpgroup owns 64 keys: S^T = K Q^T and dP^T = V dO^T from shared
 // memory, p^T and ds^T in registers, dV += P^T dO and dK += dS^T Q with dO
-// and Q read N-major. Below head dim 128 one pass keeps dK and dV (2 x HD
-// / 2 floats a thread) beside S^T and dP^T: per tile S^T, then p^T and its
-// fragments, dV += P^T dO, dP^T, ds^T and its fragments, dK += dS^T Q. At
-// 128 the two accumulators (128 floats a thread) beside S^T and dP^T
-// spill, so the tiles stream twice: a first pass accumulates dV, a second
-// dK, computing S^T again. The group's sum stays in registers: no
+// and Q read N-major. At head dims 64 and 80 one pass keeps dK and dV (2 x
+// HD / 2 floats a thread) beside S^T and dP^T: per tile S^T, then p^T and
+// its fragments, dV += P^T dO, dP^T, ds^T and its fragments, dK += dS^T Q.
+// At 112 and 128 the two accumulators (112 or 128 floats a thread) beside
+// S^T and dP^T spill, so the tiles stream twice: a first pass accumulates
+// dV, a second dK, computing S^T again. The group's sum stays in registers: no
 // atomics, and the result is deterministic. kSplit: p and ds enter as hi
 // + lo bf16 parts.
 template <int HD, bool kSplit>
@@ -1228,7 +1232,7 @@ cudaError_t launch_sm90_pair(const DqParams& dq, long long dq_blocks,
                      Bwd<HD>::kDkvSmem, dkv_blocks, dkv, stream);
 }
 
-// The bf16 launch at head dims 64, 80 and 128: a tensor map per operand
+// The bf16 launch at head dims 64, 80, 112 and 128: a tensor map per operand
 // and tile height, then the dq kernel and the dk / dv kernel on `stream`.
 // A refused map or launch returns its error; nothing retries on another
 // kernel. `split` = false (p and ds rounded once) exists at 128 only.
@@ -1307,9 +1311,9 @@ cudaError_t launch_hd(int dtype, const BwdParams& p, int batch,
   const dim3 dkv_grid((p.sk + kBK - 1) / kBK, kv_heads, batch);
   cudaError_t err;
   if (dtype == 1) {
-    // head dims 64, 80, 128: the Hopper kernels; 16, 32, 112: the mma.sync
-    // kernels
-    if constexpr (HD == 64 || HD == 80 || HD == 128) {
+    // head dims 64, 80, 112, 128: the Hopper kernels; 16, 32 (test
+    // shapes): the mma.sync kernels
+    if constexpr (HD >= 64) {
       return launch_bwd_sm90<HD>(p, batch, kv_heads, split, stream);
     } else {
       const size_t rows = sizeof(__nv_bfloat16) * kBK * (HD + 8);

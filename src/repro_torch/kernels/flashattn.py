@@ -16,10 +16,10 @@ Port of the Pallas `repro.kernels.flashattn` kernels:
 The C launchers pick the kernel by head dim and dtype. In bf16 the
 forward and the backward run the Hopper kernels (TMA ring, wgmma,
 setmaxnreg; ``csrc/flash_sm90.cuh``) at head dims 64 (SeamlessM4T), 80
-(Zamba2's shared attention) and 128 (every dense config served and
-trained), and the first design on ``mma.sync`` at 16, 32 and 112 (Kimi
-K2's head). Float32 runs scalar FMAs. A kernel that fails to build or
-launch raises; nothing falls back on another.
+(Zamba2's shared attention), 112 (Kimi K2) and 128 (every dense config
+served and trained), and the first design on ``mma.sync`` at 16 and 32
+(test shapes, off every main path). Float32 runs scalar FMAs. A kernel
+that fails to build or launch raises; nothing falls back on another.
 
 The kernel wrappers take the model's layout, q (B, Sq, H, hd) and k / v
 (B, Sk, KV, hd), and read it through its strides. For CPU tensors they run

@@ -6,7 +6,8 @@ package's `repro.kernels.flashattn.flash_attention` (its Pallas kernel in
 interpret mode), its pure-jnp `repro.models.layers._chunked_attention`,
 and the port's `kernels.ops.flash_attention`, whose wrapper runs the
 plain version for CPU tensors; at the serving families' head dims (64,
-80) also `flash_attention_plain` / `flash_attention_fwd_plain` against
+80) and Kimi K2's (112) also `flash_attention_plain` /
+`flash_attention_fwd_plain` against
 the reference's serving and lse-emitting Pallas kernels. Tolerances are
 the JAX package's own against its numpy oracle
 (`tests/test_flashattn.py`): 2e-3 relative and absolute in float32,
@@ -94,11 +95,15 @@ def test_flash_cross_attention_shapes(dtype, Sq, Sk, causal):
 # the serving families' head dims on the card's Hopper route: 80
 # (Zamba2's shared attention) at a ragged length, causal and not, and 64
 # (SeamlessM4T) with twice as many queries as keys, not causal (decoder
-# queries over encoder memory), a GQA group of 2
+# queries over encoder memory), a GQA group of 2; then Kimi K2's head dim
+# 112 at its GQA group of 8 (8 heads over 1) with Sq != Sk both ways,
+# causal with more queries than keys and not with fewer
 SERVE_CASES = [
     (1, 77, 77, 2, 2, 80, True, 32, 32),
     (1, 77, 77, 2, 2, 80, False, 32, 32),
     (1, 96, 48, 4, 2, 64, False, 32, 16),
+    (1, 70, 50, 8, 1, 112, True, 32, 32),
+    (1, 50, 70, 8, 1, 112, False, 32, 32),
 ]
 
 

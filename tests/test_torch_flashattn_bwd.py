@@ -6,9 +6,9 @@ JAX first, so both packages see the same values). The port's kernel
 wrappers run their plain versions for CPU tensors. Held to the JAX
 package's Pallas kernels in interpret mode (`flash_attention_fwd_kernel`,
 `flash_attention_bwd_kernel`), at the shapes of `tests/test_flashattn.py`
-(and the backward also at head dim 80, Zamba2's, and at the Hopper
-backward's forms with Sq != Sk at head dims 64 and 80) with their
-tolerances:
+(and the backward also at head dims 80, Zamba2's, and 112, Kimi K2's, and
+at the Hopper backward's forms with Sq != Sk at head dims 64, 80 and 112)
+with their tolerances:
 lse to 1e-4; o to 2e-3 in float32 and 2e-2 in bf16; dq, dk, dv to 1e-3
 in float32 and 2e-2 in bf16 (relative and absolute), where the two sum
 in other orders and round outputs to bf16 at the same points. The
@@ -43,16 +43,26 @@ HD80_CASES = [
     (1, 100, 4, 2, 80, True, 32, 32),
     (1, 100, 4, 2, 80, False, 32, 32),
 ]
-#: the forms the Hopper backward serves at head dims 64 and 80, with Sq !=
-#: Sk: (B, Sq, Sk, H, KV, hd, causal, block_q, block_k): SeamlessM4T's
-#: cross attention (not causal, 2 Sk queries over Sk keys) and its causal
-#: self-attention (4 heads over 4); Zamba2's head dim with ragged tiles
-#: and a GQA group of 2, causal with Sq > Sk and not with Sq < Sk
+#: Kimi K2's head dim (112: seven 16-deep steps, the last three in the
+#: second 64-column box) at its GQA group of 8 (8 heads over 1), causal and
+#: not, ragged S
+HD112_CASES = [
+    (1, 70, 8, 1, 112, True, 32, 32),
+    (1, 70, 8, 1, 112, False, 32, 32),
+]
+#: the forms the Hopper backward serves at head dims 64, 80 and 112, with
+#: Sq != Sk: (B, Sq, Sk, H, KV, hd, causal, block_q, block_k):
+#: SeamlessM4T's cross attention (not causal, 2 Sk queries over Sk keys)
+#: and its causal self-attention (4 heads over 4); Zamba2's head dim with
+#: ragged tiles and a GQA group of 2, and Kimi K2's with its group of 8,
+#: each causal with Sq > Sk and not with Sq < Sk
 HOPPER_FORMS = [
     (1, 64, 32, 2, 2, 64, False, 32, 32),
     (1, 64, 64, 4, 4, 64, True, 32, 32),
     (1, 70, 50, 4, 2, 80, True, 32, 32),
     (1, 50, 70, 4, 2, 80, False, 32, 32),
+    (1, 70, 50, 8, 1, 112, True, 32, 32),
+    (1, 50, 70, 8, 1, 112, False, 32, 32),
 ]
 TOL_O = {"float32": 2e-3, "bfloat16": 2e-2}
 TOL_GRAD = {"float32": 1e-3, "bfloat16": 2e-2}
@@ -137,7 +147,8 @@ def _backward_case(B, Sq, Sk, H, KV, hd, causal, bq, bk, dtype, seed):
         assert torch.equal(_hm(g), w)
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd,causal,bq,bk", CASES + HD80_CASES)
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,bq,bk",
+                         CASES + HD80_CASES + HD112_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_matches_reference(B, S, H, KV, hd, causal, bq, bk, dtype):
     _backward_case(B, S, S, H, KV, hd, causal, bq, bk, dtype, 3 * S + hd)
@@ -147,7 +158,7 @@ def test_backward_matches_reference(B, S, H, KV, hd, causal, bq, bk, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_matches_reference_at_hopper_forms(B, Sq, Sk, H, KV, hd,
                                                     causal, bq, bk, dtype):
-    """Sq != Sk at head dims 64 and 80 (causal positions aligned at 0):
+    """Sq != Sk at head dims 64, 80 and 112 (causal positions aligned at 0):
     the plain backward, which the card's gate trusts, against the
     reference at the forms the Hopper kernels serve."""
     _backward_case(B, Sq, Sk, H, KV, hd, causal, bq, bk, dtype,

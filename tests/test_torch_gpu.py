@@ -835,9 +835,9 @@ def test_moe_serving_on_the_card_matches_the_host(cuda):
 # SeamlessM4T's non-causal head dim 64 with Sq != Sk, and the VLM's
 # cross-attention on the head-dim-128 Hopper kernel (Sk not a multiple of
 # the 128-key tile, a GQA group of 8); then the edges of the Hopper route
-# at head dims 64 and 80: Sk 100 (under one 128-key tile), Sq 130 (a
-# second, nearly empty query tile), a GQA group of 2, and B H = 144 and
-# 160 query heads, more than the card's 132 SMs
+# at head dims 64, 80 and 112: Sk 100 (under one 128-key tile), Sq 130 (a
+# second, nearly empty query tile), GQA groups of 2 and 8 (Kimi K2's), and
+# B H = 144 and 160 query heads, more than the card's 132 SMs
 SERVE_FLASH_CASES = [
     (2, 300, 300, 32, 32, 80, True),
     (2, 300, 300, 32, 32, 80, False),
@@ -848,6 +848,9 @@ SERVE_FLASH_CASES = [
     (9, 130, 100, 16, 8, 64, False),
     (1, 130, 100, 16, 8, 80, True),
     (5, 130, 100, 32, 16, 80, False),
+    (1, 130, 100, 64, 8, 112, True),
+    (9, 130, 100, 16, 2, 112, False),
+    (2, 300, 1000, 32, 16, 112, True),
 ]
 
 
@@ -869,34 +872,44 @@ def test_serving_family_flash_shapes_match_plain(cuda, B, Sq, Sk, H, KV, hd,
     _assert_flash_close(lse, plse, 1e-4)
 
 
-def test_flash_kernel_reads_fused_qkv_at_head_dim_80(cuda):
-    """q, k and v sliced from one fused (B, S, 3, H, 80) projection are
-    strided views (160-byte heads, 480 H-byte rows) that the tensor maps
-    read in place: the output equals the one from contiguous copies, and
-    the plain version's within the gate."""
+@pytest.mark.parametrize("hd", [80, 112])
+def test_flash_kernel_reads_fused_qkv_in_place(cuda, hd):
+    """q, k and v sliced from one fused (B, S, 3, H, hd) projection are
+    strided views (160- or 224-byte heads, 3 H hd-element rows) that the
+    tensor maps read in place: the serving and lse forwards and the
+    backward equal those of contiguous copies, and the output lies within
+    the gate of the plain version's."""
     from repro_torch.kernels import flashattn as F
 
-    B, S, H, hd = 2, 200, 8, 80
+    B, S, H = 2, 200, 8
     g = torch.Generator(device=cuda).manual_seed(21)
     qkv = torch.randn(B, S, 3, H, hd, generator=g, device=cuda).to(
         torch.bfloat16)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous() and q.stride(1) == 3 * H * hd
+    dense = [x.contiguous() for x in (q, k, v)]
+    do = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
     LAUNCHES.clear()
     got = F.flash_attention_kernel(q, k, v)
-    want = F.flash_attention_kernel(*(x.contiguous() for x in (q, k, v)))
+    want = F.flash_attention_kernel(*dense)
+    o, lse = F.flash_attention_fwd_kernel(q, k, v)
+    grads = F.flash_attention_bwd_kernel(q, k, v, o, lse, do)
+    grads_dense = F.flash_attention_bwd_kernel(*dense, o, lse, do)
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_attention"] == 2
-    assert torch.equal(got, want)
+    assert dict(LAUNCHES) == {"flash_attention": 2, "flash_attention_fwd": 1,
+                              "flash_attention_bwd": 2}
+    assert torch.equal(got, want) and torch.equal(o, got)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_dense))
     plain = F.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2))
     _assert_flash_close(got, plain.transpose(1, 2),
                         FLASH_TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("hd,causal", [(64, False), (64, True), (80, True)])
+@pytest.mark.parametrize("hd,causal", [(64, False), (64, True), (80, True),
+                                       (112, True), (112, False)])
 def test_flash_fwd_kernel_is_deterministic(cuda, hd, causal):
-    """The Hopper forward at head dims 64 and 80 gives the same bits over
+    """The Hopper forward at head dims 64, 80 and 112 gives the same bits over
     two runs, serving and lse forward alike (bf16, B H = 144 query heads
     over the card's 132 SMs, ragged Sq and Sk)."""
     from repro_torch.kernels import flashattn as F
@@ -911,7 +924,7 @@ def test_flash_fwd_kernel_is_deterministic(cuda, hd, causal):
     assert torch.equal(lse1, lse2) and torch.equal(o1, first)
 
 
-#: the backward's cases at head dims 64 and 80: Zamba2's shared attention
+#: the backward's cases at head dims 64, 80 and 112: Zamba2's shared attention
 #: (32 heads over 32, 1,000 queries, causal and not), a GQA group of 2,
 #: ragged query tiles, Sq < Sk, B H = 160 query heads (over the card's
 #: 132 SMs), then SeamlessM4T's forms: its cross attention (2 Sk queries
@@ -929,11 +942,11 @@ HOPPER_BWD_CASES = [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 80])
+@pytest.mark.parametrize("hd", [64, 80, 112])
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", HOPPER_BWD_CASES)
-def test_flash_bwd_kernel_at_head_dims_64_and_80_matches_plain(
+def test_flash_bwd_kernel_at_head_dims_64_80_and_112_matches_plain(
         cuda, B, Sq, Sk, H, KV, causal, hd, dtype):
-    """The backward at head dims 64 and 80 (bf16: the Hopper kernels
+    """The backward at head dims 64, 80 and 112 (bf16: the Hopper kernels
     `flash_bwd_dq_sm90_kernel<HD, true>` and `flash_bwd_dkv_sm90_kernel<HD,
     true>`; float32: scalar FMAs) within the gate of the plain backward,
     and bit-identical over two runs."""
@@ -1205,10 +1218,10 @@ def test_training_families_on_the_card(cuda, arch):
 def test_flash_fwd_and_bwd_at_kimi_head_layout(cuda, dtype, B, Sq, Sk,
                                                causal):
     """Head dim 112 at Kimi K2's heads (64 query heads over 8): the lse
-    forward and the backward (the first design's `flash_mma_kernel<112>`
-    and `flash_bwd_{dq,dkv}_mma_kernel<112>` in bf16) against their plain
-    versions, at the training path's causal 4,096 and a ragged
-    non-causal shape."""
+    forward and the backward (in bf16 the Hopper kernels
+    `flash_fwd_sm90_kernel<112>` and `flash_bwd_{dq,dkv}_sm90_kernel<112,
+    true>`; in float32 scalar FMAs) against their plain versions, at the
+    training path's causal 4,096 and a ragged non-causal shape."""
     from repro_torch.kernels import flashattn as F
 
     q, k, v = _qkv(cuda, Sq + Sk, dtype, B, Sq, Sk, 64, 8, 112)
