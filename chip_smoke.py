@@ -230,7 +230,28 @@ Phases; the first failure exits non-zero:
    fresh service resuming there after the last checkpoint is removed,
    both runs' values equal to (a)'s. Each wall is printed beside the
    card's name and power limit.
-   Each of (a)-(p) starts with every launch count at 0 and must launch
+   (q) the mesh-free launch stack, in three parts run where their inputs
+   live: (c), right after (a), builds the plane of (a)'s first plan group
+   with ``lowering.make_plane`` from the catalog's rows and runs it with
+   ``kernels.ops.run_megakernel``, materialized and with
+   ``reduce="popcount"`` under the tail mask, both equal to
+   ``execute_lowered``'s bit for bit and both VM modes launched; (a),
+   after (f)'s numbers, runs (f)'s training under ``remat="dots"``
+   beside "block" from (f)'s seed and weights: the loss equal to
+   "block"'s and every gradient leaf bit-equal, then one cold and two
+   warm steps of "dots" with their walls and peak memory and a profiled
+   warm step (device time by kind, idle share), beside (f)'s; (b),
+   last, counts (e)'s prefill, (f)'s step and (g)'s two prefills on
+   ``meta`` (``plan_for`` -> ``build`` -> ``abstract`` -> ``input_specs``
+   -> ``hlocost.count`` -> ``roofline.analyze`` at one chip) and prints
+   each count, its roofline terms, dominant term, the reference's model
+   FLOPs and the useful FLOPs (``roofline.useful_flops``), the useful
+   ratio and roofline fraction beside the phase's measured warm wall,
+   device time and share of the card's bf16 peak (useful FLOPs over the
+   wall, at most 1); the counts allocate nothing on the
+   card, and the flash FLOPs charged to (f)'s step equal ``flash_cost``
+   over (f)'s launches.
+   Each of (a)-(q) starts with every launch count at 0 and must launch
    each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
@@ -240,7 +261,8 @@ Phases; the first failure exits non-zero:
    hold each to its plain version again (bit for bit, at the main path's
    shapes), time both with CUDA events, and print each kernel's total
    beside its bound (bytes over 3.35 TB/s or int32 operations over the
-   card's integer rate, whichever is larger; for the VM also its design's
+   card's integer rate, whichever is larger, the rates of the card's row
+   of ``repro_torch.hw``; for the VM also its design's
    shared-memory floor, the decoded program's LDS + STS bytes over 128 B a
    clock per SM, and its totals split into launches with and without
    fault masks) and, for the bitwise
@@ -293,15 +315,10 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-#: H100 SXM device-memory rate (NVIDIA data sheet)
-HBM_BYTES_PER_S = 3.35e12
-#: int32 lanes per Hopper SM (4 partitions x 16; Hopper white paper)
-INT32_LANES_PER_SM = 64
-#: shared-memory bytes per clock of one Hopper SM (32 banks x 4 bytes)
-SMEM_BYTES_PER_CLK = 128
-#: H100 SXM dense peaks by operand type (NVIDIA data sheet): bf16 on the
-#: tensor cores, float32 outside them
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+#: the card's peaks: its row of ``repro_torch.hw`` (device-memory rate,
+#: dense bf16 and float32 FLOP/s, int32 lanes and shared-memory bytes a
+#: clock per SM), set by `main` once it has found a card
+CARD = None
 
 KERNELS = {
     "vm_popcount": ("src/repro_torch/csrc/vm.cu",
@@ -422,7 +439,7 @@ def phase_kernels(torch, svc, spec) -> int:
     from repro_torch.apps.bitmap_index import week_or
     from repro_torch.core import lowering
     from repro_torch.kernels import ref, vm
-    from repro_torch.kernels.bittranspose import bit_transpose
+    from repro_torch.kernels.bittranspose import bit_transpose_kernel
 
     rng = np.random.default_rng(1234)
     words = svc.catalog.mask().shape[0]
@@ -487,7 +504,7 @@ def phase_kernels(torch, svc, spec) -> int:
                                  .view(np.int32)).to(svc.device)
         values = store[offset:]
         _compare(f"bit_transpose n={n} n_bits={n_bits} offset={offset}",
-                 bit_transpose(values, n_bits),
+                 bit_transpose_kernel(values, n_bits),
                  ref.bit_transpose(values, n_bits), errs)
         n_cases += 1
     n_cases += _direct_kernel_cases(torch, svc.device, errs)
@@ -665,7 +682,7 @@ def _vote_arith_kernel_cases(torch, device, errs) -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels.arith import (bitserial_add_kernel,
                                            bitserial_lt_kernel)
-    from repro_torch.kernels.bittranspose import bit_transpose
+    from repro_torch.kernels.bittranspose import bit_transpose_kernel
     from repro_torch.kernels.majority import majority_kernel
 
     gen = torch.Generator(device=device).manual_seed(2402)
@@ -704,8 +721,8 @@ def _vote_arith_kernel_cases(torch, device, errs) -> int:
                                    device=device)
             values = torch.where(values >= 1 << 31, values - (1 << 32),
                                  values).to(torch.int32)
-            back = kops.bit_untranspose(bit_transpose(values, n_bits),
-                                        n_bits)
+            back = kops.bit_untranspose(
+                bit_transpose_kernel(values, n_bits), n_bits)
             check(torch.equal(back, values),
                   f"bit_untranspose round trip n_bits={n_bits} "
                   f"groups={groups}")
@@ -937,27 +954,15 @@ def _hm(x):
 
 def _flash_cost(kind: str, q, k, causal: bool):
     """(flops, bytes, bytes ms, ops ms) of one launch of flash kernel
-    ``kind`` on model-layout q (B, Sq, H, hd) and k (B, Sk, KV, hd): the
-    unmasked (query, key) pairs, two products of hd MACs each for a
-    forward (five for the backward: s, dp, dv, dq, dk); q, k, v read and
-    o written (the lse forward also writes the lse; the backward reads
-    q, k, v, o, do and the lse and writes dq, dk, dv); bytes over the
-    card's memory rate, FLOPs over its dense rate for the dtype."""
-    B, Sq, H, hd = q.shape
-    Sk = k.shape[1]
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal \
-        else Sq * Sk
-    es = q.element_size()
-    if kind == "flash_attention_bwd":
-        flops = 10 * B * H * hd * pairs
-        nbytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * Sq
-    else:
-        flops = 4 * B * H * hd * pairs
-        nbytes = es * (2 * q.numel() + 2 * k.numel()) + (
-            4 * B * H * Sq if kind == "flash_attention_fwd" else 0)
-    dtype = str(q.dtype).split(".")[-1]
-    return (flops, nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
-            flops / FLOPS_PER_S[dtype] * 1e3)
+    ``kind`` on model-layout q (B, Sq, H, hd) and k (B, Sk, KV, hd):
+    `kernels.flashattn.flash_cost` (the formula `launch.hlocost` charges
+    too); bytes over the card's memory rate, FLOPs over its dense rate
+    for the dtype."""
+    from repro_torch.kernels.flashattn import flash_cost
+
+    flops, nbytes = flash_cost(kind, q, k, causal)
+    return (flops, nbytes, nbytes / CARD.hbm_bytes_per_s * 1e3,
+            flops / CARD.flops_per_s(q.dtype) * 1e3)
 
 
 def _off_path(dtype: str, hd: int) -> bool:
@@ -1332,10 +1337,11 @@ class Recorder:
         self._key = self._draw = None
         self._largest = self._single = None
         self._restore = [(vm, "vm_megakernel", vm.vm_megakernel),
-                         (bt, "bit_transpose", bt.bit_transpose),
+                         (bt, "bit_transpose_kernel",
+                          bt.bit_transpose_kernel),
                          (errors, "fault_generator", errors.fault_generator),
                          (errors, "error_planes", errors.error_planes)]
-        orig_vm, orig_bt = vm.vm_megakernel, bt.bit_transpose
+        orig_vm, orig_bt = vm.vm_megakernel, bt.bit_transpose_kernel
         orig_gen, orig_planes = errors.fault_generator, errors.error_planes
 
         def gen_rec(key, device):
@@ -1364,7 +1370,7 @@ class Recorder:
             return orig_bt(values, n_bits)
 
         vm.vm_megakernel = vm_rec
-        bt.bit_transpose = bt_rec
+        bt.bit_transpose_kernel = bt_rec
         errors.fault_generator = gen_rec
         errors.error_planes = planes_rec
         import repro_torch.kernels.arith as arith
@@ -2355,6 +2361,12 @@ def phase_train(torch, rec):
           f"the step launched {launches}, not {want}: per layer and "
           f"microbatch the lse forward twice (the forward and the "
           f"checkpointed block's recompute) and the backward once")
+    # the flash FLOPs of every microbatch's launches, which 3q(b)'s count
+    # of the step on meta must charge
+    flash_flops = sum(flashattn.flash_cost(kind, args[0], args[1],
+                                           kw.get("causal", True))[0]
+                      for kind, args, kw, stage in rec.calls
+                      if stage == "train step")
     # (i) the first loss
     ln_v = float(np.log(cfg.padded_vocab))
     check(np.isfinite(losses[0]) and abs(losses[0] - ln_v) < 0.1 * ln_v,
@@ -2482,6 +2494,7 @@ def phase_train(torch, rec):
             "train_err_plain_grad": err_grad[worst_leaf],
             "train_err_plain_grad_leaf": worst_leaf,
             "train_err_accum": err_accum, "train_compressed_s": t_comp,
+            "train_flash_flops": flash_flops,
             "train_compressed_loss": float(cm["loss"]),
             "train_signless_elements": n_signless}
     busy = sum(device.values())
@@ -3828,6 +3841,329 @@ def phase_cluster(torch, spec, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 3q: the mesh-free launch stack
+# ---------------------------------------------------------------------------
+
+#: 3q(a): steps of 3f's training under "dots" (one cold, two warm)
+DOTS_STEPS = 3
+#: the VM modes 3q(c) must launch
+PLANE_KERNELS = ("vm_materialize", "vm_popcount")
+
+
+def phase_plane_helpers(torch, clean, rec):
+    """3q(c): the first plan group of 3a's stream through the VM's named-row
+    helpers: `lowering.make_plane` from the catalog's rows, then
+    `kernels.ops.run_megakernel` with the group's output names and with
+    ``reduce="popcount"`` (the catalog's tail mask), each held bit for bit
+    to `lowering.execute_lowered` on the same rows; `read_rows` of the
+    plane gives back the catalog's rows. Both launches are recorded for
+    phase 4 (stage "plane helpers")."""
+    from repro_torch.core import lowering
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ops import run_megakernel
+
+    t_part = time.perf_counter()
+    svc, queries = clean["svc"], clean["queries"]
+    planner = svc.scheduler.planner
+
+    def key(q):
+        return planner.plan(q.query, columns=svc.catalog.columns,
+                            names=svc.catalog).plan.key
+
+    first = key(queries[0])
+    texts = [q.query for q in queries if key(q) == first]
+    plan, data = _group(svc, texts)
+    lp, outs = plan.lowered, list(plan.outputs)
+    rows = {n: torch.stack(v) for n, v in data.items()}
+    words = svc.catalog.mask().shape[0]
+    plane = lowering.make_plane(lp, rows, words, batch=(len(texts),))
+    check(plane.is_cuda and plane.dtype == torch.int32,
+          f"make_plane gave {plane.dtype} on {plane.device}")
+    back = lowering.read_rows(lp, plane, list(rows))
+    check(all(torch.equal(back[n], rows[n]) for n in rows),
+          "read_rows of the plane differs from the catalog's rows")
+    mask = svc.catalog.mask()
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    rec.stage, rec.only = "plane helpers", {"vm"}
+    t0 = time.perf_counter()
+    got_rows = run_megakernel(lp, plane, outs)
+    got_counts = run_megakernel(lp, plane, outs, reduce="popcount",
+                                mask=mask)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    rec.stage = rec.only = None
+    print(f"[3q-c plane] launches of run_megakernel: {launches}")
+    for name in PLANE_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"run_megakernel never launched {name}")
+    want_rows = lowering.execute_lowered(lp, data, outputs=outs)
+    want_counts = lowering.execute_lowered(lp, data, outputs=outs,
+                                           reduce="popcount", mask=mask)
+    for j, name in enumerate(outs):
+        check(torch.equal(got_rows[j], want_rows[name]),
+              f"run_megakernel row {name} differs from execute_lowered's")
+        check(torch.equal(got_counts[j], want_counts[name]),
+              f"run_megakernel count {name} differs from execute_lowered's")
+    print(f"[3q-c plane] first plan group of 3a's stream: {len(texts)} "
+          f"queries, {lp.n_rows} plane rows x {words} words, "
+          f"{lp.n_cmds} commands, outputs {outs}: make_plane + "
+          f"run_megakernel (materialize, then popcount under the tail "
+          f"mask, {t_run * 1e3:.2f} ms cold) equal execute_lowered bit for "
+          f"bit; read_rows gives back the catalog's rows")
+    t_part = time.perf_counter() - t_part
+    print(f"[3q-c plane] the part took {t_part:.1f} s")
+    return launches, {"plane_group_queries": len(texts),
+                      "plane_rows": lp.n_rows, "plane_cmds": lp.n_cmds,
+                      "plane_part_s": t_part}
+
+
+def phase_remat_dots(torch, block):
+    """3q(a): 3f's training (Qwen3-0.6B at 4,096, global batch 8 in four
+    microbatches, AdamW, 3f's seed and weights) under ``remat="dots"``
+    beside "block": the loss of 3f's first batch and every gradient leaf
+    bit-equal to "block"'s ("dots" changes only what the backward reruns,
+    not what it computes); then one cold and two warm steps of "dots",
+    their walls and peak memory, and one more warm step under the
+    profiler (device kernels only): its device time by kind. "block"'s
+    walls, device time and peak are 3f's (``block``, `phase_train`'s
+    info; its peak less the arguments recorded for phase 4); the idle
+    shares are taken against each policy's unprofiled warm wall."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import build
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    t_part = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    bundles = {r: build(cfg, remat=r) for r in ("block", "dots")}
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=TRAIN_SEED,
+                        device=bundles["block"].device).batch(0)
+    gen = torch.Generator(device=bundles["block"].device).manual_seed(
+        TRAIN_SEED)
+    params = bundles["block"].init(gen)
+    loss_b, _, g_b = loss_and_grads(bundles["block"], params, batch,
+                                    TRAIN_ACCUM)
+    loss_d, _, g_d = loss_and_grads(bundles["dots"], params, batch,
+                                    TRAIN_ACCUM)
+    check(float(loss_d) == float(loss_b), f"remat 'dots' loss "
+          f"{float(loss_d)!r} != 'block' loss {float(loss_b)!r}")
+    err = {n: _rel_rms(g_d[n], g_b[n]) for n in g_b}
+    worst = max(err, key=err.get)
+    unequal = [n for n in g_b if not torch.equal(g_d[n], g_b[n])]
+    check(not unequal, f"remat 'dots' gradients differ from 'block''s on "
+          f"{len(unequal)} of {len(err)} leaves (first {unequal[:3]}; "
+          f"worst {worst}, RMS difference {err[worst]:.3g} of 'block''s)")
+    del g_b, g_d
+    opt = adamw(warmup_cosine(*TRAIN_LR))
+    state = opt.init(params)
+    step_fn = make_train_step(bundles["dots"], opt, grad_accum=TRAIN_ACCUM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    walls, losses = [], []
+    for i in range(DOTS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, i, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step_fn(params, state, DOTS_STEPS, batch)
+        torch.cuda.synchronize()
+    device, events = _device_ms_by_kind(prof, backward=True)
+    del prof, params, state, opt, step_fn
+    torch.cuda.empty_cache()
+    print(f"[3q-a dots] launches in {DOTS_STEPS} 'dots' steps: {launches}")
+    n_micro = TRAIN_ACCUM * cfg.n_layers
+    want = {"flash_attention_fwd": 2 * n_micro * DOTS_STEPS,
+            "flash_attention_bwd": n_micro * DOTS_STEPS}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"the 'dots' steps launched {launches}, not {want}: the flash "
+          f"forward is recomputed as under 'block'")
+    check(losses[0] == float(loss_b), f"the first 'dots' step's loss "
+          f"{losses[0]!r} != 'block''s {float(loss_b)!r}")
+    runs = {"block": {"walls_s": [block["train_cold_s"]]
+                      + block["train_warm_steps_s"],
+                      "warm_s": block["train_warm_s"],
+                      "losses": block["train_losses"],
+                      "peak_bytes": block["train_peak_device_bytes"]
+                      - block["train_recorded_bytes"],
+                      "device_ms": block["train_device_ms"],
+                      "device_events": block["train_device_events"]},
+            "dots": {"walls_s": walls, "warm_s": float(np.mean(walls[1:])),
+                     "losses": losses, "peak_bytes": peak,
+                     "device_ms": device, "device_events": events}}
+    for remat, r in runs.items():
+        busy = sum(r["device_ms"].values())
+        warm_ms = r["warm_s"] * 1e3
+        r["idle_share"] = 1 - busy / warm_ms if busy else None
+        print(f"[3q-a dots] remat {remat!r}"
+              + (" (3f's run)" if remat == "block" else "")
+              + f": step ms cold {r['walls_s'][0] * 1e3:.1f}, warm "
+              + ", ".join(f"{w * 1e3:.1f}" for w in r["walls_s"][1:])
+              + f" (mean {warm_ms:.1f}); peak device memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; losses "
+              + ", ".join(f"{x:.4f}" for x in r["losses"][:DOTS_STEPS]))
+        print(f"[3q-a dots] remat {remat!r}: a profiled warm step's device "
+              + (f"time {busy:.1f} ms over {r['device_events']} kernels "
+                 f"and copies (" + ", ".join(f"{k} {v:.1f}" for k, v in
+                                             r["device_ms"].items())
+                 + f"), idle {r['idle_share']:.1%} of the mean warm wall; "
+                 f"host beyond the device {warm_ms - busy:.1f} ms"
+                 if busy else "time not measured (the profiler saw no "
+                 "device events)"))
+    busy = {k: sum(r["device_ms"].values()) for k, r in runs.items()}
+    gap = (runs["dots"]["warm_s"] - runs["block"]["warm_s"]) * 1e3
+    if busy["block"] and busy["dots"]:
+        print(f"[3q-a dots] 'dots' - 'block': mean warm wall {gap:+.1f} ms, "
+              f"device {busy['dots'] - busy['block']:+.1f} ms, host beyond "
+              f"the device {gap - (busy['dots'] - busy['block']):+.1f} ms")
+    t_part = time.perf_counter() - t_part
+    print(f"[3q-a dots] loss {float(loss_d):.6f} and all {len(err)} "
+          f"gradient leaves bit-equal to 'block''s (largest RMS "
+          f"difference {err[worst]:.3g}); the part took {t_part:.1f} s")
+    return launches, {"dots_runs": runs, "dots_err_grad": err[worst],
+                      "dots_err_grad_leaf": worst,
+                      "dots_equal_leaves": len(err) - len(unequal),
+                      "dots_part_s": t_part}
+
+
+def _count_cell(cfg, shape, overrides=None):
+    """3q(b)'s chain for one cell: `plan_for` -> ``build(remat=
+    plan.remat)`` -> ``abstract`` -> `input_specs` -> `hlocost.count` of
+    the step on meta -> `roofline.analyze` at one chip."""
+    import dataclasses
+
+    from repro_torch.launch import hlocost, roofline
+    from repro_torch.launch.plans import plan_for
+    from repro_torch.models import build, input_specs
+    from repro_torch.optim import get_optimizer, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    plan = plan_for(cfg, shape, overrides)
+    accum = plan.grad_accum
+    while accum > 1 and shape.global_batch % accum:
+        accum //= 2
+    plan = dataclasses.replace(plan, grad_accum=accum)
+    bundle = build(cfg, remat=plan.remat)
+    params, _ = bundle.abstract()
+    batch = input_specs(cfg, shape)
+    if shape.kind == "train":
+        opt = get_optimizer(plan.optimizer, warmup_cosine(*TRAIN_LR))
+        state = opt.init(params)
+        cost = hlocost.count(make_train_step(bundle, opt,
+                                             grad_accum=plan.grad_accum),
+                             params, state, 0, batch)
+        held = hlocost.tensor_bytes(params, state, batch)
+    else:
+        cost = hlocost.count(bundle.prefill, params, batch)
+        held = hlocost.tensor_bytes(params, batch)
+    return plan, cost, roofline.analyze(cost, cfg, shape, "1", 1, plan.arch,
+                                        bytes_per_device=held, card=CARD)
+
+
+def phase_roofline(torch, info):
+    """3q(b): 3e's prefill, 3f's training step and 3g's two prefills
+    counted on meta and priced against the card's peaks, beside each
+    phase's measured warm wall and device time and the measured share of
+    the card's bf16 peak, ``useful_flops / (wall x peak)``. The
+    reference's ``model_flops`` (2 N D, 6 N D) is printed and kept under
+    its own key; the useful ratio, the roofline fraction and the share
+    are taken on `roofline.useful_flops`, which leaves out the token
+    table's lookup and a prefill's head at all but the last position
+    (2 N D charges both and passes 1 on 3g's 2-layer prefills). The
+    count allocates nothing on the card, and the flash FLOPs it charges
+    3f's step equal `flash_cost` summed over 3f's launches."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch.roofline import useful_flops
+
+    t_part = time.perf_counter()
+    cells = [("3e", get_config(LM_ARCH),
+              ShapeConfig("3e prefill", LM_PROMPT, LM_BATCH, "prefill"),
+              None, info["lm_warm_ms"]["prefill"] / 1e3,
+              info["lm_device_ms"]["prefill"]),
+             ("3f", get_config(TRAIN_ARCH),
+              ShapeConfig("3f train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+              {"grad_accum": TRAIN_ACCUM}, info["train_warm_s"],
+              info["train_device_ms"])]
+    for arch, n_layers, _ in MOE_PHASES:
+        tag = f"moe_{arch.split('_')[0]}_"
+        cells.append((f"3g {arch.split('_')[0]}", dataclasses.replace(
+            get_config(arch), n_layers=n_layers),
+            ShapeConfig("3g prefill", LM_PROMPT, LM_BATCH, "prefill"), None,
+            info[tag + "warm_prefill_s"], info[tag + "prefill_device_ms"]))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = {}
+    for tag, cfg, shape, over, wall, device in cells:
+        t0 = time.perf_counter()
+        plan, cost, r = _count_cell(cfg, shape, over)
+        t_count = time.perf_counter() - t0
+        check(torch.cuda.memory_allocated() == before,
+              f"counting {tag} allocated "
+              f"{torch.cuda.memory_allocated() - before} bytes on the card")
+        d = r.to_dict()
+        useful = useful_flops(cfg, shape)
+        u = dataclasses.replace(r, model_flops_=useful)
+        d.update(useful_flops=useful, useful_flops_ratio=u.useful_ratio,
+                 roofline_fraction=u.roofline_fraction)
+        busy = sum(device.values())
+        share = useful / (wall * CARD.bf16_flops_per_s)
+        counted_share = d["hlo_flops"] / (wall * CARD.bf16_flops_per_s)
+        check(0 < share <= 1 and 0 < d["useful_flops_ratio"] <= 1,
+              f"{tag}: useful FLOPs {useful:.4e} read {share:.4f} of the "
+              f"peak and {d['useful_flops_ratio']:.4f} of the count")
+        if tag == "3f":
+            charged = sum(cost.kernel_flops.values())
+            check(charged == info["train_flash_flops"],
+                  f"the count charges 3f's step {charged:.6e} flash FLOPs, "
+                  f"its launches {info['train_flash_flops']:.6e}")
+        print(f"[3q-b roofline] {tag}: {cfg.name} ({cfg.n_layers} layers) "
+              f"{shape.kind} {shape.global_batch} x {shape.seq_len}, plan "
+              f"{plan.optimizer} / accum {plan.grad_accum} / remat "
+              f"{plan.remat}; counted on meta in {t_count:.1f} s: "
+              f"{d['hlo_flops']:.4e} FLOP, {d['hlo_bytes']:.4e} B, dot "
+              f"{d['dot_bytes']:.4e} B, held {d['bytes_per_device']:.4e} B; "
+              f"terms compute {d['t_compute_s'] * 1e3:.2f} ms, memory "
+              f"{d['t_memory_s'] * 1e3:.2f} ms (floor "
+              f"{d['t_memory_floor_s'] * 1e3:.2f}), collective "
+              f"{d['t_collective_s'] * 1e3:.2f} ms, dominant "
+              f"{d['dominant']}; model FLOPs (the reference's 2 N D / "
+              f"6 N D) {d['model_flops']:.4e}, useful FLOPs (no table "
+              f"lookup, a prefill's head at the last position) "
+              f"{useful:.4e}: useful ratio {d['useful_flops_ratio']:.4f}, "
+              f"roofline fraction {d['roofline_fraction']:.4f}")
+        print(f"[3q-b roofline] {tag}: measured warm wall "
+              f"{wall * 1e3:.2f} ms, device {busy:.2f} ms (torch.profiler)"
+              f"; useful FLOPs / (wall x {CARD.bf16_flops_per_s:.3g} "
+              f"FLOP/s) = {share:.4f} of the card's bf16 peak (counted "
+              f"FLOPs: {counted_share:.4f})"
+              + (f"; flash FLOPs charged {charged:.6e} = flash_cost over "
+                 f"3f's launches" if tag == "3f" else ""))
+        out[tag] = {**d, "measured_wall_s": wall, "measured_device_ms": busy,
+                    "measured_peak_share": share,
+                    "counted_peak_share": counted_share, "count_s": t_count,
+                    "kernel_flops": cost.kernel_flops}
+    t_part = time.perf_counter() - t_part
+    print(f"[3q-b roofline] the counts left the card's allocated memory at "
+          f"{before} bytes; the part took {t_part:.1f} s")
+    return {}, {"roofline": out, "roofline_part_s": t_part}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: numbers
 # ---------------------------------------------------------------------------
 
@@ -3882,7 +4218,7 @@ def _vm_bound(args, kw, int_rate: float):
     # word; count mode adds an AND and a popcount per output word
     ops = table.shape[0] * batch * words \
         + (2 * batch * n_out * words if counting else 0)
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / int_rate * 1e3
+    return nbytes / CARD.hbm_bytes_per_s * 1e3, ops / int_rate * 1e3
 
 
 def _library_call(torch, op):
@@ -3901,7 +4237,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
     from repro_torch.kernels import (arith, bittranspose, bitweaving,
                                      bitwise, flashattn, majority, popcount,
                                      ref, signpack, vm)
-    from repro_torch.kernels.bittranspose import bit_transpose
+    from repro_torch.kernels.bittranspose import bit_transpose_kernel
 
     lib_ms = lib_out = None
     if kind == "vm":
@@ -3927,7 +4263,8 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
                           kw["n_rows"], kw.get("first_row", 0),
                           plane.shape[1], kw.get("errors") is not None,
                           masked, plane.device)
-        smem_rate = SMEM_BYTES_PER_CLK * int_rate / INT32_LANES_PER_SM
+        smem_rate = CARD.smem_bytes_per_clk * int_rate \
+            / CARD.int32_lanes_per_sm
         shape.update(
             block=[prog.threads, prog.words],
             run_cmds=len(prog.dec.cmds),
@@ -3942,11 +4279,11 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         name = "bit_transpose"
         values, n_bits = args
         got, k_ms, c_ms = _time_ms(
-            torch, lambda: bit_transpose(values, n_bits), 10, clock_hz)
+            torch, lambda: bit_transpose_kernel(values, n_bits), 10, clock_hz)
         want, p_ms, _ = _time_ms(
             torch, lambda: ref.bit_transpose(values, n_bits), 2, clock_hz)
         n = values.numel()
-        b_ms = 4 * (n + n_bits * (n // 32)) / HBM_BYTES_PER_S * 1e3
+        b_ms = 4 * (n + n_bits * (n // 32)) / CARD.hbm_bytes_per_s * 1e3
         o_ms = n * n_bits / int_rate * 1e3    # one bit test per plane
         shape = {"values": n, "n_bits": n_bits}
     elif kind in ("bitwise", "bitwise_banked"):
@@ -3964,7 +4301,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
                                           clock_hz)
         words = operands[0].numel()
         # each operand read once, the result written once; one LOP3 a word
-        b_ms = 4 * (len(operands) + 1) * words / HBM_BYTES_PER_S * 1e3
+        b_ms = 4 * (len(operands) + 1) * words / CARD.hbm_bytes_per_s * 1e3
         o_ms = words / int_rate * 1e3
         shape = {"op": op, "shape": list(operands[0].shape), "words": words}
     elif kind == "popcount":
@@ -3975,7 +4312,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         want, p_ms, _ = _time_ms(torch, lambda: ref.popcount(words), 2,
                                  clock_hz)
         n = words.numel()
-        b_ms = (4 * n + 8) / HBM_BYTES_PER_S * 1e3
+        b_ms = (4 * n + 8) / CARD.hbm_bytes_per_s * 1e3
         o_ms = 2 * n / int_rate * 1e3          # a POPC and an add a word
         shape = {"shape": list(words.shape), "words": n}
     elif kind == "majority":
@@ -3989,7 +4326,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         n_planes = max(1, k.bit_length())
         # k planes read once, the result written once; per word k ripple
         # adds into the counter (two ops a counter plane) and the compare
-        b_ms = 4 * (k + 1) * words / HBM_BYTES_PER_S * 1e3
+        b_ms = 4 * (k + 1) * words / CARD.hbm_bytes_per_s * 1e3
         o_ms = (2 * k + 3) * n_planes * words / int_rate * 1e3
         # the copy `core.errors.vote_outputs` makes before the launch:
         # the k replicas' output planes stacked into one (k, rows, W)
@@ -4007,7 +4344,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         n_bits, words = a.shape[0], a[0].numel()
         # two planes read and one written per bit; a full adder (two XOR,
         # one majority) and the complement per bit
-        b_ms = 4 * 3 * n_bits * words / HBM_BYTES_PER_S * 1e3
+        b_ms = 4 * 3 * n_bits * words / CARD.hbm_bytes_per_s * 1e3
         o_ms = 4 * n_bits * words / int_rate * 1e3
         shape = {"n_bits": n_bits, "shape": list(a.shape[1:]), "sub": sub}
     elif kind == "bitserial_lt":
@@ -4020,7 +4357,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         n_bits, words = a.shape[0], a[0].numel()
         # two planes read per bit, one result word written; the lt / eq
         # update is two three-input ops per bit
-        b_ms = 4 * (2 * n_bits + 1) * words / HBM_BYTES_PER_S * 1e3
+        b_ms = 4 * (2 * n_bits + 1) * words / CARD.hbm_bytes_per_s * 1e3
         o_ms = 2 * n_bits * words / int_rate * 1e3
         shape = {"n_bits": n_bits, "shape": list(a.shape[1:])}
     elif kind == "bit_untranspose":
@@ -4035,7 +4372,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         n = 32 * g
         # each of the n_bits plane words read once and each value written
         # once; one bit test per plane per value
-        b_ms = 4 * (n_bits + 32) * g / HBM_BYTES_PER_S * 1e3
+        b_ms = 4 * (n_bits + 32) * g / CARD.hbm_bytes_per_s * 1e3
         o_ms = n_bits * n / int_rate * 1e3
         shape = {"values": n, "n_bits": n_bits}
     elif kind == "flash_attention":
@@ -4133,7 +4470,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
             got, want = got.view(itype), want.view(itype)
         # every lane read (written) once, one word per 32 lanes written
         # (read); one sign test or select per lane
-        b_ms = (lane_bytes * lanes + 4 * lanes // 32) / HBM_BYTES_PER_S \
+        b_ms = (lane_bytes * lanes + 4 * lanes // 32) / CARD.hbm_bytes_per_s \
             * 1e3
         o_ms = lanes / int_rate * 1e3
         shape = {"lanes": lanes, "lane_bytes": lane_bytes}
@@ -4149,7 +4486,7 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         g = planes.shape[1]
         # n_bits planes read once, one result word per 32 values written;
         # four logic ops per plane word (two per bound)
-        b_ms = 4 * (n_bits + 1) * g / HBM_BYTES_PER_S * 1e3
+        b_ms = 4 * (n_bits + 1) * g / CARD.hbm_bytes_per_s * 1e3
         o_ms = 4 * n_bits * g / int_rate * 1e3
         shape = {"n_bits": n_bits, "planes": planes.shape[0], "words": g,
                  "c1": c1, "c2": c2}
@@ -4515,6 +4852,7 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import hw
     from repro_torch.kernels import _build
     from repro_torch.service import WorkloadSpec, build_service
 
@@ -4522,7 +4860,10 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
     props = torch.cuda.get_device_properties(0)
     max_mhz = float(nvidia_smi("clocks.max.sm", units=False))
-    int_rate = INT32_LANES_PER_SM * props.multi_processor_count * max_mhz * 1e6
+    global CARD
+    CARD = hw.current()
+    int_rate = CARD.int32_lanes_per_sm * props.multi_processor_count \
+        * max_mhz * 1e6
     print(f"[device] {torch.cuda.get_device_name(0)}: "
           f"{props.multi_processor_count} SMs, max SM clock {max_mhz:.0f} "
           f"MHz -> int32 rate {int_rate / 1e12:.2f} Top/s; torch "
@@ -4548,7 +4889,8 @@ def main() -> int:
         rec = Recorder()
         try:
             launches, slice_info, clean = phase_slice(torch, spec, rec)
-            later = [phase_direct(torch, rec),
+            later = [phase_plane_helpers(torch, clean, rec),
+                     phase_direct(torch, rec),
                      phase_reliability(torch, clean, rec),
                      phase_arith(torch, rec)]
             ref3a = {k: clean[k] for k in ("queries", "mat", "scalars",
@@ -4562,10 +4904,11 @@ def main() -> int:
             rec.drop()
             later.append(phase_train(torch, rec))
             # phase 4 for 3f, which frees its recorded arguments before
-            # the MoE model takes 37 GB of the card
+            # 3q(a) and the MoE model takes 37 GB of the card
             phase_numbers(torch, rec.calls, numbers, int_rate,
                           max_mhz * 1e6)
             rec.drop()
+            later.append(phase_remat_dots(torch, later[-1][1]))
             for spec in MOE_PHASES:
                 later.append(phase_moe(torch, rec, *spec))
             later.append(phase_paper(torch, rec))
@@ -4596,6 +4939,7 @@ def main() -> int:
             slice_info.update(info)
             for name, n in counts.items():
                 launches[name] = launches.get(name, 0) + n
+        slice_info.update(phase_roofline(torch, slice_info)[1])
         rows = kernel_rows(numbers, launches)
     except SmokeFailure as e:
         print(f"[fail] {e}", file=sys.stderr)

@@ -283,6 +283,42 @@ def _layout(lp: LoweredProgram, data_names: Tuple[str, ...],
     return layout
 
 
+# ---------------------------------------------------------------------------
+# Plane tensor construction / readout
+# ---------------------------------------------------------------------------
+
+
+def make_plane(lp: LoweredProgram, data: Optional[Dict[str, object]],
+               row_words: int, batch: Tuple[int, ...] = (),
+               device=None) -> torch.Tensor:
+    """Build the ``(n_rows,) + batch + (row_words,)`` int32 plane tensor
+    (the reference's uint32 bit patterns).
+
+    C1 is pre-initialized to all-ones (paper §3.5); every other row not
+    present in ``data`` starts zero, matching `engine.Subarray.create`.
+    Each row of ``data`` broadcasts to ``batch + (row_words,)``. The plane
+    lies on the rows' device (`_device.operand_device`: host arrays go to
+    ``device``, default ``"cuda"``).
+    """
+    from repro_torch._device import operand_device
+
+    data = data or {}
+    dev = operand_device(list(data.values()), device)
+    shape = tuple(batch) + (row_words,)
+    plane = torch.zeros((lp.n_rows,) + shape, dtype=WORD_DTYPE, device=dev)
+    plane[C1_IDX] = -1
+    for i, name in enumerate(lp.row_names):
+        if name in data:
+            plane[i] = as_words(data[name], dev).expand(shape)
+    return plane
+
+
+def read_rows(lp: LoweredProgram, plane: torch.Tensor,
+              names: List[str]) -> Dict[str, torch.Tensor]:
+    """The named rows of a ``(n_rows, ...)`` plane (views)."""
+    return {n: plane[lp.row_index(n)] for n in names}
+
+
 def weight_counts(counts: torch.Tensor) -> torch.Tensor:
     """``sum_j 2**j * counts[j]`` over the leading plane axis, in float32.
 

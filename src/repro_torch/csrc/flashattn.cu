@@ -12,7 +12,8 @@
 // flashattn.py::flash_attention_plain and flash_attention_fwd_plain. One
 // kernel serves both: the lse pointer is null for the serving path.
 //
-// What bounds it on this card: operations. At the serving path's prefill
+// What bounds it on this card: operations (the H100 SXM's peaks, as
+// src/repro_torch/hw.py holds them). At the serving path's prefill
 // (B = 8, H = 16, KV = 8, S = 2048, hd = 128, causal, bf16) the two
 // products are 4 B H hd S (S + 1) / 2 = 1.37e11 FLOP, 0.139 ms at 989
 // TFLOP/s (dense bf16), against q + k + v + o = 201 MB, 0.060 ms at 3.35

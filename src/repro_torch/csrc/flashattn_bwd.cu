@@ -10,7 +10,8 @@
 // flash_attention in every training layer's backward. Plain version:
 // src/repro_torch/kernels/flashattn.py::flash_attention_bwd_plain.
 //
-// What bounds it on this card: operations. At the training path's shape
+// What bounds it on this card: operations (the H100 SXM's peaks, as
+// src/repro_torch/hw.py holds them). At the training path's shape
 // (microbatch B = 2, H = 16, KV = 8, S = 4096, hd = 128, causal, bf16) the
 // five products over the unmasked pairs are 10 B H hd S (S + 1) / 2 =
 // 3.4e11 FLOP, 0.348 ms at 989 TFLOP/s, against q, k, v, o, do, lse, dq,

@@ -1,15 +1,16 @@
 """32x32 bit transpose: horizontal values <-> BitWeaving-V planes.
 
 Port of the Pallas `repro.kernels.bittranspose.bit_transpose_kernel` and
-`bit_untranspose_kernel`. `bit_transpose` launches ``csrc/bittranspose.cu``
-(a register butterfly per group of 32 values, staged through a shared
-tile) for a CUDA tensor and runs the plain version,
-`kernels.ref.bit_transpose`, for a CPU tensor. Only the
+`bit_untranspose_kernel`, under the same names. `bit_transpose_kernel`
+launches ``csrc/bittranspose.cu`` (a register butterfly per group of 32
+values, staged through a shared tile) for a CUDA tensor and runs the plain
+version, `kernels.ref.bit_transpose`, for a CPU tensor. Only the
 ``n_bits`` requested planes are computed — the same function as the
-reference's 32-plane transpose sliced to ``n_bits``. `bit_untranspose_kernel`
-is the inverse (a register butterfly per group; plain version
-`kernels.ref.bit_untranspose`); it reads only the ``b <= 32`` planes it is
-given, the rest reading as zero, where the reference pads to 32.
+reference's 32-plane transpose sliced to ``n_bits``.
+`bit_untranspose_kernel` is the inverse (a register butterfly per group;
+plain version `kernels.ref.bit_untranspose`); it reads only the ``b <=
+32`` planes it is given, the rest reading as zero, where the reference
+pads to 32.
 
 Convention (LSB-first): out[w, g] bit i == bit w of values[g*32 + i].
 """
@@ -38,12 +39,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def bit_transpose(values: torch.Tensor, n_bits: int) -> torch.Tensor:
+def bit_transpose_kernel(values: torch.Tensor, n_bits: int) -> torch.Tensor:
     """values: (n,) int32 words, n % 32 == 0 -> planes (n_bits, n // 32)."""
     if values.device.type == "cpu":
         return bit_transpose_plain(values, n_bits)
     if values.device.type != "cuda":
-        raise ValueError(f"bit_transpose runs on cuda or cpu, not "
+        raise ValueError(f"bit_transpose_kernel runs on cuda or cpu, not "
                          f"{values.device}")
     if values.dtype != torch.int32 or values.dim() != 1:
         raise ValueError(f"values must be (n,) int32, got "

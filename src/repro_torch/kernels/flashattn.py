@@ -22,15 +22,17 @@ served and trained), and the first design on ``mma.sync`` at 16 and 32
 that fails to build or launch raises; nothing falls back on another.
 
 The kernel wrappers take the model's layout, q (B, Sq, H, hd) and k / v
-(B, Sk, KV, hd), and read it through its strides. For CPU tensors they run
-the plain versions, `flash_attention_plain`, `flash_attention_fwd_plain`
-and `flash_attention_bwd_plain`, which keep the reference kernels'
-head-major layout and blocking: ``block_q`` x ``block_k`` tiles, the tiles
-above the diagonal skipped when causal, float32 scores and softmax state;
-the forward rounds ``p`` to v's dtype before the PV product, the backward
-stays in float32 throughout. The CUDA kernels' tiles are fixed by the card
-(64 to 128 rows), so ``block_q`` / ``block_k`` shape only the plain
-versions.
+(B, Sk, KV, hd), and read it through its strides. For ``meta`` tensors,
+under `launch.hlocost.count` only, they return empty outputs of the
+kernel's shapes and charge the count the launch's `flash_cost`. For CPU
+tensors they run the plain versions, `flash_attention_plain`,
+`flash_attention_fwd_plain` and `flash_attention_bwd_plain`, which keep
+the reference kernels' head-major layout and blocking: ``block_q`` x
+``block_k`` tiles, the tiles above the diagonal skipped when causal,
+float32 scores and softmax state; the forward rounds ``p`` to v's dtype
+before the PV product, the backward stays in float32 throughout. The CUDA
+kernels' tiles are fixed by the card (64 to 128 rows), so ``block_q`` /
+``block_k`` shape only the plain versions.
 """
 from __future__ import annotations
 
@@ -98,6 +100,47 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash attention needs at least one query and key")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k and v lie on different devices")
+
+
+def flash_cost(kind: str, q: torch.Tensor, k: torch.Tensor,
+               causal: bool) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one launch of flash kernel ``kind``
+    ("flash_attention", "flash_attention_fwd" or "flash_attention_bwd")
+    on model-layout q (B, Sq, H, hd) and k (B, Sk, KV, hd), from their
+    shapes alone: the unmasked (query, key) pairs (causal: query i sees
+    keys 0..i), two products of hd MACs each for a forward (five for the
+    backward: s, dp, dv, dq, dk); q, k, v read and o written (the lse
+    forward also writes the float32 lse; the backward reads q, k, v, o,
+    do and the lse and writes dq, dk, dv). The kernels' bounds and
+    `launch.hlocost`'s count both take it."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    n = min(Sq, Sk)
+    pairs = n * (n + 1) // 2 + (Sq - n) * Sk if causal else Sq * Sk
+    es = q.element_size()
+    if kind == "flash_attention_bwd":
+        flops = 10 * B * H * hd * pairs
+        nbytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * B * H * Sq
+    else:
+        flops = 4 * B * H * hd * pairs
+        nbytes = es * (2 * q.numel() + 2 * k.numel()) + (
+            4 * B * H * Sq if kind == "flash_attention_fwd" else 0)
+    return flops, nbytes
+
+
+def _charge_meta(kind: str, q: torch.Tensor, k: torch.Tensor,
+                 causal: bool) -> None:
+    """Charge one launch of ``kind`` on ``meta`` tensors to the innermost
+    active count (a `launch.hlocost` dispatch mode); raise outside one: a
+    ``meta`` call never runs a plain version."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "charge_kernel"):
+            mode.charge_kernel(kind, *flash_cost(kind, q, k, causal))
+            return
+    raise ValueError(f"{kind} takes meta tensors only under "
+                     "launch.hlocost.count")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -290,6 +333,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_plain(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
             block_q, block_k).transpose(1, 2)
+    if q.device.type == "meta":
+        _charge_meta("flash_attention", q, k, causal)
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _on_card("flash_attention_kernel", q)
     out = _launch_fwd(q, k, v, causal, None)
     LAUNCHES["flash_attention"] += 1
@@ -309,6 +355,11 @@ def flash_attention_fwd_kernel(q: torch.Tensor, k: torch.Tensor,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
             block_q, block_k)
         return out.transpose(1, 2), lse
+    if q.device.type == "meta":
+        _charge_meta("flash_attention_fwd", q, k, causal)
+        return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+                torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                            dtype=torch.float32, device=q.device))
     _on_card("flash_attention_fwd_kernel", q)
     B, Sq, H, _ = q.shape
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -348,10 +399,22 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
             *(x.transpose(1, 2) for x in (q, k, v, o)), lse,
             do.transpose(1, 2), causal, block_q, block_k)
         return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    if q.device.type == "meta":
+        _delta(o, do)                   # the card's one PyTorch reduction
+        _charge_meta("flash_attention_bwd", q, k, causal)
+        return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+                torch.empty(k.shape, dtype=k.dtype, device=q.device),
+                torch.empty(k.shape, dtype=k.dtype, device=q.device))
     _on_card("flash_attention_bwd_kernel", q, BWD_HEAD_DIMS)
     grads = _launch_bwd(q, k, v, o, lse, do, causal)
     LAUNCHES["flash_attention_bwd"] += 1
     return grads
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``rowsum(o do)`` (B, H, Sq) float32, contiguous: float32 products
+    (do is promoted inside the multiply, not copied)."""
+    return (o.float() * do).sum(-1).transpose(1, 2).contiguous()
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal: bool, split: bool = True):
@@ -361,8 +424,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, split: bool = True):
     measure what the split costs, and the port never passes it."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    # float32 products (do is promoted inside the multiply, not copied)
-    delta = (o.float() * do).sum(-1).transpose(1, 2).contiguous()
+    delta = _delta(o, do)
     q, k, v, do = (_readable(x) for x in (q, k, v, do))
     lse = lse.contiguous()
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)

@@ -24,6 +24,7 @@ from repro_torch.kernels import flashattn as _flashattn
 from repro_torch.kernels import majority as _majority
 from repro_torch.kernels import popcount as _popcount
 from repro_torch.kernels import signpack as _signpack
+from repro_torch.kernels.vm import run_megakernel, vm_megakernel  # noqa: F401
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +79,7 @@ def popcount(words: torch.Tensor) -> torch.Tensor:
 
 def bit_transpose(values: torch.Tensor, n_bits: int) -> torch.Tensor:
     """(n,) int32 -> (n_bits, n//32) vertical planes (LSB-first order)."""
-    return bittranspose.bit_transpose(values, n_bits)
+    return bittranspose.bit_transpose_kernel(values, n_bits)
 
 
 def bit_untranspose(planes: torch.Tensor, n_bits: int) -> torch.Tensor:

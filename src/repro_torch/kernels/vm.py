@@ -438,3 +438,42 @@ def vm_megakernel(table: np.ndarray, plane: torch.Tensor, out_idx: Sequence[int]
     _build.check(lib, rc, "vm_launch")
     LAUNCHES["vm_materialize" if reduce is None else "vm_popcount"] += 1
     return out
+
+
+def run_megakernel(lp, plane: torch.Tensor, outputs: Sequence[str],
+                   errors=None, reduce: Optional[str] = None,
+                   mask=None) -> torch.Tensor:
+    """Named-row convenience over `vm_megakernel`, as the reference's.
+
+    ``lp`` is a `core.lowering.LoweredProgram` and ``plane`` its
+    ``(n_rows, *batch, W)`` plane (`core.lowering.make_plane`); the
+    ``outputs`` rows come back as ``(len(outputs), *batch, W)`` rows, or
+    with ``reduce="popcount"`` as ``(len(outputs), *batch)`` int32 counts,
+    or with ``reduce="aggregate"`` as their ``batch``-shaped float32
+    weighted sum (`core.lowering.weight_counts`). ``errors`` (``(n_cmds,
+    4[, *batch], W)`` fault masks) and ``mask`` (a per-word mask of the
+    counted rows) pass through. The kernel picks its own block shape, so
+    the reference's ``block_cols`` (a TPU tile width) has no counterpart.
+    """
+    from repro_torch.core.lowering import (_flat_errors, _flat_mask,
+                                           weight_counts)
+
+    if reduce not in REDUCE_MODES + ("aggregate",):
+        raise ValueError(f"unknown reduce mode {reduce!r}")
+    if mask is not None and reduce is None:
+        raise ValueError("mask= is only meaningful with a reduce mode")
+    out_idx = tuple(lp.row_index(o) for o in outputs)
+    n_rows, words = plane.shape[0], plane.shape[-1]
+    batch = tuple(plane.shape[1:-1])
+    flat = plane.movedim(0, -2).reshape(-1, n_rows, words)
+    out = vm_megakernel(
+        lp.table, flat, out_idx, n_rows=n_rows, first_row=0,
+        errors=(None if errors is None else _flat_errors(
+            errors, lp.n_cmds, batch, words, plane.device)),
+        reduce=None if reduce is None else "popcount",
+        mask=(None if mask is None else _flat_mask(mask, batch, words,
+                                                   plane.device)))
+    if reduce is None:
+        return out.movedim(1, 0).reshape((len(out_idx),) + batch + (words,))
+    counts = out.movedim(1, 0).reshape((len(out_idx),) + batch)
+    return counts if reduce == "popcount" else weight_counts(counts)

@@ -16,7 +16,8 @@ the local sign step, as the reference's is on one device.
 over a `train.state.TrainCheckpointer` (the reference's checkpoint files,
 every ``--ckpt-every`` steps and at the end), resuming from the newest
 checkpoint in the directory, with a `StragglerMonitor` on each step's
-wall. Model parallelism (``--model-parallel``) waits for ROADMAP §A8.
+wall. Model parallelism (``--model-parallel``) waits for the mesh of
+ROADMAP §A8b.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel: sharded models wait "
-                                  "for ROADMAP §A8")
+                                  "for the mesh of ROADMAP §A8b")
 
     cfg = get_config(args.arch)
     if args.reduced:

@@ -15,9 +15,9 @@ does.
 
 `encdec_apply` is the training stack (`transformer.lm_loss`'s
 ``apply_fn``): `encode` with grad, then the `dec_block`s over the
-encoder's output. With ``remat`` "block" or "full" and grad on, each
-encoder and decoder layer is checkpointed (`transformer.remat_call`), as
-the reference's scans are.
+encoder's output. With grad on, each
+encoder and decoder layer is checkpointed under ``remat``
+(`transformer.remat_call`), as the reference's scans are.
 """
 from __future__ import annotations
 
@@ -110,14 +110,14 @@ def enc_block(p: DenseBlock, x: torch.Tensor,
     return x + L.mlp(p.mlp, L.rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
 
 
-def encode(params: EncDec, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig,
+           remat: str = "block") -> torch.Tensor:
     """frames: (B, Sf, Df) stub embeddings -> (B, Sf, D) encoder output:
-    bidirectional blocks (each checkpointed while grad is on), then
-    ``enc_norm``."""
+    bidirectional blocks (each checkpointed under ``remat`` while grad is
+    on), then ``enc_norm``."""
     x = frontend_proj(params.frontend_proj, frames, cfg)
     for p in params.enc:
-        x = remat_call(enc_block, p, x, cfg)
+        x = remat_call(enc_block, p, x, cfg, remat=remat)
     return L.rmsnorm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -139,11 +139,11 @@ def encdec_apply(params: EncDec, tokens: torch.Tensor, cfg: ModelConfig,
     0): `encode`, then the decoder layers (flash chunks ``min(512, S)``)
     and the final norm."""
     check_remat(remat)
-    memory = encode(params, frames, cfg)
+    memory = encode(params, frames, cfg, remat)
     x = L.embed(params.embed, tokens)
     qc = min(512, tokens.shape[1])
     for p in params.dec:
-        x = remat_call(dec_block, p, x, memory, cfg, qc)
+        x = remat_call(dec_block, p, x, memory, cfg, qc, remat=remat)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -13,11 +13,11 @@ Zamba2) and Python loops walk them. The SSM caches are layer-major
 every cache in place and returns it.
 
 `hybrid_apply` is the training stack (`transformer.lm_loss`'s
-``apply_fn``). With ``remat`` "block" or "full" and grad on, each SSM
-block and each application of Zamba2's shared block is checkpointed on
-its own (`transformer.remat_call`), as the port's dense family is; the
-reference checkpoints a whole Zamba2 group (``jax.checkpoint`` on its
-``g_body``). The recomputation differs, the numbers do not.
+``apply_fn``). With grad on, each SSM block and each application of
+Zamba2's shared block is checkpointed on its own under ``remat``
+(`transformer.remat_call`), as the port's dense family is; the reference
+checkpoints a whole Zamba2 group (``jax.checkpoint`` on its ``g_body``).
+The recomputation differs, the numbers do not.
 """
 from __future__ import annotations
 
@@ -120,9 +120,10 @@ def hybrid_apply(params: Hybrid, tokens: torch.Tensor, cfg: ModelConfig,
     x = L.embed(params.embed, tokens)
     qc = min(512, tokens.shape[1])
     for i, block in enumerate(params.ssm_blocks()):
-        x = remat_call(ssm_block, block, x, cfg)
+        x = remat_call(ssm_block, block, x, cfg, remat=remat)
         if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
-            x = remat_call(dense_block, params.shared, x, cfg, qc, qc)
+            x = remat_call(dense_block, params.shared, x, cfg, qc, qc,
+                           remat=remat)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

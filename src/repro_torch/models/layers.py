@@ -11,7 +11,8 @@ Train and prefill attention run `kernels.ops.flash_attention`: the CUDA
 kernels on the card and their plain versions on the CPU; the device is
 the only selector, and with grad on it is differentiable through the
 backward kernel. The reference's ``attention_backend`` /
-``attention_remat`` knobs are not ported: the flash
+``attention_remat`` context managers, which its ``launch/cells.py``
+sets, come with the port's ``cells.py`` (ROADMAP A8b); the flash
 `torch.autograd.Function` saves q, k, v, o and the logsumexp rows, so no
 O(S^2) state arises to rematerialise. Decode attention is plain
 PyTorch, as the reference's is plain ``jnp``; it writes the new key and

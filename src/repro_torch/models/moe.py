@@ -11,8 +11,8 @@ The router runs in float32; the top-k is a stable descending sort, so
 ties keep the lower expert first, as ``jax.lax.top_k`` does. The expert
 products are plain batched products over the expert axis (the reference
 computes them outside any Pallas kernel). The reference's
-``moe_constraints`` is a sharding hint for a mesh and waits for ROADMAP
-§A8 (cluster and sharding).
+``moe_constraints`` is a sharding hint for a mesh and comes with the
+mesh of ROADMAP A8b.
 """
 from __future__ import annotations
 
@@ -88,7 +88,11 @@ def dispatch(idx: torch.Tensor, n_experts: int, capacity: int) -> Dispatch:
     n = flat_e.shape[0]
     sort_i = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[sort_i]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # a static-size count (bincount's output size depends on the data,
+    # which a meta tensor does not hold; `launch.hlocost` counts on meta)
+    counts = torch.zeros(n_experts, dtype=torch.long,
+                         device=idx.device).scatter_add_(
+        0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.long))
     starts = counts.cumsum(0) - counts
     pos = torch.arange(n, device=idx.device) - starts[sorted_e]
     keep = pos < capacity

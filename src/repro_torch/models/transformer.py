@@ -12,12 +12,14 @@ into the reference's leaves. `Transformer.blocks` lists the blocks in
 layer order (`layer_kinds`) and a Python loop walks them (PyTorch runs
 eagerly). The MoE family's dense blocks take ``dense_d_ff`` where it is
 set. The reference rematerialises each scanned block (``jax.checkpoint``
-with ``nothing_saveable`` for ``remat="block"`` and ``"full"``); here each
-block runs under non-reentrant `torch.utils.checkpoint.checkpoint` while
-grad is on (`remat_call`, which the other families' training stacks use
-too), so its forward runs again in the backward. Its ``"dots"`` policy
-(keep the matmul outputs) waits for ROADMAP §A8. The reference's sharding
-constraints are the identity on one card and are dropped.
+with ``nothing_saveable`` for ``remat="block"`` and ``"full"``,
+``dots_with_no_batch_dims_saveable`` for ``"dots"``); here each block
+runs under non-reentrant `torch.utils.checkpoint.checkpoint` while grad
+is on (`remat_call`, which the other families' training stacks use too),
+so its forward runs again in the backward, under ``"dots"`` with the
+outputs of its products with no batch dims kept (`dots_policy`). The
+reference's sharding constraints are the identity on one card and are
+dropped.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -207,29 +210,51 @@ def _chunks_for(seq: int) -> Tuple[int, int]:
 
 #: the reference's weight on the MoE load-balancing loss (dense: aux = 0)
 MOE_AUX_WEIGHT = 0.01
-#: remat policies the port runs (both rematerialise whole blocks)
-REMAT_POLICIES = ("block", "full")
+#: remat policies: "block" and "full" keep only a block's input, "dots"
+#: also the outputs of its products with no batch dims
+REMAT_POLICIES = ("block", "full", "dots")
 
 
 def check_remat(remat: str) -> None:
-    """Raise for a remat policy the port does not run."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (keep the matmul outputs, recompute the rest) "
-            "waits for ROADMAP §A8; the port runs 'block' / 'full'")
+    """Raise for an unknown remat policy."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}; expected one of "
                          f"{REMAT_POLICIES}")
 
 
-def remat_call(fn, *args):
+_aten = torch.ops.aten
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The reference's ``dots_with_no_batch_dims_saveable`` over aten
+    ops: keep the output of a product with no batch dims, recompute
+    everything else. A weight product ``torch.einsum("bsd,dhk->bshk", x,
+    w)`` reaches ``aten.bmm`` with a batch of 1 (``x @ w`` reaches
+    ``aten.mm``); the experts' products (a batch of E experts) and the
+    attention's (a batch of B x H) are batched and recomputed, as the
+    reference recomputes its batched dots and its flash kernel."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
+def remat_call(fn, *args, remat: str = "block"):
     """``fn(*args)``; while grad is on, under non-reentrant
-    `torch.utils.checkpoint.checkpoint` (the reference's ``jax.checkpoint``
-    with ``nothing_saveable``): only the arguments are kept, and the
-    forward runs again in the backward."""
-    if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    `torch.utils.checkpoint.checkpoint` (the reference's ``jax.checkpoint``):
+    under "block" / "full" (``nothing_saveable``) only the arguments are
+    kept and the forward runs again in the backward; under "dots" the
+    outputs `dots_policy` keeps are reused in that rerun."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_contexts)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def transformer_apply(params: Transformer, tokens: torch.Tensor,
@@ -237,8 +262,7 @@ def transformer_apply(params: Transformer, tokens: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) -> (hidden (B, S, D), aux_loss: the sum of the MoE
     blocks' load-balancing losses, 0 for the dense family). While grad is
-    on, each block is checkpointed (``remat``: "block" or "full", the
-    reference's ``nothing_saveable``): only its input is kept, and its
+    on, each block is checkpointed under ``remat`` (`remat_call`): its
     forward runs again in the backward."""
     check_remat(remat)
     qc, kc = _chunks_for(tokens.shape[1])
@@ -246,10 +270,11 @@ def transformer_apply(params: Transformer, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params.blocks():
         if isinstance(block, MoEBlock):
-            x, a = remat_call(moe_block, block, x, cfg, qc, kc)
+            x, a = remat_call(moe_block, block, x, cfg, qc, kc,
+                              remat=remat)
             aux = aux + a
         else:
-            x = remat_call(dense_block, block, x, cfg, qc, kc)
+            x = remat_call(dense_block, block, x, cfg, qc, kc, remat=remat)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return x, aux
 

@@ -11,9 +11,9 @@ sheets of all ``n_layers`` are group-major; the cross keys and values are
 one pair per group.
 
 `vlm_apply` is the training stack (`transformer.lm_loss`'s ``apply_fn``).
-With ``remat`` "block" or "full" and grad on, each self layer and each
-`encdec.dec_block` is checkpointed on its own (`transformer.remat_call`),
-as the port's dense family is; the reference checkpoints a whole group
+With grad on, each self layer and each `encdec.dec_block` is checkpointed
+on its own under ``remat`` (`transformer.remat_call`), as the port's
+dense family is; the reference checkpoints a whole group
 (``jax.checkpoint`` on its ``g_body``). The recomputation differs, the
 numbers do not.
 """
@@ -108,8 +108,9 @@ def vlm_apply(params: VLM, tokens: torch.Tensor, cfg: ModelConfig,
     qc = min(512, tokens.shape[1])
     for group in params.groups:
         for p in group.self_blocks():
-            x = remat_call(dense_block, p, x, cfg, qc, qc)
-        x = remat_call(dec_block, group.cross, x, memory, cfg, qc)
+            x = remat_call(dense_block, p, x, cfg, qc, qc, remat=remat)
+        x = remat_call(dec_block, group.cross, x, memory, cfg, qc,
+                           remat=remat)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -17,9 +17,9 @@ def to_vertical(values, n_bits: int, device=None) -> torch.Tensor:
     stays on its device; host values go to ``device``, which defaults to
     ``"cuda"`` (`repro_torch._device.operand_device`).
     """
-    from repro_torch.kernels.bittranspose import bit_transpose
+    from repro_torch.kernels.bittranspose import bit_transpose_kernel
 
-    return bit_transpose(
+    return bit_transpose_kernel(
         as_words(values, operand_device([values], device)), n_bits)
 
 

@@ -6,9 +6,10 @@ split by optimizer so that each file stays short on its test worker;
 `test_torch_train_step_bias.py`, a QKV-bias model in float32; one
 file per other trained family, `test_torch_train_step_{ssm,hybrid,
 encdec,vlm}.py` (reduced Mamba2, Zamba2, SeamlessM4T, Llama-3.2-Vision);
-and the MoE family's three, `test_torch_train_step_moe{,_kimi,_steps}.py`
+the MoE family's three, `test_torch_train_step_moe{,_kimi,_steps}.py`
 (reduced Llama-4 Maverick and Kimi K2, whose routing `check_routes`
-holds first).
+holds first); and ``remat="dots"`` (`dots_case`) in
+`test_torch_remat_dots{,_families}.py`.
 
 The JAX package's reduced Qwen3-0.6B (4 layers, d_model 128, 4 heads, 2
 KV heads, head_dim 32, vocab 512 padded to 2,048) and its parameters
@@ -473,3 +474,39 @@ def check_routes(cfg, rb, rp, bundle, model, batch, monkeypatch=None):
             return probs, gate, idx
 
         monkeypatch.setattr(tmoe, "route", route)
+
+
+@functools.lru_cache(None)
+def _ref_dots_grads(arch):
+    """The reference's float32 loss and gradients of the first batch
+    under ``remat="dots"``."""
+    _, rb, rp, batches, _ = _setup("float32", arch)
+    rbd = rbuild(rb.cfg, remat="dots")
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, b: rbd.loss(p, b)[0]))(rp, batches[0])
+    return float(loss), _flat(grads)
+
+
+@_one_thread()
+def dots_case(arch):
+    """``remat="dots"`` in float32: the loss and every gradient leaf equal
+    the port's under "block" bit for bit (the policy changes what the
+    backward recomputes, not what it computes) and the reference's under
+    "dots" within `TOL`."""
+    cfg, _, rp, batches, _ = _setup("float32", arch)
+    model = model_params_from_reference(cfg, rp, device="cpu")
+    batch = _torch_batch(batches[0])
+    loss_d, _, grads_d = loss_and_grads(
+        build(cfg, device="cpu", remat="dots"), model, batch)
+    loss_b, _, grads_b = loss_and_grads(
+        build(cfg, device="cpu", remat="block"), model, batch)
+    assert torch.equal(loss_d, loss_b)
+    assert set(grads_d) == set(grads_b)
+    for name in grads_b:
+        assert torch.equal(grads_d[name], grads_b[name]), name
+    ref_loss, want = _ref_dots_grads(arch)
+    assert abs(float(loss_d) - ref_loss) < TOL["float32"] * abs(ref_loss)
+    named = dict(model.named_parameters())
+    for leaf in leaves(named):
+        _close(_f32(leaf.gather(grads_d)), want[leaf.name], TOL["float32"],
+               f"grad {leaf.name}")

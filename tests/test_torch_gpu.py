@@ -14,7 +14,7 @@ from repro_torch.core import compiler as tcomp
 from repro_torch.core import lowering as tlow
 from repro_torch.core.bitplane import as_words, to_uint32
 from repro_torch.kernels import LAUNCHES, ref, vm
-from repro_torch.kernels.bittranspose import bit_transpose
+from repro_torch.kernels.bittranspose import bit_transpose_kernel
 
 pytestmark = pytest.mark.gpu
 
@@ -81,7 +81,7 @@ def test_bit_transpose_kernel_matches_plain(cuda, n, n_bits):
     values = as_words(rng.integers(0, 1 << n_bits, n, dtype=np.uint64)
                       .astype(np.uint32), cuda)
     before = LAUNCHES["bit_transpose"]
-    got = bit_transpose(values, n_bits)
+    got = bit_transpose_kernel(values, n_bits)
     torch.cuda.synchronize()
     assert LAUNCHES["bit_transpose"] == before + 1
     assert torch.equal(got, ref.bit_transpose(values, n_bits))
@@ -151,7 +151,7 @@ def test_bit_transpose_kernel_takes_ragged_and_misaligned_values(
     values = _at_word_offset(as_words(
         rng.integers(0, 1 << n_bits, 32 * groups, dtype=np.uint64)
         .astype(np.uint32), cuda), offset)
-    got = bit_transpose(values, n_bits)
+    got = bit_transpose_kernel(values, n_bits)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.bit_transpose(values, n_bits))
 
@@ -566,8 +566,8 @@ def test_bit_untranspose_kernel_matches_plain(cuda, n_bits, groups):
     assert torch.equal(got, ref.bit_untranspose(planes, n_bits))
     values = as_words(rng.integers(0, 1 << n_bits, 32 * groups,
                                    dtype=np.uint64).astype(np.uint32), cuda)
-    assert torch.equal(kops.bit_untranspose(bit_transpose(values, n_bits),
-                                            n_bits), values)
+    assert torch.equal(kops.bit_untranspose(
+        bit_transpose_kernel(values, n_bits), n_bits), values)
     wide = _card_words(cuda, rng, 32, groups)
     assert torch.equal(kops.bit_untranspose(wide, n_bits),
                        ref.bit_untranspose(wide, n_bits))
@@ -1360,3 +1360,79 @@ def test_optimizers_make_no_float32_copy_of_an_expert_weight(cuda, name):
     assert grown < 4 * p.numel(), grown
     assert bool(torch.isfinite(p[:2].float()).all())
     assert not torch.equal(p[:2], before)
+
+
+@pytest.mark.parametrize("reduce", [None, "popcount", "aggregate"])
+def test_run_megakernel_on_the_card_matches_the_host(cuda, reduce):
+    """`make_plane` + `run_megakernel` (the named-row helpers) launch the
+    VM on the card and agree with the same call on the host, with a
+    batch of 3 and, in the count modes, a per-word mask."""
+    from repro_torch.kernels.ops import run_megakernel
+
+    lp = tlow.lower(_program(11))
+    rng = np.random.default_rng(11)
+    words = 300
+    data = {f"D{i}": rng.integers(0, 1 << 32, (3, words), dtype=np.uint32)
+            for i in range(6)}
+    mask = None if reduce is None else rng.integers(0, 1 << 32, (words,),
+                                                    dtype=np.uint32)
+    plane = tlow.make_plane(lp, data, words, batch=(3,), device=cuda)
+    assert plane.is_cuda
+    before = LAUNCHES["vm_popcount"] + LAUNCHES["vm_materialize"]
+    got = run_megakernel(lp, plane, ["OUT"], reduce=reduce, mask=mask)
+    torch.cuda.synchronize()
+    assert LAUNCHES["vm_popcount"] + LAUNCHES["vm_materialize"] == before + 1
+    host = tlow.make_plane(lp, data, words, batch=(3,), device="cpu")
+    want = run_megakernel(lp, host, ["OUT"], reduce=reduce, mask=mask)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_remat_dots_on_the_card_equals_block(cuda):
+    """Reduced Qwen3-0.6B in bf16 on the card: "dots" launches the flash
+    forward and backward as "block" does and gives the same loss and
+    gradients."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = reduced(get_config("qwen3_0p6b"))
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    batch = SyntheticLM(cfg.vocab_size, 96, 4, seed=1, device=cuda).batch(0)
+    out = {}
+    for remat in ("block", "dots"):
+        LAUNCHES.clear()
+        out[remat] = loss_and_grads(build(cfg, remat=remat), params, batch)
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES) == {"flash_attention_fwd": 2 * cfg.n_layers,
+                                  "flash_attention_bwd": cfg.n_layers}
+    assert torch.equal(out["dots"][0], out["block"][0])
+    for name, g in out["block"][2].items():
+        d = (out["dots"][2][name].float() - g.float()).pow(2).mean().sqrt()
+        assert float(d) <= 0.05 * float(g.float().pow(2).mean().sqrt()) \
+            + 1e-12, name
+
+
+def test_hlocost_count_on_the_card_allocates_nothing(cuda):
+    """A reduced train step counted on meta beside the card: no card
+    memory moves, and the roofline prices it against this card's row."""
+    from repro_torch import hw
+    from repro_torch.configs.base import ShapeConfig, get_config, reduced
+    from repro_torch.launch import hlocost, roofline
+    from repro_torch.models import build, input_specs
+    from repro_torch.optim import adamw, constant
+    from repro_torch.train import make_train_step
+
+    cfg = reduced(get_config("qwen3_0p6b"))
+    shape = ShapeConfig("t", 64, 2, "train")
+    bundle = build(cfg)
+    params, _ = bundle.abstract()
+    opt = adamw(constant(1e-3))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cost = hlocost.count(make_train_step(bundle, opt), params, state, 0,
+                         input_specs(cfg, shape))
+    assert torch.cuda.memory_allocated() == before
+    r = roofline.analyze(cost, cfg, shape, "1", 1, "qwen3_0p6b")
+    assert r.card is hw.current() and 0 < r.useful_ratio

@@ -249,8 +249,8 @@ def test_sampling_is_deterministic_per_generator():
 def test_build_serves_every_family_and_trains_all_but_moe(arch):
     """Every family builds, serves and trains (the name predates MoE
     training: the MoE family's loss carries its load-balancing loss in
-    ``metrics["aux"]``, positive, and weighted into the loss); the
-    abstract shapes wait for the sharded cells (§A8)."""
+    ``metrics["aux"]``, positive, and weighted into the loss); its
+    abstract model has the built model's parameters on ``meta``."""
     cfg = TC.reduced(TC.get_config(arch))
     bundle = build(cfg, device="cpu")
     params = bundle.init(torch.Generator().manual_seed(0))
@@ -274,8 +274,14 @@ def test_build_serves_every_family_and_trains_all_but_moe(arch):
             float(metrics["xent"]) + 0.01 * float(metrics["aux"]), rel=1e-6)
     else:
         assert float(metrics["aux"]) == 0
-    with pytest.raises(NotImplementedError, match="§A8"):
-        bundle.abstract()
+    shapes, specs = bundle.abstract()
+    named = dict(params.named_parameters())
+    abstract = dict(shapes.named_parameters())
+    assert set(abstract) == set(named) == set(specs)
+    for name, p in abstract.items():
+        assert p.is_meta and p.shape == named[name].shape \
+            and p.dtype == named[name].dtype, name
+        assert len(specs[name]) == p.dim(), name
 
 
 def test_entry_points_need_a_card_unless_asked():
@@ -309,9 +315,9 @@ def test_serve_cli_runs_on_the_cpu(capsys):
 
 
 def test_loss_remat_policies():
-    """"block" and "full" rematerialise each block (the same loss and
-    gradients, the loss equal to the forward without grad); "dots" waits
-    for ROADMAP §A8; other names raise."""
+    """"block" and "full" rematerialise each block and "dots" keeps its
+    products with no batch dims (the same loss and gradients, the loss
+    equal to the forward without grad); other names raise."""
     cfg = dataclasses.replace(TC.reduced(TC.get_config("qwen3_0p6b")),
                               dtype="float32")
     toks = _prompts()
@@ -319,16 +325,15 @@ def test_loss_remat_policies():
     params = build(cfg, device="cpu").init(torch.Generator().manual_seed(4))
     params.requires_grad_(True)
     out = {}
-    for remat in ("block", "full"):
+    for remat in ("block", "full", "dots"):
         loss, _ = build(cfg, device="cpu", remat=remat).loss(params, batch)
         out[remat] = (loss, torch.autograd.grad(loss,
                                                 params.layers[0].attn.wq))
-    assert torch.equal(out["block"][0], out["full"][0])
-    assert torch.equal(out["block"][1][0], out["full"][1][0])
+    for remat in ("full", "dots"):
+        assert torch.equal(out["block"][0], out[remat][0])
+        assert torch.equal(out["block"][1][0], out[remat][1][0])
     with torch.no_grad():
         loss, _ = build(cfg, device="cpu").loss(params, batch)
     assert torch.equal(loss, out["block"][0].detach())
-    with pytest.raises(NotImplementedError, match="§A8"):
-        build(cfg, device="cpu", remat="dots")
     with pytest.raises(ValueError, match="remat"):
         build(cfg, device="cpu", remat="none")

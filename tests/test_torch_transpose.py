@@ -14,7 +14,7 @@ from repro.kernels import ref as rref
 from repro.ops import predicate as rpred
 from repro_torch.core.bitplane import as_words, to_uint32
 from repro_torch.kernels import LAUNCHES, ref as tref
-from repro_torch.kernels.bittranspose import bit_transpose
+from repro_torch.kernels.bittranspose import bit_transpose_kernel
 from repro_torch.ops import predicate as tpred
 from repro_torch.ops.transpose import to_vertical
 
@@ -48,12 +48,12 @@ def test_vertical_column_encode_matches_reference(n, n_bits):
 def test_cpu_wrapper_runs_plain_version_without_launching():
     before = dict(LAUNCHES)
     values = as_words(np.arange(64, dtype=np.uint32))
-    assert torch.equal(bit_transpose(values, 6),
+    assert torch.equal(bit_transpose_kernel(values, 6),
                        tref.bit_transpose(values, 6))
     assert dict(LAUNCHES) == before
     with pytest.raises(ValueError):
-        bit_transpose(values[:40], 6)
-    assert bit_transpose(values, 0).shape == (0, 2)
+        bit_transpose_kernel(values[:40], 6)
+    assert bit_transpose_kernel(values, 0).shape == (0, 2)
 
 
 @pytest.mark.parametrize("lo,hi", [(0, 255), (37, 201), (200, 200)])
