@@ -251,7 +251,24 @@ Phases; the first failure exits non-zero:
    wall, at most 1); the counts allocate nothing on the
    card, and the flash FLOPs charged to (f)'s step equal ``flash_cost``
    over (f)'s launches.
-   Each of (a)-(q) starts with every launch count at 0 and must launch
+   (r) the mesh, last: Qwen3-0.6B at its published widths and depth
+   through ``launch.mesh.make_host_mesh`` -> ``launch.cells.build_cell``
+   -> ``Cell.run`` on a (data 1, model 1) mesh of one NCCL rank (two
+   gloo ranks on one card hang in DTensor's all-gather of CUDA tensors;
+   NCCL takes one rank a card), one sequence of 4,096, AdamW: every
+   parameter a DTensor, the first loss and every gradient leaf against
+   the unsharded step on the same card, seed and batch (3f's gate), the
+   flash kernels launched from the ``local_map`` branch (twice forward
+   and once backward a layer), a cold and two warm steps, the rank's
+   peak memory and a profiled step's collective share; the compressed
+   cell on the mesh's data axis, its voted words equal to the majority
+   of the ranks' packed signs computed in numpy and its parameters to
+   the signum step with them; one empty launch's time; and the dry run
+   (``python -m repro_torch.launch.dryrun``) of qwen3_8b and
+   kimi_k2_1t_a32b x train_4k on the 16x16 fake group, started after
+   the build in subprocesses beside the other phases, their counted
+   FLOPs, bytes and collective bytes printed. It prints its seconds.
+   Each of (a)-(r) starts with every launch count at 0 and must launch
    each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
@@ -4168,6 +4185,311 @@ def phase_roofline(torch, info):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 3r: the mesh
+# ---------------------------------------------------------------------------
+
+#: 3r's mesh: two ranks sharing the one card over gloo would carry
+#: DTensor's collectives through the host, but the card's torch 2.11
+#: gloo never completes a functional all-gather of CUDA tensors
+#: (``_c10d_functional.all_gather_into_tensor``; its all-reduce,
+#: reduce-scatter and all-to-all, and the raw c10d all-gather, do), and
+#: NCCL takes one rank a card; so 3r runs the mesh's entry points on a
+#: (data 1, model 1) mesh of one NCCL rank, and the two-rank and
+#: four-rank meshes run in the CPU tests
+MESH_SHAPE = (1, 1)
+#: 3r(a): Qwen3-0.6B at its published widths and depth, one sequence of
+#: train_4k's 4,096 a step, AdamW at a constant rate; a cold and two
+#: warm steps and a profiled one
+MESH_SEQ, MESH_BATCH, MESH_STEPS, MESH_SEED, MESH_LR = 4096, 1, 3, 27, 1e-4
+#: 3r(c): the dry run's cells, each in a subprocess of its own on meta
+DRYRUN_CELLS = (("qwen3_8b", "train_4k"), ("kimi_k2_1t_a32b", "train_4k"))
+#: the dry runs' limit: they start with the script and run beside it
+DRYRUN_TIMEOUT = 900
+
+
+def start_dryruns():
+    """3r(c)'s dry runs, started at once (their count runs on the host's
+    CPU beside the card's phases): one subprocess a cell, one thread
+    each."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    return [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for arch, shape in DRYRUN_CELLS]
+
+
+def stop_dryruns(runs) -> None:
+    for _, _, proc in runs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _dryrun_counts(runs) -> dict:
+    """Each dry run's counted FLOPs, bytes and collective bytes (its
+    ``cost:`` line), waiting for it."""
+    out = {}
+    for arch, shape, proc in runs:
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise SmokeFailure(f"the dry run of {arch} x {shape} took more "
+                               f"than {DRYRUN_TIMEOUT} s")
+        check(proc.returncode == 0 and "1/1 cells counted OK" in stdout,
+              f"the dry run of {arch} x {shape} failed: {stderr[-1500:]}")
+        line = next(x for x in stdout.splitlines()
+                    if x.strip().startswith("cost:"))
+        vals = dict(kv.split("=", 1) for kv in line.split()[1:4])
+        timing = next(x for x in stdout.splitlines() if x.startswith("["))
+        out[f"{arch} x {shape}"] = {
+            "flops": float(vals["flops"]), "bytes": float(vals["bytes"]),
+            "collective_bytes": float(vals["coll_bytes"]),
+            "build_count": timing.split("] ", 1)[1]}
+    return out
+
+
+def phase_mesh(torch, clock_hz, dry):
+    """3r: the mesh entry points on the card (`launch.mesh.make_host_mesh`
+    -> `launch.cells.build_cell` -> `Cell.run` on DTensor parameters,
+    the flash kernels in the `local_map` branch), the compressed step on
+    the mesh's data axis, an empty launch's time, and the dry runs."""
+    import copy
+    import dataclasses
+    import importlib
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import axis_group, make_host_mesh
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.optim.optimizers import leaves
+    from repro_torch.train.step import loss_and_grads
+
+    signum_mod = importlib.import_module("repro_torch.optim.signum")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("3r", MESH_SEQ, MESH_BATCH, "train")
+    bundle = build(cfg)
+    data = SyntheticLM(cfg.vocab_size, MESH_SEQ, MESH_BATCH, seed=MESH_SEED)
+    batch = data.batch(0)
+
+    def fresh():
+        return bundle.init(torch.Generator(device="cuda").manual_seed(
+            MESH_SEED))
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1)
+    try:
+        mesh = make_host_mesh(*MESH_SHAPE, device="cuda")
+        names = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        params, twin = fresh(), fresh()
+        cell = build_cell(TRAIN_ARCH, "train_4k", mesh, shape_override=shape,
+                          params=params, batch=batch,
+                          lr_fn=constant(MESH_LR))
+        check(all(type(p).__name__ == "DTensor"
+                  for p in params.parameters()),
+              "build_cell left a parameter off the mesh")
+        # (i) the first loss and every gradient leaf against the unsharded
+        # step on the same card, seed and batch (3f's train gate)
+        grads_cell = dataclasses.replace(
+            cell, fn=lambda p, s, i, b: loss_and_grads(bundle, p, b))
+        loss_m, _, g_m = grads_cell.run()
+        loss_1, _, g_1 = loss_and_grads(bundle, twin, batch)
+        err_loss = abs(float(loss_m.full_tensor()) - float(loss_1)) / abs(
+            float(loss_1))
+        err_grad = {n: _rel_rms(g_m[n].full_tensor(), g_1[n]) for n in g_1}
+        worst = max(err_grad, key=err_grad.get)
+        del g_m, g_1, twin
+        check(err_loss < TRAIN_LOSS_TOL, f"3r's first loss on the mesh vs "
+              f"the unsharded step: {err_loss:.3g} relative (>= "
+              f"{TRAIN_LOSS_TOL})")
+        check(err_grad[worst] < TRAIN_GRAD_TOL, f"3r's gradient {worst} on "
+              f"the mesh vs the unsharded step: RMS difference "
+              f"{err_grad[worst]:.3g} of its RMS (>= {TRAIN_GRAD_TOL})")
+        # (ii) the main path: a cold step, every launch counted, then warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        p, s, m = cell.run()
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        want = {"flash_attention_fwd": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers}
+        check(launches == want, f"3r's step launched {launches}, not "
+              f"{want} (per rank and layer the lse forward twice, the "
+              f"backward once, from the local_map branch)")
+        losses, warm = [float(m["loss"])], []
+        for i in range(1, MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, m = cell.run(p, s, i, cell.args[3])
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"3r's losses {losses}")
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            cell.run(p, s, MESH_STEPS, cell.args[3])
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+        comm_ms = sum(e.self_cpu_time_total for e in prof.key_averages()
+                      if "c10d" in e.key or "nccl" in e.key.lower()) / 1e3
+        device, events = _device_ms_by_kind(prof, backward=True)
+        del prof, p, s, cell, params
+        main_launches = dict(launches)
+
+        # (b) the compressed step on the mesh's data axis against a signum
+        # step whose majority is computed in numpy from the ranks' signs
+        comp_params = fresh()
+        before = {n: x.detach().clone()
+                  for n, x in comp_params.named_parameters()}
+        seen = {}
+        vote, pack = signum_mod.majority_allreduce, signum_mod.pack_tree
+
+        def recorded_vote(packed, group=None):
+            seen["packed"], seen["voted"] = packed.clone(), vote(packed,
+                                                                 group)
+            return seen["voted"]
+
+        def recorded_pack(tree):
+            seen["u"] = {k: x.detach().clone() for k, x in tree.items()}
+            return pack(tree)
+
+        signum_mod.majority_allreduce = recorded_vote
+        signum_mod.pack_tree = recorded_pack
+        try:
+            comp = build_cell(TRAIN_ARCH, "train_4k", mesh,
+                              overrides={"compressed_dp": True},
+                              shape_override=shape, params=comp_params,
+                              batch=batch, lr_fn=constant(MESH_LR))
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            comp_params, _, cm = comp.run()
+            torch.cuda.synchronize()
+            t_comp = time.perf_counter() - t0
+            comp_launches = {k: v for k, v in LAUNCHES.items() if v}
+        finally:
+            signum_mod.majority_allreduce = vote
+            signum_mod.pack_tree = pack
+        want = {"flash_attention_fwd": 2 * cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers, "pack_signs": 1,
+                "unpack_signs": 1, "majority": 1}
+        check(comp_launches == want, f"3r's compressed step launched "
+              f"{comp_launches}, not {want}")
+        data_group = axis_group(mesh, ("data",))
+        d = dist.get_world_size(data_group)
+        gathered = [seen["packed"].clone() for _ in range(d)]
+        dist.all_gather(gathered, seen["packed"], group=data_group)
+        words = np.stack([g.cpu().numpy().view(np.uint32) for g in gathered])
+        bits = np.unpackbits(words.view(np.uint8), axis=-1,
+                             bitorder="little")
+        maj = np.packbits(bits.sum(0) >= d // 2 + 1, axis=-1,
+                          bitorder="little").view(np.uint32)
+        voted = seen["voted"].cpu().numpy().view(np.uint32)
+        check(np.array_equal(voted, maj), "3r's voted words differ from "
+              "the numpy majority of the ranks' packed signs")
+        signs = torch.from_numpy(
+            np.unpackbits(maj.view(np.uint8), bitorder="little")
+            .astype(np.float32)).to("cuda") * -2 + 1
+        # the packed signs: each leaf's u flattened in sorted order
+        u = seen["u"]
+        keys = sorted(u)
+        offsets = dict(zip(keys, np.cumsum([0] + [u[k].numel()
+                                                   for k in keys])))
+        named = {n: x.to_local() for n, x in
+                 comp_params.named_parameters()}
+        worst_p = 0.0
+        for leaf in leaves(named):
+            k = leaf.name
+            s_k = signs[offsets[k]:offsets[k] + u[k].numel()].reshape(
+                u[k].shape)
+            p0 = leaf.gather(before).float()
+            want_p = (p0 - MESH_LR * (u[k].abs().mean() * s_k)).to(
+                torch.bfloat16).float()
+            got_p = leaf.gather(named).float()
+            # within one bf16 rounding of the leaf's largest value (the
+            # scale's mean may sum in another order on the mesh)
+            worst_p = max(worst_p, float((got_p - want_p).abs().max()
+                                         / want_p.abs().max()))
+        check(worst_p <= 2 ** -8, f"3r's compressed step differs from the "
+              f"signum step with numpy's majority by {worst_p:.3g} of a "
+              f"leaf's largest value")
+        del comp, comp_params, before, seen, u, signs
+        for n, c in comp_launches.items():
+            main_launches[n] = main_launches.get(n, 0) + c
+    finally:
+        dist.destroy_process_group()
+    # an empty launch: the floor under every small kernel's time
+    _, empty_ms, empty_call_ms = _time_ms(
+        torch, lambda: torch.cuda._sleep(0), 50, clock_hz)
+    counts = _dryrun_counts(dry)
+    t_part = time.perf_counter() - t_phase
+    busy = sum(device.values())
+    t_warm = float(np.mean(warm))
+    print(f"[3r mesh] ranks: {d} on a {names} mesh of one NCCL rank "
+          f"(two gloo ranks on the card hang in DTensor's all-gather; the "
+          f"2- and 4-rank meshes run in the CPU tests)")
+    print(f"[3r mesh] {cfg.name} at published widths ({cfg.n_layers} "
+          f"layers, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim_}, vocab {cfg.padded_vocab}) through build_cell "
+          f"-> Cell.run, AdamW, one sequence of {MESH_SEQ}: launches a "
+          f"step per rank {launches}; (i) loss {err_loss:.3g} "
+          f"relative, worst gradient leaf {worst} {err_grad[worst]:.3g} of "
+          f"its RMS against the unsharded step (bounds {TRAIN_LOSS_TOL}, "
+          f"{TRAIN_GRAD_TOL})")
+    print(f"[3r mesh] step ms: cold {t_cold * 1e3:.1f}, warm "
+          + ", ".join(f"{w * 1e3:.1f}" for w in warm)
+          + f"; rank 0 peak {peak / 2**30:.2f} GiB; losses "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"[3r mesh] profiled warm step {t_prof * 1e3:.1f} ms wall: "
+          f"collectives (c10d / NCCL host events) {comm_ms:.2f} ms, "
+          f"{comm_ms / (t_prof * 1e3):.2%} of it; device "
+          + (f"{busy:.1f} ms over {events} kernels and copies, idle "
+             f"{1 - busy / (t_prof * 1e3):.1%}" if busy else
+             "time not measured (the profiler saw no device events)"))
+    print(f"[3r mesh] (b) compressed step on the data axis "
+          f"({d} rank): {t_comp * 1e3:.1f} ms, launches {comp_launches}; "
+          f"voted words equal numpy's majority of the ranks' signs, and "
+          f"the parameters the signum step with them (worst "
+          f"{worst_p:.3g} of a leaf's largest)")
+    print(f"[3r mesh] an empty launch (torch.cuda._sleep(0)): "
+          f"{empty_ms * 1e3:.2f} us device, {empty_call_ms * 1e3:.2f} us "
+          f"a back-to-back call")
+    for cell_name, c in counts.items():
+        print(f"[3r mesh] (c) dry run {cell_name} on the 16x16 fake group: "
+              f"flops {c['flops']:.4g}, bytes {c['bytes']:.4g}, collective "
+              f"bytes {c['collective_bytes']:.4g} ({c['build_count']})")
+    print(f"[3r mesh] the phase took {t_part:.1f} s")
+    info = {"mesh_ranks": d, "mesh_shape": names, "mesh_cold_s": t_cold,
+            "mesh_warm_s": warm, "mesh_peak_device_bytes": peak,
+            "mesh_losses": losses, "mesh_err_loss": err_loss,
+            "mesh_err_grad": err_grad[worst], "mesh_err_grad_leaf": worst,
+            "mesh_profiled_step_s": t_prof, "mesh_collective_ms": comm_ms,
+            "mesh_device_ms": device, "mesh_compressed_s": t_comp,
+            "empty_launch_us": empty_ms * 1e3,
+            "empty_launch_call_us": empty_call_ms * 1e3,
+            "dryrun": counts, "mesh_phase_s": t_part,
+            "mesh_warm_mean_s": t_warm}
+    return main_launches, info
+
+
 def _time_ms(torch, fn, reps: int, clock_hz: float):
     """(result, device ms, call ms) of ``fn()``; times averaged over
     ``reps``.
@@ -4868,8 +5190,10 @@ def main() -> int:
           f"{props.multi_processor_count} SMs, max SM clock {max_mhz:.0f} "
           f"MHz -> int32 rate {int_rate / 1e12:.2f} Top/s; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
+    dry = []
     try:
         phase_build(_build)
+        dry = start_dryruns()
         small = WorkloadSpec(n_tenants=4, n_weeks=3,
                              domain_bits=(1 << 20) + 32 * 37 + 5,
                              n_queries=96)
@@ -4932,6 +5256,7 @@ def main() -> int:
                                   max_mhz * 1e6)
                 rec.drop()
             later.append(phase_cluster(torch, spec3a, ref3a))
+            later.append(phase_mesh(torch, max_mhz * 1e6, dry))
         finally:
             rec.close()
         # each kernel's launches over every main-path run
@@ -4944,6 +5269,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"[fail] {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_dryruns(dry)
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps({

@@ -120,7 +120,12 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device pointer (None -> NULL) for a ctypes argument."""
+    """A tensor's device pointer (None -> NULL) for a ctypes argument.
+    A DTensor holds no memory of its own (its shards do): it raises."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        raise ValueError("a kernel takes a DTensor's local shard "
+                         "(to_local()), not the DTensor")
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 

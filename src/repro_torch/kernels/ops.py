@@ -14,6 +14,7 @@ whose backward is the backward kernel.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -167,10 +168,79 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     wrapper transposes). Differentiable: where grad is on and an operand
     needs it, the forward is `flash_attention_fwd_kernel` and the backward
     `flash_attention_bwd_kernel`; otherwise (serving) the lse-free
-    `flash_attention_kernel`. The reference's `shard_map` branch waits for
-    the multi-card slice."""
+    `flash_attention_kernel`.
+
+    DTensor operands take the reference's ``shard_map`` branch
+    (`_flash_on_mesh`) on their own mesh: each rank runs the kernels on
+    its local shard."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _flash_on_mesh(q, k, v, causal, block_q, block_k,
+                              q.device_mesh)
+    return _flash_local(q, k, v, causal, block_q, block_k)
+
+
+def _flash_local(q, k, v, causal, block_q, block_k):
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
     return _flashattn.flash_attention_kernel(q, k, v, causal=causal,
                                              block_q=block_q,
                                              block_k=block_k)
+
+
+def _flash_on_mesh(q, k, v, causal, block_q, block_k, mesh):
+    """The reference's mesh branch (`repro.kernels.flashattn.
+    flash_attention` under a mesh) on DTensors: the kernels run inside
+    `local_map` on each rank's shard, batch on the data axes and heads on
+    the model axis as `resolve_spec` places them (other placements, such
+    as a sequence sharded by the "sp" rules, are redistributed first).
+
+    A rank's q heads are a contiguous block of ``H / shards`` heads. When
+    the shards divide the KV heads too, k and v are sharded on their heads
+    alike and each rank holds its own group. Otherwise k and v stay
+    replicated over the head axes and each rank slices out the KV heads
+    its q heads map to, as the reference's ``_local`` does; each rank then
+    writes only its slice of dk and dv, so their gradients are ``Partial``
+    (summed over the head axes), not ``Replicate``."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.sharding import (mesh_sizes, placements_of,
+                                           resolve_spec)
+    from repro_torch.launch.hlocost import per_shard
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    spec = resolve_spec((B, Sq, H, hd), ("batch", None, "heads", None), mesh)
+    sizes = mesh_sizes(mesh)
+    h_axes = () if spec[2] is None else (
+        (spec[2],) if isinstance(spec[2], str) else tuple(spec[2]))
+    h_shards, idx = 1, 0
+    for a in h_axes:                  # this rank's block of q heads
+        h_shards *= sizes[a]
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+    H_loc = H // h_shards
+    kv_split = KV % h_shards == 0
+    if not kv_split and H_loc % G and G % H_loc:
+        raise ValueError(f"{H_loc} q heads a shard do not map onto whole "
+                         f"groups of {G} (H {H}, KV {KV})")
+    q_pl = placements_of(spec, mesh)
+    kv_pl = placements_of(
+        (spec[0], None, spec[2] if kv_split else None, None), mesh)
+    kv_grad = kv_pl if kv_split else tuple(
+        Partial() if a in h_axes else p for a, p in zip(sizes, kv_pl))
+    start, count = (idx * H_loc) // G, max(1, H_loc // G)
+
+    def local(a, b, c):
+        if not kv_split:
+            b, c = b[:, :, start:start + count], c[:, :, start:start + count]
+        return _flash_local(a, b, c, causal, block_q, block_k)
+
+    shards = math.prod(sizes[a] for a, p in zip(sizes, q_pl)
+                       if isinstance(p, Shard))
+    f = local_map(per_shard(local, shards), out_placements=(q_pl,),
+                  in_placements=(q_pl, kv_pl, kv_pl),
+                  in_grad_placements=(q_pl, kv_grad, kv_grad),
+                  device_mesh=mesh, redistribute_inputs=True)
+    return f(q, k, v)

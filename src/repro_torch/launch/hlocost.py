@@ -31,12 +31,28 @@ which reads its operands from device memory and writes its outputs back,
 so this unfused count is close to the bytes the card moves. The
 reference counts each XLA fusion's operands and outputs once, so its
 ``bytes`` sits between its ``dot_bytes`` and this count; the FLOPs agree
-up to the elementwise approximations. ``collective_bytes`` is 0 and
-``collective_ops`` empty: the port runs no collective inside a step
-until the mesh of ROADMAP A8b.
+up to the elementwise approximations.
+
+On a mesh (a `launch.cells` cell on ``meta`` DTensors, as `launch.dryrun`
+runs it) the count sees each op once, at the DTensor level, in its
+global shapes: DTensor runs the op on the local shards with the count's
+mode off. A `local_map` region (the sharded flash wrapper, the MoE's
+dispatch) computes on local shards, which the count sees: each region
+wraps its function in `per_shard`, which charges its ops, forward and
+backward, once for each of the shards that split the work. An outer
+mode beside the count sees the collectives DTensor issues:
+``collective_ops`` counts them by the reference's kinds and
+``collective_bytes`` sums their operand bytes over every rank of the
+world (one rank's operands times the world size), the reference's
+whole-step term. An MoE region's sort of all T k routed slots, which
+every rank of it runs, counts once per shard: that is work each rank
+does, so an MoE cell on a mesh counts a little more than the same cell
+without one (a dense cell the same, but for the backward of the KV
+heads' slice where the model axis does not divide them).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Dict
@@ -73,6 +89,12 @@ _FREE = {aten.empty, aten.empty_strided, aten.empty_like, aten.new_empty,
          aten.lift_fresh, aten.alias, aten.sym_size, aten.sym_stride,
          aten.sym_numel, aten.sym_storage_offset, aten.is_same_size,
          aten._local_scalar_dense}
+
+
+#: the collectives' namespaces: moved, not computed (`_Collectives`)
+_COMM = ("_c10d_functional", "c10d_functional", "_dtensor")
+#: ops that only lay data out (`Counter._moved_by_collective`)
+_LAYOUT = {aten.cat, aten.clone, aten.stack, aten._to_copy, aten.copy_}
 
 
 @dataclasses.dataclass
@@ -165,26 +187,148 @@ def op_cost(func, args, kwargs, out) -> Cost:
     return c
 
 
+def _scaled(c: Cost, n: float) -> Cost:
+    if n == 1:
+        return c
+    return Cost(c.flops * n, c.bytes * n, c.transcendentals * n,
+                c.collective_bytes, dict(c.collective_ops), c.dot_bytes * n,
+                {k: v * n for k, v in c.kernel_flops.items()})
+
+
 class Counter(TorchDispatchMode):
     """The dispatch mode `count` runs a step under; ``cost`` sums every
-    op's `op_cost` and every charged kernel launch."""
+    op's `op_cost` and every charged kernel launch, each times ``scale``
+    (the shards of a `per_shard` region)."""
 
     def __init__(self):
+        from torch.utils.weak import WeakIdKeyDictionary
         super().__init__()
         self.cost = Cost()
+        self.scale = 1
+        # a collective's outputs and what only lays them out (`_moved`)
+        self._moved = WeakIdKeyDictionary()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self.cost += op_cost(func, args, kwargs, out)
+        if self._moved_by_collective(func, args, kwargs):
+            for t in _tensors(out):
+                self._moved[t] = True
+        else:
+            self.cost += _scaled(op_cost(func, args, kwargs, out),
+                                 self.scale)
         return out
+
+    def _moved_by_collective(self, func, args, kwargs) -> bool:
+        """A collective, or a view, concatenation or copy of nothing but
+        collectives' outputs: DTensor laying a gathered tensor out, part
+        of the collective (`_Collectives` counts it), not a compute op."""
+        if func.namespace in _COMM:
+            return True
+        if not (func.is_view or func.overloadpacket in _LAYOUT):
+            return False
+        ins = _tensors((args, kwargs))
+        return bool(ins) and all(t in self._moved for t in ins)
 
     def charge_kernel(self, name: str, flops: float, nbytes: float) -> None:
         """Charge one launch of hand-written kernel ``name`` on ``meta``
         tensors (its wrapper computes no op this mode sees)."""
-        self.cost += Cost(flops=float(flops), bytes=float(nbytes),
-                          dot_bytes=float(nbytes),
-                          kernel_flops={name: float(flops)})
+        self.cost += _scaled(Cost(flops=float(flops), bytes=float(nbytes),
+                                  dot_bytes=float(nbytes),
+                                  kernel_flops={name: float(flops)}),
+                             self.scale)
+
+
+def _counters() -> list:
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return [m for m in _get_current_dispatch_mode_stack()
+            if isinstance(m, Counter)]
+
+
+def _rescale(factor: float) -> None:
+    for c in _counters():
+        c.scale *= factor
+
+
+class _Scope(torch.autograd.Function):
+    """The identity, whose backward multiplies the counts' scale by
+    ``factor``: at a region's outputs (its backward starts there) the
+    shards, at its inputs (its backward ends there) their inverse."""
+
+    @staticmethod
+    def forward(ctx, factor, *xs):
+        ctx.factor = factor
+        return tuple(x.view_as(x) if isinstance(x, torch.Tensor) else x
+                     for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _rescale(ctx.factor)
+        return (None, *grads)
+
+
+@contextlib.contextmanager
+def _shards(n: int):
+    _rescale(n)
+    try:
+        yield
+    finally:
+        _rescale(1 / n)
+
+
+def per_shard(fn: Callable, n: int) -> Callable:
+    """``fn``, a `local_map` region's function whose work is split into
+    ``n`` equal shards over the ranks: under a count, its ops (and those
+    of its backward) are charged ``n`` times, the whole work once;
+    otherwise ``fn`` itself."""
+
+    def run(*args):
+        if n == 1 or not _counters():
+            return fn(*args)
+        grad = torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+        if grad:
+            args = _Scope.apply(1 / n, *args)
+        with _shards(n):
+            out = fn(*args)
+        if not grad:
+            return out
+        single = isinstance(out, torch.Tensor)
+        out = _Scope.apply(n, *((out,) if single else out))
+        return out[0] if single else out
+
+    return run
+
+
+#: the reference's collective kinds by functional-collective op
+_COLLECTIVE_KINDS = {"all_gather_into_tensor": "all-gather",
+                     "all_reduce": "all-reduce",
+                     "reduce_scatter_tensor": "reduce-scatter",
+                     "all_to_all_single": "all-to-all",
+                     "broadcast": "collective-broadcast"}
+
+
+class _Collectives(TorchDispatchMode):
+    """Beside a `Counter`, outside it: lets DTensor desugar its ops
+    (``NotImplemented``) and records the collectives among what comes
+    back, with one rank's operand bytes."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: Dict[str, float] = {}
+        self.bytes = 0.0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        kind = _COLLECTIVE_KINDS.get(getattr(func.overloadpacket,
+                                             "__name__", ""))
+        if kind is not None:
+            self.ops[kind] = self.ops.get(kind, 0) + 1
+            self.bytes += float(sum(_nbytes(t) for t in _tensors(args)))
+        return out
 
 
 def _leaf_tensors(tree) -> list:
@@ -201,9 +345,12 @@ def _leaf_tensors(tree) -> list:
 
 def tensor_bytes(*trees: Any) -> int:
     """The bytes of every tensor in ``trees`` (modules: their parameters
-    and buffers): what a device holds of a step's parameters, optimizer
-    state and inputs (`launch.roofline.analyze`'s ``bytes_per_device``)."""
-    return sum(_nbytes(t) for t in _leaf_tensors(trees))
+    and buffers), of a DTensor its local shards: what a device holds of a
+    step's parameters, optimizer state and inputs
+    (`launch.roofline.analyze`'s ``bytes_per_device``)."""
+    from torch.distributed.tensor import DTensor
+    return sum(_nbytes(t.to_local() if isinstance(t, DTensor) else t)
+               for t in _leaf_tensors(trees))
 
 
 def _check_meta(tree) -> None:
@@ -217,7 +364,11 @@ def count(fn: Callable, *args: Any, **kwargs: Any) -> Cost:
     """The `Cost` of ``fn(*args, **kwargs)``, run on ``meta`` under a
     `Counter`. Every tensor among the arguments (a module's parameters
     and buffers included) must lie on ``meta``; anything else raises."""
+    import torch.distributed as dist
     _check_meta((args, kwargs))
-    with Counter() as counter:
+    with _Collectives() as coll, Counter() as counter:
         fn(*args, **kwargs)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    counter.cost.collective_bytes = coll.bytes * world
+    counter.cost.collective_ops = dict(coll.ops)
     return counter.cost

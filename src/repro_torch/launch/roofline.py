@@ -144,8 +144,9 @@ def analyze(cost, cfg: ModelConfig, shape: ShapeConfig, mesh_name: str,
             chips: int, arch: str, bytes_per_device: Optional[float] = None,
             card: Optional[hw.Card] = None) -> Roofline:
     """The `Roofline` of a step whose `launch.hlocost.Cost` is ``cost``
-    (the whole step; one card, ``chips=1``, until the mesh of ROADMAP
-    A8b). ``bytes_per_device`` is what one device holds: the parameters,
+    (the whole step over ``chips`` devices: on a mesh, the count of the
+    cell's DTensor step, each term then divided by ``chips``).
+    ``bytes_per_device`` is what one device holds: the parameters,
     optimizer state and inputs of the count (`hlocost.tensor_bytes`; the
     reference reads the compiled step's memory analysis).
     ``card`` defaults to the card in use (`hw.current`); price a count on

@@ -16,8 +16,26 @@ the local sign step, as the reference's is on one device.
 over a `train.state.TrainCheckpointer` (the reference's checkpoint files,
 every ``--ckpt-every`` steps and at the end), resuming from the newest
 checkpoint in the directory, with a `StragglerMonitor` on each step's
-wall. Model parallelism (``--model-parallel``) waits for the mesh of
-ROADMAP §A8b.
+wall.
+
+``--model-parallel M`` trains on a ``(data, model)`` mesh of the world
+(`launch.mesh.make_host_mesh`), one process a rank, launched by
+``torchrun`` (or `launch.mesh.run_ranks`, which calls `main` in each
+rank)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --model-parallel 2 --device cpu --steps 3
+
+Every rank draws the same weights and batches; each keeps its shards
+(`launch.cells.shard_module`, placements from `dist.sharding.
+tree_shardings`) and the step runs under `axis_rules` on the mesh; with
+``--opt signum`` and more than one data rank it is the majority-vote
+step over the data axis (`make_train_step_compressed`), as the
+reference's is. ``--init-from DIR`` starts from the newest checkpoint in
+``DIR`` (the reference's files), restored onto the mesh. A world that
+``M`` does not divide raises, and so does ``--model-parallel`` with no
+process group and no ``torchrun`` environment. On a mesh ``--ckpt-dir``
+is not taken (the resilient loop saves from one process).
 """
 from __future__ import annotations
 
@@ -51,10 +69,11 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--init-from", default="",
+                    help="checkpoint directory to start from")
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel: sharded models wait "
-                                  "for the mesh of ROADMAP §A8b")
+        return _main_on_mesh(args)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -84,6 +103,71 @@ def main(argv=None):
             print(f"step {i:5d} loss {float(metrics['loss']):.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+    return 0
+
+
+def _main_on_mesh(args) -> int:
+    """`main` on a ``(data, model)`` mesh of the world (the module
+    docstring)."""
+    from repro_torch.dist.sharding import axis_rules, tree_shardings
+    from repro_torch.launch.cells import shard_module, shard_tree
+    from repro_torch.launch.mesh import (axis_group, init_from_env,
+                                         make_host_mesh)
+    from repro_torch.models.registry import batch_logical_specs
+    from repro_torch.train import make_train_step_compressed
+
+    if args.ckpt_dir:
+        raise ValueError("--ckpt-dir saves from one process; on a mesh "
+                         "start from a checkpoint with --init-from")
+    rank, _ = init_from_env("nccl" if args.device == "cuda" else "gloo")
+    mesh = make_host_mesh(model=args.model_parallel, device=args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    bundle = build(cfg, device=args.device)
+    if rank == 0:
+        print(f"arch={cfg.name} family={cfg.family} device={bundle.device}"
+              f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    params = bundle.init(
+        torch.Generator(device=bundle.device).manual_seed(0))
+    _, specs = bundle.abstract()
+    lr_fn = warmup_cosine(args.lr, max(10, args.steps // 20), args.steps)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    data = SyntheticLM.for_cell(cfg, shape, device=bundle.device)
+    n_data = mesh.shape[0]
+    if args.opt == "signum" and n_data > 1:
+        sub = mesh["model"]
+        group = axis_group(mesh, ("data",))
+        opt = get_optimizer("signum", lr_fn, group=group)
+        step_fn = make_train_step_compressed(bundle, opt, group,
+                                             grad_accum=args.grad_accum)
+        shard_module(params, tree_shardings(params, specs, sub), sub)
+        run_mesh, b_pl = sub, None
+    else:
+        opt = get_optimizer(args.opt, lr_fn)
+        step_fn = make_train_step(bundle, opt, grad_accum=args.grad_accum)
+        shard_module(params, tree_shardings(params, specs, mesh), mesh)
+        b_pl = tree_shardings(data.batch(0), batch_logical_specs(cfg, shape),
+                              mesh)
+        run_mesh = mesh
+    opt_state = opt.init(params)
+    start = 0
+    with axis_rules(run_mesh):
+        if args.init_from:
+            start, _, _ = TrainCheckpointer(args.init_from).restore(
+                (params, opt_state))
+        t0 = time.time()
+        for i in range(start, args.steps):
+            batch = data.batch(i)
+            if b_pl is not None:
+                batch = shard_tree(batch, b_pl, mesh)
+            params, opt_state, metrics = step_fn(params, opt_state, i, batch)
+            if rank == 0 and (i % args.log_every == 0
+                              or i == args.steps - 1):
+                print(f"step {i:5d} loss {float(metrics['loss']):.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"({(time.time() - t0) / (i + 1 - start):.2f}s/step)",
+                      flush=True)
     return 0
 
 

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (DenseBlock, _ffn,
                                             attention_prefill, check_remat,
@@ -115,7 +116,8 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig,
     """frames: (B, Sf, Df) stub embeddings -> (B, Sf, D) encoder output:
     bidirectional blocks (each checkpointed under ``remat`` while grad is
     on), then ``enc_norm``."""
-    x = frontend_proj(params.frontend_proj, frames, cfg)
+    x = constrain(frontend_proj(params.frontend_proj, frames, cfg), "batch",
+                  "seq", "embed_act")
     for p in params.enc:
         x = remat_call(enc_block, p, x, cfg, remat=remat)
     return L.rmsnorm(x, params.enc_norm, cfg.norm_eps)
@@ -125,6 +127,7 @@ def dec_block(p: DecBlock, x: torch.Tensor, memory: torch.Tensor,
               cfg: ModelConfig, qc: int = 512) -> torch.Tensor:
     """A decoder layer over the whole sequence: causal self-attention,
     cross-attention to ``memory`` (B, Sm, D), the MLP."""
+    x = constrain(x, "batch", "seq", "embed_act")
     h = x + L.attention_train(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps),
                               cfg, q_chunk=qc, kv_chunk=qc)
     h = h + L.cross_attention(p.cross, L.rmsnorm(h, p.ln_x, cfg.norm_eps),
@@ -170,8 +173,8 @@ def cross_prefill(p: DecBlock, h: torch.Tensor, memory: torch.Tensor,
     """A `DecBlock`'s cross-attention and MLP over the prompt: (h, the
     memory's keys, its values), the keys and values projected once for
     the attention and the cache."""
-    xk = torch.einsum("bsd,dhk->bshk", memory, p.cross.wk)
-    xv = torch.einsum("bsd,dhk->bshk", memory, p.cross.wv)
+    xk = L.project(memory, p.cross.wk)
+    xv = L.project(memory, p.cross.wv)
     h = h + L.cross_attention(p.cross, L.rmsnorm(h, p.ln_x, cfg.norm_eps),
                               memory, cfg, kv=(xk, xv))
     return h + _ffn(p, h, cfg), xk, xv
@@ -211,7 +214,7 @@ def _cross_decode(p: L.Attention, x: torch.Tensor, xk: torch.Tensor,
     Sm = xk.shape[1]
     xk = xk.reshape(B, Sm, KV, hd)
     xv = xv.reshape(B, Sm, KV, hd)
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)[:, 0]
+    q = L.project(x, p.wq)[:, 0]
     if cfg.qk_norm:
         q = L.rmsnorm(q, p.q_norm, cfg.norm_eps)
     qg = q.reshape(B, KV, G, hd)

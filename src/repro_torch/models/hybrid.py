@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import (DenseBlock, _ffn,
@@ -117,7 +118,7 @@ def hybrid_apply(params: Hybrid, tokens: torch.Tensor, cfg: ModelConfig,
     every ``attn_every`` of them (flash chunks ``min(512, S)``), then the
     final norm."""
     check_remat(remat)
-    x = L.embed(params.embed, tokens)
+    x = constrain(L.embed(params.embed, tokens), "batch", "seq", "embed_act")
     qc = min(512, tokens.shape[1])
     for i, block in enumerate(params.ssm_blocks()):
         x = remat_call(ssm_block, block, x, cfg, remat=remat)

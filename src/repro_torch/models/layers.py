@@ -10,17 +10,22 @@ and the softmax in float32, activations in ``cfg.dtype``.
 Train and prefill attention run `kernels.ops.flash_attention`: the CUDA
 kernels on the card and their plain versions on the CPU; the device is
 the only selector, and with grad on it is differentiable through the
-backward kernel. The reference's ``attention_backend`` /
-``attention_remat`` context managers, which its ``launch/cells.py``
-sets, come with the port's ``cells.py`` (ROADMAP A8b); the flash
+backward kernel. The reference's ``attention_backend`` ("chunked", its
+online softmax in ``jnp``, or "flash", its Pallas kernel) and
+``attention_remat`` (a checkpoint per query chunk) context managers,
+which `launch.cells` sets from a cell's plan, keep their names and
+values here, but both backends reach the flash kernels: the flash
 `torch.autograd.Function` saves q, k, v, o and the logsumexp rows, so no
-O(S^2) state arises to rematerialise. Decode attention is plain
+O(S^2) state arises to rematerialise, and the plain version stays off
+the card. The two record what was asked (`current_attention`) and
+refuse an unknown backend. Decode attention is plain
 PyTorch, as the reference's is plain ``jnp``; it writes the new key and
 value into the cache in place where the reference returns an updated
 copy (``dynamic_update_slice``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional, Tuple
@@ -28,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -148,11 +154,47 @@ class Attention(nn.Module):
                 getattr(self, name).fill_(1)
 
 
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``: x (B, S, D) times w (D, A, C),
+    a head projection (D, H, hd) or SwiGLU's fused ``wi`` (D, 2, F).
+
+    On DTensors (a mesh) the product runs in a `local_map` region, laid
+    out as the reference's rules lay it out: w's D axis (``fsdp``)
+    gathered, its other axes sharded where w has them sharded, x's batch
+    and sequence sharded where x has them; x is replicated over the axes
+    that shard w. DTensor's own product would flatten ``A * C`` and may
+    shard it over more ranks than ``A`` (8 KV heads, or SwiGLU's 2, on a
+    model axis of 16), which no split back into (A, C) can keep."""
+    if not isinstance(x, DTensor):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.launch.hlocost import per_shard
+    mesh = x.device_mesh
+    w_pl = tuple(q if isinstance(q, Shard) and q.dim > 0 else Replicate()
+                 for q in w.placements)
+    on_w = [isinstance(q, Shard) for q in w_pl]
+    x_pl = tuple(Replicate() if s or not isinstance(q, Shard) or q.dim > 1
+                 else q for s, q in zip(on_w, x.placements))
+    out_pl = tuple(Shard(q.dim + 1) if s else r
+                   for s, q, r in zip(on_w, w_pl, x_pl))
+    x_grad = tuple(Partial() if s else q for s, q in zip(on_w, x_pl))
+    w_grad = tuple(Partial() if isinstance(q, Shard) else p
+                   for q, p in zip(x_pl, w_pl))
+    shards = 1
+    for q, n in zip(out_pl, mesh.shape):
+        shards *= n if isinstance(q, Shard) else 1
+    return local_map(
+        per_shard(lambda a, b: torch.einsum("bsd,dhk->bshk", a, b), shards),
+        out_placements=(out_pl,), in_placements=(x_pl, w_pl),
+        in_grad_placements=(x_grad, w_grad), device_mesh=mesh,
+        redistribute_inputs=True)(x, w)
+
+
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, rope: bool = True):
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    q, k, v = project(x, p.wq), project(x, p.wk), project(x, p.wv)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     if cfg.qk_norm:
@@ -162,6 +204,43 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+#: the reference's attention backends (`attention_backend`)
+ATTENTION_BACKENDS = ("chunked", "flash")
+_ATTN = {"remat": False, "backend": "chunked"}
+
+
+@contextlib.contextmanager
+def attention_remat(enabled: bool = True):
+    """The reference's per-query-chunk checkpoint switch. Recorded only:
+    the flash Function keeps no O(S^2) state to recompute."""
+    prev = _ATTN["remat"]
+    _ATTN["remat"] = bool(enabled)
+    try:
+        yield
+    finally:
+        _ATTN["remat"] = prev
+
+
+@contextlib.contextmanager
+def attention_backend(name: str):
+    """The reference's attention backend, ``"chunked"`` or ``"flash"``;
+    any other name raises. Both run `kernels.ops.flash_attention` here."""
+    if name not in ATTENTION_BACKENDS:
+        raise ValueError(f"unknown attention backend {name!r}; expected "
+                         f"one of {ATTENTION_BACKENDS}")
+    prev = _ATTN["backend"]
+    _ATTN["backend"] = name
+    try:
+        yield
+    finally:
+        _ATTN["backend"] = prev
+
+
+def current_attention() -> dict:
+    """The innermost ``{"remat": ..., "backend": ...}`` asked for."""
+    return dict(_ATTN)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -196,10 +275,9 @@ def cross_attention(p: Attention, x: torch.Tensor, memory: torch.Tensor,
     ``kv``: the projections ``(memory wk, memory wv)`` where the caller
     has them already (the serving prefill caches them), else computed
     here."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    q = project(x, p.wq)
     if kv is None:
-        kv = (torch.einsum("bsd,dhk->bshk", memory, p.wk),
-              torch.einsum("bsd,dhk->bshk", memory, p.wv))
+        kv = (project(memory, p.wk), project(memory, p.wv))
     k, v = kv
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
@@ -274,7 +352,7 @@ class MLP(nn.Module):
 
 def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.mlp_kind == "swiglu":
-        h = torch.einsum("bsd,dcf->bscf", x, p.wi)
+        h = project(x, p.wi)                 # einsum("bsd,dcf->bscf")
         gate, up = h[:, :, 0], h[:, :, 1]
         a = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
     else:
@@ -306,7 +384,55 @@ class Embed(nn.Module):
 
 
 def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(p.tok, DTensor):
+        return _embed_on_mesh(p.tok, tokens)
     return p.tok[tokens]
+
+
+def _embed_on_mesh(tok: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The lookup with the table on a mesh, in a `local_map` region laid
+    out as the reference's rules lay it out: the table's D axis
+    (``fsdp``) gathered, its vocabulary sharded where the table has it
+    sharded, the ids' batch sharded where theirs is. Each rank looks up
+    the ids that fall in its slice of the vocabulary and leaves zeros
+    for the rest, so the rows are a sum over the vocabulary's axes
+    (``Partial``). DTensor's own indexing has no rule for its backward on
+    a sharded table in torch 2.11, nor its embedding one for the batch
+    and the vocabulary both sharded in 2.13."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.launch.hlocost import per_shard
+    mesh = tok.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    vocab = [q == Shard(0) for q in tok.placements]
+    t_pl = tuple(Shard(0) if v else Replicate() for v in vocab)
+    i_pl = tuple(Replicate() if v or not isinstance(q, Shard) else q
+                 for v, q in zip(vocab, tokens.placements))
+    out_pl = tuple(Partial() if v else q for v, q in zip(vocab, i_pl))
+    t_grad = tuple(Partial() if isinstance(q, Shard) else p
+                   for q, p in zip(i_pl, t_pl))
+    first, shards = 0, 1
+    for v, q, name, n in zip(vocab, i_pl, mesh.mesh_dim_names, mesh.shape):
+        if v:                   # this rank's slice of the vocabulary
+            first = first * n + mesh.get_local_rank(name)
+        elif isinstance(q, Shard):
+            shards *= n
+    n_vocab = math.prod(n for v, n in zip(vocab, mesh.shape) if v)
+    v0 = first * (tok.shape[0] // n_vocab)
+
+    def local(table, ids):
+        ids = ids.long() - v0
+        hit = (ids >= 0) & (ids < table.shape[0])
+        rows = table[ids.clamp(0, table.shape[0] - 1)]
+        return rows * hit[..., None].to(table.dtype)
+
+    return local_map(per_shard(local, shards), out_placements=(out_pl,),
+                     in_placements=(t_pl, i_pl),
+                     in_grad_placements=(t_grad, i_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(tok, tokens)
 
 
 def lm_logits(p: Embed, x: torch.Tensor) -> torch.Tensor:
@@ -321,8 +447,11 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     of `lm_logits`, as the reference's does."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    loss = lse - ll + z_loss * lse * lse
+    # the picked logit keeps its trailing axis until it meets lse: on a
+    # mesh, a vocab-sharded gather is a masked partial sum that DTensor
+    # reduces at that first use, in the gather's own shape
+    ll = torch.gather(logits, -1, labels.long()[..., None])
+    loss = (lse[..., None] - ll)[..., 0] + z_loss * lse * lse
     if mask is not None:
         return (loss * mask).sum() / mask.sum().clamp_min(1)
     return loss.mean()

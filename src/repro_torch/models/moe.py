@@ -10,12 +10,27 @@ loss (Switch-style) is returned alongside the output.
 The router runs in float32; the top-k is a stable descending sort, so
 ties keep the lower expert first, as ``jax.lax.top_k`` does. The expert
 products are plain batched products over the expert axis (the reference
-computes them outside any Pallas kernel). The reference's
-``moe_constraints`` is a sharding hint for a mesh and comes with the
-mesh of ROADMAP A8b.
+computes them outside any Pallas kernel).
+
+On a mesh (DTensor activations, on their own `DeviceMesh`) DTensor has
+no sharding rule for the dispatch's sort,
+``scatter_add_`` and indexed writes, so `moe_ffn` runs them in two
+`local_map` regions, as the reference's rules place the work: the
+routing (router product, top-k, the counts and the aux loss) on the
+whole token set on every rank, which is small beside the experts; then
+the dispatch, the expert products and the combine with the experts split
+over the model axis and each expert's capacity rows over the data axes,
+so that every expert row is computed on one rank. Each rank's combine
+is its share of y, summed over the ranks (``Partial``). The reference's
+``moe_constraints`` (`_c` at its three sites) is the identity there: the
+regions run under a disabled `axis_rules` context, as the reference's
+``shard_map`` bodies do, and their buffers are sharded on the experts
+whatever the flag says.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -23,7 +38,30 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import (axis_rules, constrain, mesh_sizes,
+                                       placements_of, resolve_spec)
 from repro_torch.models import layers as L
+
+# The reference's switch for its explicit dispatch-buffer constraints
+# (off by default; `launch.cells` sets it from the plan's
+# ``moe_constrain``).
+_MOE_CONSTRAIN = {"on": False}
+
+
+@contextlib.contextmanager
+def moe_constraints(enabled: bool = True):
+    """Constrain the dispatch buffer, the experts' hidden activations and
+    their outputs to the experts' sharding (`_c`) while active."""
+    prev = _MOE_CONSTRAIN["on"]
+    _MOE_CONSTRAIN["on"] = enabled
+    try:
+        yield
+    finally:
+        _MOE_CONSTRAIN["on"] = prev
+
+
+def _c(x, *names):
+    return constrain(x, *names) if _MOE_CONSTRAIN["on"] else x
 
 
 class MoE(nn.Module):
@@ -116,37 +154,161 @@ def route(router: torch.Tensor, xt: torch.Tensor, top_k: int
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y: (B, S, D), aux_loss scalar)."""
-    B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    C = expert_capacity(cfg, T)
-    xt = x.reshape(T, D)
+    from torch.distributed.tensor import DTensor
 
-    probs, gate, idx = route(p.router, xt, k)
-    d = dispatch(idx, E, C)
-    # Switch-style aux loss: E * sum_e f_e * p_e
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    if isinstance(x, DTensor):
+        y, aux = _moe_on_mesh(p, xt, cfg, x.device_mesh)
+        y = constrain(y, "batch", "embed_act").reshape(B, S, D)
+    else:
+        E, k = cfg.n_experts, cfg.top_k
+        C = expert_capacity(cfg, T)
+        probs, gate, idx = route(p.router, xt, k)
+        d = dispatch(idx, E, C)
+        aux = _aux(probs, d.counts, cfg)
+        y = _experts(xt, gate, d, p.wi, p.wo, cfg).reshape(B, S, D)
+    if cfg.n_shared_experts:
+        y = y + L.mlp(p.shared, x, cfg)
+    return y, aux
+
+
+def _aux(probs: torch.Tensor, counts: torch.Tensor,
+         cfg: ModelConfig) -> torch.Tensor:
+    """The Switch-style aux loss ``E * sum_e f_e p_e`` of router
+    probabilities (T, E) and each expert's routed slots."""
     me = probs.mean(dim=0)                                    # mean prob
-    ce = d.counts.float() / (T * k)                           # routed share
-    aux = E * (me * ce).sum()
+    ce = counts.float() / (probs.shape[0] * cfg.top_k)        # routed share
+    return cfg.n_experts * (me * ce).sum()
+
+
+def _experts(xt: torch.Tensor, gate: torch.Tensor, d: Dispatch,
+             wi: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig
+             ) -> torch.Tensor:
+    """The capacity-based dispatch ``d``, the expert SwiGLU and the
+    combine of tokens ``xt`` (T, D) with weights ``gate`` (T, k): y (T,
+    D)."""
+    T, D = xt.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = expert_capacity(cfg, T)
 
     # ---- capacity-based dispatch -------------------------------------
-    buf = x.new_zeros((E, C + 1, D))
+    buf = xt.new_zeros((E, C + 1, D))
     buf[d.sorted_e, d.dest_c] = xt[d.sort_i // k]
-    buf = buf[:, :C]
+    buf = _c(buf[:, :C], "experts", None, None)
 
     # ---- expert FFN (SwiGLU) -----------------------------------------
-    h = torch.einsum("ecd,edgf->ecgf", buf, p.wi)
-    act = torch.nn.functional.silu(h[:, :, 0].float()).to(x.dtype) \
-        * h[:, :, 1]
-    yb = torch.einsum("ecf,efd->ecd", act, p.wo)
+    yb = _c(_swiglu(buf, wi, wo), "experts", None, None)
     yb = torch.cat([yb, yb.new_zeros((E, 1, D))], dim=1)
 
     # ---- combine -------------------------------------------------------
     y_sorted = yb[d.sorted_e, d.dest_c] * d.keep[:, None].to(yb.dtype)
     y_flat = y_sorted[d.inv].reshape(T, k, D)
-    y = (y_flat * gate[..., None].to(yb.dtype)).sum(dim=1)
-    y = y.reshape(B, S, D)
+    return (y_flat * gate[..., None].to(yb.dtype)).sum(dim=1)
 
-    if cfg.n_shared_experts:
-        y = y + L.mlp(p.shared, x, cfg)
+
+def _swiglu(buf: torch.Tensor, wi: torch.Tensor,
+            wo: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their buffers (E, C, D) -> (E, C, D)."""
+    h = _c(torch.einsum("ecd,edgf->ecgf", buf, wi),
+           "experts", None, None, "mlp")
+    act = torch.nn.functional.silu(h[:, :, 0].float()).to(buf.dtype) \
+        * h[:, :, 1]
+    return torch.einsum("ecf,efd->ecd", act, wo)
+
+
+def _experts_share(xt: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor,
+                   wi: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig,
+                   e0: int, c0: int, Cl: int) -> torch.Tensor:
+    """`_experts` for one rank of a mesh: ``wi`` / ``wo`` hold experts
+    ``e0 ..`` and this rank fills capacity rows ``c0 .. c0 + Cl`` of
+    them. An expert's slots lie together in the expert-sorted order and
+    its kept ones are its first C, so the rank gathers just its rows'
+    tokens (El x Cl of them; the rows past an expert's count are zeros)
+    and adds their gated outputs back into its share of y (T, D)."""
+    T, D = xt.shape
+    E, k = cfg.n_experts, cfg.top_k
+    El = wi.shape[0]
+    flat_e = idx.reshape(-1)
+    sort_i = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(E, dtype=torch.long, device=idx.device).scatter_add_(
+        0, flat_e.long(), torch.ones_like(flat_e, dtype=torch.long))
+    starts = counts.cumsum(0) - counts
+    e = torch.arange(e0, e0 + El, device=idx.device)
+    c = torch.arange(c0, c0 + Cl, device=idx.device)
+    valid = c[None, :] < counts[e][:, None]                  # (El, Cl)
+    pos = (starts[e][:, None] + c[None, :]).clamp(max=T * k - 1)
+    slot = sort_i[pos]
+    src = slot // k
+    buf = xt[src] * valid[..., None].to(xt.dtype)
+    yb = _swiglu(buf, wi, wo)
+    w = gate.reshape(-1)[slot] * valid
+    return xt.new_zeros((T, D)).index_add_(
+        0, src.reshape(-1), (yb * w[..., None].to(yb.dtype)).reshape(-1, D))
+
+
+def _moe_on_mesh(p: MoE, xt, cfg: ModelConfig, mesh):
+    """`moe_ffn`'s routed part on DTensor tokens ``xt`` (T, D): (y (T, D)
+    summed over the ranks' shares, aux) (the module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.launch.hlocost import per_shard
+
+    T, D = xt.shape
+    E = cfg.n_experts
+    C = expert_capacity(cfg, T)
+    sizes = mesh_sizes(mesh)
+    rep = (Replicate(),) * len(sizes)
+    e_spec = resolve_spec((E, C, D), ("experts", "batch", None), mesh)
+    e_pl = placements_of(e_spec, mesh)
+    coords = {a: mesh.get_local_rank(a) for a in sizes}
+
+    def share(entry, n):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        idx, m = 0, 1
+        for a in axes:
+            idx, m = idx * sizes[a] + coords[a], m * sizes[a]
+        return idx * (n // m), n // m
+
+    e0, El = share(e_spec[0], E)
+    c0, Cl = share(e_spec[1], C)
+    wi_pl = placements_of((e_spec[0], None, None, None), mesh)
+    wo_pl = placements_of((e_spec[0], None, None), mesh)
+    # a rank's y (and its gradients of the tokens and gates) is its
+    # experts' and rows' share: summed over the axes that split them; its
+    # gradients of its experts' weights, over the axes that split the rows
+    part = tuple(Partial() if isinstance(q, Shard) else Replicate()
+                 for q in e_pl)
+    rows = tuple(Partial() if q == Shard(1) else None for q in e_pl)
+    wi_grad = tuple(r or q for r, q in zip(rows, wi_pl))
+    wo_grad = tuple(r or q for r, q in zip(rows, wo_pl))
+
+    def routing(a, r):
+        with axis_rules(None):
+            probs, gate, idx = route(r, a, cfg.top_k)
+            flat = idx.reshape(-1)
+            counts = torch.zeros(E, dtype=torch.long,
+                                 device=idx.device).scatter_add_(
+                0, flat, torch.ones_like(flat))
+            return gate, idx, _aux(probs, counts, cfg)
+
+    def experts(a, g, i, wi, wo):
+        with axis_rules(None):
+            return _experts_share(a, g, i, wi, wo, cfg, e0, c0, Cl)
+
+    shards = math.prod(sizes[a] for a, q in zip(sizes, part)
+                       if isinstance(q, Partial))
+    gate, idx, aux = local_map(
+        routing, out_placements=(rep, rep, rep), in_placements=(rep, rep),
+        in_grad_placements=(rep, rep), device_mesh=mesh,
+        redistribute_inputs=True)(xt, p.router)
+    y = local_map(
+        per_shard(experts, shards), out_placements=(part,),
+        in_placements=(rep, rep, rep, wi_pl, wo_pl),
+        in_grad_placements=(part, part, rep, wi_grad, wo_grad),
+        device_mesh=mesh, redistribute_inputs=True)(xt, gate, idx, p.wi,
+                                                    p.wo)
     return y, aux

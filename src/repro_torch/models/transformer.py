@@ -18,8 +18,9 @@ runs under non-reentrant `torch.utils.checkpoint.checkpoint` while grad
 is on (`remat_call`, which the other families' training stacks use too),
 so its forward runs again in the backward, under ``"dots"`` with the
 outputs of its products with no batch dims kept (`dots_policy`). The
-reference's sharding constraints are the identity on one card and are
-dropped.
+reference's sharding constraints (`dist.sharding.constrain`) stand where
+it has them: the identity outside a mesh, a DTensor redistribution under
+one (`launch.cells`).
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
@@ -167,6 +169,7 @@ def transformer_init(generator: torch.Generator, cfg: ModelConfig,
 
 def dense_block(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig,
                 q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
+    x = constrain(x, "batch", "seq", "embed_act")
     h = x + L.attention_train(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps),
                               cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
     h = h + L.mlp(p.mlp, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
@@ -177,6 +180,7 @@ def moe_block(p: MoEBlock, x: torch.Tensor, cfg: ModelConfig,
               q_chunk: int = 512, kv_chunk: int = 512
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE block's training forward: (output, its aux loss)."""
+    x = constrain(x, "batch", "seq", "embed_act")
     h = x + L.attention_train(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps),
                               cfg, q_chunk=q_chunk, kv_chunk=kv_chunk)
     y, aux = M.moe_ffn(p.moe, L.rmsnorm(h, p.ln2, cfg.norm_eps), cfg)
@@ -266,7 +270,7 @@ def transformer_apply(params: Transformer, tokens: torch.Tensor,
     forward runs again in the backward."""
     check_remat(remat)
     qc, kc = _chunks_for(tokens.shape[1])
-    x = L.embed(params.embed, tokens)
+    x = constrain(L.embed(params.embed, tokens), "batch", "seq", "embed_act")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params.blocks():
         if isinstance(block, MoEBlock):
@@ -290,7 +294,7 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     `encdec.encdec_apply`, `vision.vlm_apply`)."""
     apply_fn = apply_fn or transformer_apply
     x, aux = apply_fn(params, batch["tokens"], cfg, remat=remat)
-    logits = L.lm_logits(params.embed, x)
+    logits = constrain(L.lm_logits(params.embed, x), "batch", "seq", "vocab")
     xent = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
     loss = xent + MOE_AUX_WEIGHT * aux
     return loss, {"xent": xent, "aux": aux}
@@ -342,7 +346,8 @@ def transformer_decode_step(params: Transformer, token: torch.Tensor,
     """One decode step. token: (B,) ids; cache: {"k", "v"} of shape (L, B,
     S_max, KV * hd), written in place at ``pos``. Returns (logits (B, V),
     the cache)."""
-    x = L.embed(params.embed, token[:, None])
+    x = constrain(L.embed(params.embed, token[:, None]), "batch", None,
+                  "embed_act")
     for i, p in enumerate(params.blocks()):
         x, _, _ = block_decode(p, x, cache["k"][i], cache["v"][i], pos,
                                cfg)

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.encdec import (DecBlock, _frontend_dim,
                                        cross_prefill, dec_block,
@@ -104,7 +105,7 @@ def vlm_apply(params: VLM, tokens: torch.Tensor, cfg: ModelConfig,
     S)``), then the final norm."""
     check_remat(remat)
     memory = frontend_proj(params.frontend_proj, patches, cfg)
-    x = L.embed(params.embed, tokens)
+    x = constrain(L.embed(params.embed, tokens), "batch", "seq", "embed_act")
     qc = min(512, tokens.shape[1])
     for group in params.groups:
         for p in group.self_blocks():

@@ -29,6 +29,14 @@ GB in float32 for Maverick's 64 experts, would otherwise take several
 float32 copies at once), and `clip_by_global_norm` scales the gradients
 in place the same way; only the order of the float32 norm and RMS sums
 changes with the slicing.
+
+On a mesh (`launch.cells`) the parameters and gradients are DTensors.
+The state then is DTensors too, laid out as the parameters (a stacked
+leaf's on its shifted dims, adafactor's row and column statistics on the
+dims they keep, as the reference's `launch.cells._opt_shardings` lays
+them out). SGD and AdamW update each rank's local shards, where slicing
+reads no other rank; the clip, adafactor and signum run DTensor
+operations whole, which reduce over the shards where they must.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from typing import Callable, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 Tree = Dict[str, torch.Tensor]
 
@@ -144,8 +153,9 @@ CHUNK_ELEMS = 1 << 26
 def _row_slices(x: torch.Tensor) -> list:
     """Indices of ``x`` along its leading axis, each of at most
     `CHUNK_ELEMS` elements and at least one row: ``[...]`` (the whole)
-    when it fits."""
-    if x.dim() == 0 or x.numel() <= CHUNK_ELEMS:
+    when it fits, and for a DTensor (a slice of a sharded axis would
+    gather it)."""
+    if x.dim() == 0 or x.numel() <= CHUNK_ELEMS or isinstance(x, DTensor):
         return [...]
     rows = max(1, CHUNK_ELEMS // x[0].numel())
     return [slice(i, i + rows) for i in range(0, x.shape[0], rows)]
@@ -172,14 +182,67 @@ def clip_by_global_norm(grads: Tree, max_norm: float
     return grads, gn
 
 
+def _leaf_zeros(leaf: Leaf, tensors: Tree, dtype=None, drop=None
+                ) -> torch.Tensor:
+    """Zeros of ``leaf``'s shape less its axis ``drop`` (if given), in
+    ``dtype`` (default the parameter's), beside the parameter: for a
+    DTensor parameter a DTensor sharded on the same axes (shifted past
+    the stacking axes; an axis sharded on ``drop`` is replicated)."""
+    p = tensors[leaf.members[0]]
+    shape = list(leaf.shape(tensors))
+    if drop is not None:
+        drop %= len(shape)
+        del shape[drop]
+    dtype = dtype or p.dtype
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    from torch.distributed.tensor import zeros
+
+    from repro_torch.dist.sharding import distribute
+    placements = []
+    for q in p.placements:
+        d = q.dim + len(leaf.grid) if isinstance(q, Shard) else None
+        if d is None or d == drop:
+            placements.append(Replicate())
+        else:
+            placements.append(Shard(d - (drop is not None and d > drop)))
+    if p.to_local().is_meta:        # an abstract cell: nothing allocated
+        return distribute(torch.zeros(shape, dtype=dtype, device="meta"),
+                          p.device_mesh, placements)
+    return zeros(shape, dtype=dtype, device_mesh=p.device_mesh,
+                 placements=placements)
+
+
 def _zeros(params, dtype=None) -> Tree:
     tensors = named(params)
-    out = {}
-    for leaf in leaves(tensors):
-        p = tensors[leaf.members[0]]
-        out[leaf.name] = torch.zeros(leaf.shape(tensors),
-                                     dtype=dtype or p.dtype, device=p.device)
-    return out
+    return {leaf.name: _leaf_zeros(leaf, tensors, dtype)
+            for leaf in leaves(tensors)}
+
+
+def _on_shards(fn: Callable, p: torch.Tensor, *xs: torch.Tensor) -> None:
+    """``fn(p, *xs)``; for a DTensor ``p``, on this rank's shards (`_local`)
+    and, under a count, charged once for each shard that splits ``p``."""
+    if not isinstance(p, DTensor):
+        return fn(p, *xs)
+    from repro_torch.launch.hlocost import per_shard
+    n = 1
+    for q, size in zip(p.placements, p.device_mesh.shape):
+        n *= size if isinstance(q, Shard) else 1
+    return per_shard(fn, n)(*_local(p, *xs))
+
+
+def _local(p: torch.Tensor, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``(p, *xs)`` as this rank's shards of DTensor ``p``'s layout (each
+    of ``xs`` redistributed to it first where it differs, as a gradient
+    may), or as they are when ``p`` is a plain tensor."""
+    if not isinstance(p, DTensor):
+        return (p, *xs)
+    out = [p.to_local()]
+    for x in xs:
+        if tuple(x.placements) != tuple(p.placements):
+            x = x.redistribute(p.device_mesh, p.placements)
+        out.append(x.to_local())
+    return tuple(out)
 
 
 def _each_leaf(grads: Tree, params):
@@ -209,11 +272,14 @@ def sgd(lr_fn, momentum: float = 0.9, weight_decay: float = 0.0
     @torch.no_grad()
     def update(grads, state, params, step):
         lr = _f32(lr_fn(step))
-        for g, p, mu in _each_member(grads, params, state["mu"]):
+        def one(p, g, mu):
             m = momentum * mu + g.to(mu.dtype)
             mu.copy_(m)
             d = (m + weight_decay * p.to(m.dtype)).to(p.dtype)
             p.copy_((p.float() - lr * d.float()).to(p.dtype))
+
+        for g, p, mu in _each_member(grads, params, state["mu"]):
+            _on_shards(one, p, g, mu)
         return params, state
 
     return Optimizer(init, update, "sgd")
@@ -231,8 +297,7 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         t = np.float32(int(step)) + np.float32(1.0)
         c1 = _f32(np.float32(1.0) - np.float32(b1) ** t)
         c2 = _f32(np.float32(1.0) - np.float32(b2) ** t)
-        for g_, p_, m_, v_ in _each_member(grads, params, state["m"],
-                                           state["v"]):
+        def one(p_, g_, m_, v_):
             for s in _row_slices(p_):
                 g, p, m, v = g_[s].float(), p_[s], m_[s], v_[s]
                 m.copy_(b1 * m + (1 - b1) * g)
@@ -240,6 +305,10 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 u = (m / c1) / (torch.sqrt(v / c2) + eps)
                 p32 = p.float()
                 p.copy_((p32 - lr * (u + weight_decay * p32)).to(p.dtype))
+
+        for g, p, m, v in _each_member(grads, params, state["m"],
+                                       state["v"]):
+            _on_shards(one, p, g, m, v)
         return params, state
 
     return Optimizer(init, update, "adamw")
@@ -266,16 +335,14 @@ def adafactor(lr_fn, decay: float = 0.8, eps: float = 1e-30,
     def init(params):
         tensors = named(params)
         out = {}
+        f32 = torch.float32
         for leaf in leaves(tensors):
-            shape = leaf.shape(tensors)
-            z = dict(dtype=torch.float32,
-                     device=tensors[leaf.members[0]].device)
-            if len(shape) >= 2:
+            if len(leaf.shape(tensors)) >= 2:
                 out[leaf.name] = {
-                    "r": torch.zeros(shape[:-1], **z),
-                    "c": torch.zeros(shape[:-2] + shape[-1:], **z)}
+                    "r": _leaf_zeros(leaf, tensors, f32, drop=-1),
+                    "c": _leaf_zeros(leaf, tensors, f32, drop=-2)}
             else:
-                out[leaf.name] = {"v": torch.zeros(shape, **z)}
+                out[leaf.name] = {"v": _leaf_zeros(leaf, tensors, f32)}
         return {"f": out}
 
     def factored_u(g, r, c, r_mean=None):

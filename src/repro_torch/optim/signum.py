@@ -17,6 +17,14 @@ The update: ``err = u - scale * s``, ``mu = momentum * mu + scale * s``,
 ``p -= lr * (mu + wd * p)``. ``mean |u|`` is taken over each of the
 reference's leaves, so over all layers of a stacked one
 (`optim.optimizers.leaves`).
+
+On a mesh (`launch.cells` with ``compressed_dp``) the parameters are
+DTensors sharded over the model axis and replicated over the data axes,
+whose process group is ``group``: ``mean |u|`` is a DTensor reduction
+over the model shards, and each rank packs and votes on its own shards,
+which line up with the same shards of the other data ranks (the
+reference's ``shard_map`` over the data axes with the model axis left to
+GSPMD).
 """
 from __future__ import annotations
 
@@ -24,7 +32,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.sharding import implicit_replication, local, whole
 from repro_torch.kernels import ops as kops
 from repro_torch.optim.optimizers import (Optimizer, _each_leaf, _f32,
                                           _zeros)
@@ -103,8 +113,26 @@ def majority_allreduce(packed: torch.Tensor,
     dist.all_to_all_single(recv, shards, group=group)
     mine = kops.majority(recv[:, None, :])[0]
     full = torch.empty(Wp, dtype=packed.dtype, device=packed.device)
-    dist.all_gather_into_tensor(full, mine.contiguous(), group=group)
+    # into D views of one buffer: the list form is there in 2.11 and 2.13
+    # alike (2.13 deprecates all_gather_into_tensor)
+    dist.all_gather(list(full.chunk(D)), mine.contiguous(), group=group)
     return full[None, :W]
+
+
+def _as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s layout where both are DTensors."""
+    if isinstance(x, DTensor) and tuple(x.placements) != tuple(
+            like.placements):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
+def _as_shard(shard: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``shard`` (this rank's) in DTensor ``like``'s layout."""
+    if not isinstance(like, DTensor):
+        return shard
+    return DTensor.from_local(shard, like.device_mesh, like.placements,
+                              run_check=False)
 
 
 def signum(lr_fn, momentum: float = 0.9, weight_decay: float = 0.0,
@@ -122,20 +150,26 @@ def signum(lr_fn, momentum: float = 0.9, weight_decay: float = 0.0,
 
     @torch.no_grad()
     def update(grads, state, params, step):
+        # a leaf's scale (a plain scalar) meets its DTensor signs on a mesh
+        with implicit_replication():
+            return _update(grads, state, params, step)
+
+    def _update(grads, state, params, step):
         lr = _f32(lr_fn(step))
         items = list(_each_leaf(grads, params))
         u = {}
         for leaf, g, _, _ in items:
-            u[leaf.name] = g.float()
+            u[leaf.name] = _as(g.float(), state["mu"][leaf.name])
             if error_feedback:
                 u[leaf.name] = u[leaf.name] + state["err"][leaf.name]
         names = list(u)
-        scales = torch.stack([u[k].abs().mean() for k in names])
+        scales = torch.stack([whole(u[k].abs().mean()) for k in names])
         if group is not None:
             dist.all_reduce(scales, group=group)
             scales = scales / dist.get_world_size(group)
-            packed, meta = pack_tree(u)
-            signs = unpack_tree(majority_allreduce(packed, group), meta)
+            packed, meta = pack_tree({k: local(x) for k, x in u.items()})
+            voted = unpack_tree(majority_allreduce(packed, group), meta)
+            signs = {k: _as_shard(voted[k], u[k]) for k in names}
         else:
             signs = {k: torch.where(x >= 0, 1.0, -1.0) for k, x in u.items()}
         scale = dict(zip(names, scales))

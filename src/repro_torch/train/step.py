@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.data.pipeline import host_shard
+from repro_torch.dist.sharding import whole
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 
 
@@ -72,8 +73,7 @@ def loss_and_grads(bundle, params, batch, grad_accum: int = 1
         loss, metrics, grads = one(batch)
         return loss, {k: v.detach() for k, v in metrics.items()}, \
             dict(zip(names, grads))
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for p in tensors]
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in tensors]
     lsum = 0.0
     for mb in _split(batch, grad_accum):
         loss, _, grads = one(mb)
@@ -84,6 +84,21 @@ def loss_and_grads(bundle, params, batch, grad_accum: int = 1
     for a in acc:
         a /= grad_accum
     return lsum / grad_accum, {}, dict(zip(names, acc))
+
+
+def _replicated_like(params, batch: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """``batch`` as DTensors replicated over the mesh of DTensor
+    ``params`` (a model sharded over the model axis); as it is for plain
+    parameters."""
+    from torch.distributed.tensor import DTensor, Replicate
+    p = next(iter(dict(params.named_parameters()).values()))
+    if not isinstance(p, DTensor):
+        return batch
+    mesh = p.device_mesh
+    return {k: DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+            if isinstance(x, torch.Tensor) else x for k, x in batch.items()}
 
 
 def make_train_step(bundle, optimizer: Optimizer, grad_accum: int = 1,
@@ -97,8 +112,8 @@ def make_train_step(bundle, optimizer: Optimizer, grad_accum: int = 1,
                                               grad_accum)
         grads, gnorm = clip_by_global_norm(grads, clip)
         params, opt_state = optimizer.update(grads, opt_state, params, step)
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
-                                   **metrics}
+        return params, opt_state, {k: whole(v) for k, v in dict(
+            loss=loss, grad_norm=gnorm, **metrics).items()}
 
     return train_step
 
@@ -114,13 +129,14 @@ def make_train_step_compressed(bundle, optimizer: Optimizer,
     rank = dist.get_rank(group)
 
     def train_step(params, opt_state, step, batch):
-        local = host_shard(batch, rank, D)
+        local = _replicated_like(params, host_shard(batch, rank, D))
         loss, _, grads = loss_and_grads(bundle, params, local, grad_accum)
         # no all-reduce of the gradients: the 1-bit majority exchange
         # inside optimizer.update is the only one
         grads, gnorm = clip_by_global_norm(grads, clip)
         params, opt_state = optimizer.update(grads, opt_state, params, step)
-        loss = loss.float().clone()
+        loss = whole(loss).float().clone()
+        gnorm = whole(gnorm)
         dist.all_reduce(loss, group=group)
         return params, opt_state, {"loss": loss / D, "grad_norm": gnorm}
 

@@ -1436,3 +1436,126 @@ def test_hlocost_count_on_the_card_allocates_nothing(cuda):
     assert torch.cuda.memory_allocated() == before
     r = roofline.analyze(cost, cfg, shape, "1", 1, "qwen3_0p6b")
     assert r.card is hw.current() and 0 < r.useful_ratio
+
+
+# --------------------------------------------------------------------------
+# the mesh on the card: one NCCL rank (two ranks cannot share the card
+# through NCCL, and gloo's functional all-gather of CUDA tensors hangs)
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def one_rank_mesh(cuda):
+    """A (data 1, model 1) `DeviceMesh` of one NCCL rank on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import free_port, make_host_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("H,KV,hd", [(16, 8, 128), (8, 1, 112), (4, 4, 64)])
+def test_sharded_flash_on_the_card_equals_the_kernels(one_rank_mesh, H, KV,
+                                                      hd):
+    """The flash wrapper's mesh branch (`local_map` over DTensors) runs the
+    same kernels as the plain call: forward and gradients bit for bit,
+    one lse forward and one backward launched."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist import sharding as sh
+    from repro_torch.kernels import ops
+
+    mesh = one_rank_mesh
+    g = torch.Generator(device="cuda").manual_seed(H + hd)
+    q, k, v, do = (torch.randn(s, generator=g, device="cuda",
+                               dtype=torch.bfloat16)
+                   for s in ((2, 256, H, hd), (2, 256, KV, hd),
+                             (2, 256, KV, hd), (2, 256, H, hd)))
+    want = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o_want = ops.flash_attention(*want)
+    o_want.backward(do)
+    LAUNCHES.clear()
+    with sh.axis_rules(mesh):
+        got = [sh.distribute(x, mesh, [Replicate()] * 2).requires_grad_(True)
+               for x in (q, k, v)]
+        o = ops.flash_attention(sh.constrain(got[0], "batch", None, "heads",
+                                             None), got[1], got[2])
+        o.backward(sh.distribute(do, mesh, [Replicate()] * 2))
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"flash_attention_fwd": 1,
+                              "flash_attention_bwd": 1}
+    assert torch.equal(o.full_tensor(), o_want)
+    for a, b in zip(got, want):
+        assert torch.equal(a.grad.full_tensor(), b.grad)
+
+
+def test_train_cell_on_the_card(one_rank_mesh):
+    """Reduced Qwen3-0.6B through `build_cell` on the one-rank mesh: its
+    parameters DTensors, the flash kernels launched from the mesh branch
+    (twice forward and once backward a layer, the checkpointed blocks'
+    recompute on the autograd engine's thread included), loss and
+    gradients equal to the unsharded step's within 3f's gate."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = reduced(get_config("qwen3_0p6b"))
+    bundle = build(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    twin = copy.deepcopy(params)
+    batch = SyntheticLM(cfg.vocab_size, 256, 2, seed=1).batch(0)
+    cell = build_cell("qwen3_0p6b", "train_4k", one_rank_mesh,
+                      reduce_config=True,
+                      shape_override=ShapeConfig("t", 256, 2, "train"),
+                      params=params, batch=batch, lr_fn=constant(1e-3))
+    LAUNCHES.clear()
+    loss, _, grads = dataclasses.replace(
+        cell, fn=lambda p, s, i, b: loss_and_grads(bundle, p, b)).run()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "flash_attention_fwd": 2 * cfg.n_layers,
+        "flash_attention_bwd": cfg.n_layers}
+    want_loss, _, want = loss_and_grads(bundle, twin, batch)
+    assert abs(float(loss.full_tensor()) - float(want_loss)) \
+        < 1e-3 * abs(float(want_loss))
+    for name, g in want.items():
+        d = (grads[name].full_tensor().float() - g.float()).pow(2).mean()
+        assert float(d.sqrt()) <= 0.05 * float(g.float().pow(2).mean()
+                                               .sqrt()) + 1e-12, name
+    _, _, m = cell.run()
+    assert bool(torch.isfinite(m["loss"])) and m["loss"].is_cuda
+
+
+def test_compressed_cell_on_the_card(one_rank_mesh):
+    """The compressed cell on the mesh's data axis: the sign pack, the
+    majority vote and the unpack launched once each, on the card."""
+    from repro_torch.configs.base import ShapeConfig, get_config, reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.models import build
+    from repro_torch.optim import constant
+
+    cfg = reduced(get_config("qwen3_0p6b"))
+    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = SyntheticLM(cfg.vocab_size, 128, 2, seed=1).batch(0)
+    cell = build_cell("qwen3_0p6b", "train_4k", one_rank_mesh,
+                      overrides={"compressed_dp": True}, reduce_config=True,
+                      shape_override=ShapeConfig("t", 128, 2, "train"),
+                      params=params, batch=batch, lr_fn=constant(1e-3))
+    LAUNCHES.clear()
+    _, _, m = cell.run()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items()
+            if k in ("pack_signs", "unpack_signs", "majority")} == {
+        "pack_signs": 1, "unpack_signs": 1, "majority": 1}
+    assert bool(torch.isfinite(m["loss"]))
