@@ -28,10 +28,13 @@ Phases; the first failure exits non-zero:
    sub and lt at 1, 7, 8 and 32 bits, one and three rows of a ragged
    width; the bit untranspose with fewer than 32 planes, ragged group
    counts and a round trip through the bit transpose; ptxas's registers
-   and spill bytes of the Hopper flash kernels (the forward's and the
-   backward's instances at head dims 64, 80, 112 and 128 each required;
-   the first design's bf16 instances at 64, 80 and 112 must be gone),
-   the VM and the bit transpose (any spill fails); flash attention in float32 and
+   and spill bytes of the Hopper flash kernels (the bf16 forward's
+   instances at head dims 64, 80, 112 and 128, the bf16 backward's and
+   the float32 3xTF32 forward's and backward's at every head dim, and
+   their pre-pass, each required; the first designs' instances that they
+   replaced must be gone: bf16 ``mma.sync`` at 64-112 forward and every
+   head dim backward, float32 scalar FMAs), the VM and the bit transpose
+   (any spill fails); flash attention in float32 and
    bf16 at the JAX package's five test shapes, a cross-attention shape (64
    queries over 100 keys), B = 2,
    S = 1,000 causal at hd 128, and the hd-128 kernels' edges (100 queries
@@ -62,19 +65,20 @@ Phases; the first failure exits non-zero:
    lse-emitting forward (its
    output equal to the serving kernel's, the lse within 1e-4) and the
    backward (dq, dk, dv; two runs bit-identical) against their plain
-   versions within the same tolerance, with ptxas's registers and spill
-   bytes of the float32 hd-80 backward instances printed (not gated);
-   sign
+   versions within the same tolerance, the largest share of the
+   tolerance printed per dtype; sign
    pack / unpack bit for bit in float32 and bf16, with +-0, +-inf and NaNs
    of either sign, on a ragged (3, 32,032) and a 2**26-lane input;
    ``moe_ffn`` in float32 at reduced widths (d_model 1,024, 16 experts,
    top-2, 2,048 tokens at a capacity that drops some) against the same
    call on the CPU: the same routing, the output within 1e-4 of its
    largest magnitude, the aux loss within 1e-5. The flash launches that
-   no main path makes (float32, and bf16 at head dims 16 and 32) are
-   timed there too, the serving forward and the backward, beside their
-   bound and ``scaled_dot_product_attention`` (its backward alone), and
-   their totals by dtype and head dim printed ("off the main path").
+   no main path makes (float32 at head dims other than 128, and bf16 at
+   16 and 32) are timed there too, the serving forward and the backward,
+   beside their bound (float32: three TF32 products over the TF32 peak,
+   and beside it the FP32-FMA figure) and
+   ``scaled_dot_product_attention`` (its backward alone), and their
+   totals by dtype and head dim printed ("off the main path").
 3. slice   — (a) serve the §8 multi-tenant workload at full width (2**24-bit
    vectors) through ``build_service -> query_stream -> query_batch``, plus
    a batch of materialize queries. Every result must equal the unbatched
@@ -251,6 +255,20 @@ Phases; the first failure exits non-zero:
    wall, at most 1); the counts allocate nothing on the
    card, and the flash FLOPs charged to (f)'s step equal ``flash_cost``
    over (f)'s launches.
+   (s) Qwen3-0.6B at its published widths and depth in float32
+   (``dataclasses.replace(cfg, dtype="float32")``), after (q)(a): (a)
+   ``generate`` on 3e's traffic, 28 flash launches a prefill on the
+   float32 3xTF32 kernels, its greedy ids equal to those of the same
+   model with the plain attention swapped in and its prefill logits
+   within 1e-4 of theirs (of the largest magnitude); (b)
+   ``make_train_step`` at 3f's sequence and global batch in the fewest
+   microbatches that fit (two of 4), AdamW at rate 0 for its first
+   step, 56 lse forwards and 28 backwards a sequence: the first loss
+   within 10% of ln V + 0.02^2 d_model / 2, the loss and every gradient
+   leaf within 1e-4 (relative; of the leaf's RMS) of the same step with
+   the plain attention, then two warm steps. Each prints its cold and
+   warm wall, tok/s, peak memory and a profiled run's device ms by kind
+   (the pre-pass beside the flash kernels) with the idle share.
    (r) the mesh, last: Qwen3-0.6B at its published widths and depth
    through ``launch.mesh.make_host_mesh`` -> ``launch.cells.build_cell``
    -> ``Cell.run`` on a (data 1, model 1) mesh of one NCCL rank (two
@@ -268,7 +286,7 @@ Phases; the first failure exits non-zero:
    kimi_k2_1t_a32b x train_4k on the 16x16 fake group, started after
    the build in subprocesses beside the other phases, their counted
    FLOPs, bytes and collective bytes printed. It prints its seconds.
-   Each of (a)-(r) starts with every launch count at 0 and must launch
+   Each of (a)-(s) starts with every launch count at 0 and must launch
    each of its kernels.
 4. numbers — replay every kernel launch of phase 3 with the same arguments
    (of (c), every majority launch and two VM launches with fault masks:
@@ -310,10 +328,14 @@ Phases; the first failure exits non-zero:
    design); of (h), every
    launch; of (l)-(n), the first microbatch's lse forward and backward
    launches as (f)'s, with per-shape and per-route lines for both
-   kernels; of (p) likewise, at head dims 128 and 112. Phase 4 runs for
-   (a)-(e) before (f) starts, for (f) before (g), for (g)-(h) before (i),
-   for (i)-(k) before (l) and for each trained model before the next, so
-   their recorded arguments are freed first.
+   kernels; of (p) likewise, at head dims 128 and 112; of (s) two
+   launches of each kind (the serving forward, the lse forward and the
+   backward of the first microbatch: each run's launches share one
+   shape), their bound three TF32 products over 494.7 TFLOP/s with the
+   FP32-FMA figure beside it. Phase 4 runs for (a)-(e) before (f)
+   starts, for (f) before (g), for (s) before (g), for (g)-(h) before
+   (i), for (i)-(k) before (l) and for each trained model before the
+   next, so their recorded arguments are freed first.
 
 Output: the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and as the last line ``{"ok": true, "device": {...}}``. ``--out DIR``
@@ -802,44 +824,37 @@ SERVE_FLASH_CASES = (
     (9, 300, 1000, 16, 8, 112, False, 128, 512),
 )
 #: the kernels redesigned for Hopper that `phase_sm90_report` holds to
-#: zero spills, by source: the bf16 flash kernels (TMA ring + wgmma; the
-#: forward and the backward at head dims 64, 80, 112 and 128, each instance
-#: required by name: the backward's `<HD, true>` enter p and ds as hi + lo
-#: parts, `<128, false>` rounds them once to time what the split costs),
-#: the VM (pre-decoded program, cp.async tile ring) and the bit transpose
-#: (register butterfly)
-SM90_KERNELS = {"flashattn": ("flash_fwd_sm90_kernel<64>",
-                              "flash_fwd_sm90_kernel<80>",
-                              "flash_fwd_sm90_kernel<112>",
-                              "flash_fwd_sm90_kernel<128>"),
-                "flashattn_bwd": ("flash_bwd_dq_sm90_kernel<64, true>",
-                                  "flash_bwd_dq_sm90_kernel<80, true>",
-                                  "flash_bwd_dq_sm90_kernel<112, true>",
-                                  "flash_bwd_dq_sm90_kernel<128, true>",
-                                  "flash_bwd_dq_sm90_kernel<128, false>",
-                                  "flash_bwd_dkv_sm90_kernel<64, true>",
-                                  "flash_bwd_dkv_sm90_kernel<80, true>",
-                                  "flash_bwd_dkv_sm90_kernel<112, true>",
-                                  "flash_bwd_dkv_sm90_kernel<128, true>",
-                                  "flash_bwd_dkv_sm90_kernel<128, false>"),
-                "vm": ("vm_kernel",),
-                "bittranspose": ("bit_transpose_kernel",)}
-#: the first design's bf16 instances that the Hopper route replaced: a
-#: build that still holds one fails
-RETIRED_KERNELS = {"flashattn": ("flash_mma_kernel<64>",
-                                 "flash_mma_kernel<80>",
-                                 "flash_mma_kernel<112>"),
-                   "flashattn_bwd": ("flash_bwd_dq_mma_kernel<64>",
-                                     "flash_bwd_dq_mma_kernel<80>",
-                                     "flash_bwd_dq_mma_kernel<112>",
-                                     "flash_bwd_dkv_mma_kernel<64>",
-                                     "flash_bwd_dkv_mma_kernel<80>",
-                                     "flash_bwd_dkv_mma_kernel<112>")}
-#: first-design instances whose registers and spill bytes
-#: `phase_sm90_report` prints without gating them: the float32 backward
-#: at head dim 80 (scalar FMAs)
-REPORTED_KERNELS = {"flashattn_bwd": ("flash_bwd_dq_simt_kernel<80>",
-                                      "flash_bwd_dkv_simt_kernel<80>")}
+#: zero spills, by source: the flash kernels (TMA ring + wgmma; each
+#: instance required by name): the bf16 forward at head dims 64, 80, 112
+#: and 128, the bf16 backward at every head dim (`<HD, true>` enter p and
+#: ds as hi + lo parts, `<128, false>` rounds them once to time what the
+#: split costs), the float32 forward and backward at every head dim on
+#: 3xTF32 and their pre-pass; the VM (pre-decoded program, cp.async tile
+#: ring) and the bit transpose (register butterfly)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+SM90_KERNELS = {
+    "flashattn": tuple(f"flash_fwd_sm90_kernel<{hd}>"
+                       for hd in (64, 80, 112, 128))
+    + tuple(f"flash_fwd_tf32_sm90_kernel<{hd}>" for hd in HEAD_DIMS)
+    + ("tf32_split_kernel",),
+    "flashattn_bwd": tuple(f"flash_bwd_{k}_sm90_kernel<{hd}, true>"
+                           for k in ("dq", "dkv") for hd in HEAD_DIMS)
+    + ("flash_bwd_dq_sm90_kernel<128, false>",
+       "flash_bwd_dkv_sm90_kernel<128, false>")
+    + tuple(f"flash_bwd_{k}_tf32_sm90_kernel<{hd}>"
+            for k in ("dq", "dkv") for hd in HEAD_DIMS)
+    + ("tf32_split_kernel",),
+    "vm": ("vm_kernel",),
+    "bittranspose": ("bit_transpose_kernel",)}
+#: the first designs' instances that the Hopper kernels replaced (bf16 on
+#: mma.sync, float32 on scalar FMAs): a build that still holds one fails
+RETIRED_KERNELS = {
+    "flashattn": ("flash_mma_kernel<64>", "flash_mma_kernel<80>",
+                  "flash_mma_kernel<112>")
+    + tuple(f"flash_simt_kernel<{hd}>" for hd in HEAD_DIMS),
+    "flashattn_bwd": tuple(f"flash_bwd_{k}_{d}_kernel<{hd}>"
+                           for k in ("dq", "dkv") for d in ("mma", "simt")
+                           for hd in HEAD_DIMS)}
 #: kernel vs plain version: the JAX package's own bounds against its
 #: oracle (tests/test_flashattn.py), relative to each element and to the
 #: plain output's RMS over the launch; the two sum in another order and
@@ -923,20 +938,7 @@ def phase_sm90_report(build_mod) -> dict:
     """Each `SM90_KERNELS` kernel's registers and spill bytes from
     ptxas's report of its build; fails if any of them spills, if a named
     template instance is missing, or if a `RETIRED_KERNELS` instance was
-    built. Prints the `REPORTED_KERNELS` instances' too (each must be
-    built; a spill is reported, not failed). Returns `_ptxas_entries`'
-    report of both."""
-    first = {}
-    for source, kernels in REPORTED_KERNELS.items():
-        entries = _ptxas_entries(build_mod.build_log(source), sorted(
-            {n.split("<")[0] for n in kernels}))
-        for name in kernels:
-            check(len(entries.get(name, {})) == 3, f"ptxas reported no "
-                  f"registers and spills for {name} ({source}.cu)")
-            first[name] = r = entries[name]
-            print(f"[kernels] ptxas {name} (first design, reported): "
-                  f"{r['registers']} registers, {r['spill_stores']} bytes "
-                  f"spill stores, {r['spill_loads']} bytes spill loads")
+    built. Returns `_ptxas_entries`' report."""
     report = {}
     for source, kernels in SM90_KERNELS.items():
         log = build_mod.build_log(source)
@@ -954,14 +956,16 @@ def phase_sm90_report(build_mod) -> dict:
                   "which the Hopper route replaced")
     for name, r in report.items():
         check(len(r) == 3, f"ptxas's report of {name} is incomplete: {r}")
+        # the float32 kernels run one consumer warpgroup and no setmaxnreg
+        hands_over = name.startswith("flash_") and "_tf32_" not in name
         print(f"[kernels] ptxas {name}: {r['registers']} registers at "
-              f"entry{SETMAXNREG if name.startswith('flash') else ''}, "
+              f"entry{SETMAXNREG if hands_over else ''}, "
               f"{r['spill_stores']} bytes spill stores, "
               f"{r['spill_loads']} bytes spill loads")
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
               f"{name} spills ({r['spill_stores']} bytes stored, "
               f"{r['spill_loads']} loaded)")
-    return {**report, **first}
+    return report
 
 
 def _hm(x):
@@ -973,19 +977,30 @@ def _flash_cost(kind: str, q, k, causal: bool):
     """(flops, bytes, bytes ms, ops ms) of one launch of flash kernel
     ``kind`` on model-layout q (B, Sq, H, hd) and k (B, Sk, KV, hd):
     `kernels.flashattn.flash_cost` (the formula `launch.hlocost` charges
-    too); bytes over the card's memory rate, FLOPs over its dense rate
-    for the dtype."""
+    too); bytes over the card's memory rate, FLOPs over its dense bf16
+    rate in bf16 and in float32 as three TF32 products over its TF32
+    rate (the least time float32-grade products take on the tensor
+    cores; `_fma_ms` is the earlier FP32-FMA figure)."""
     from repro_torch.kernels.flashattn import flash_cost
 
     flops, nbytes = flash_cost(kind, q, k, causal)
-    return (flops, nbytes, nbytes / CARD.hbm_bytes_per_s * 1e3,
-            flops / CARD.flops_per_s(q.dtype) * 1e3)
+    ops_s = (3 * flops / CARD.tf32_flops_per_s
+             if str(q.dtype) == "torch.float32"
+             else flops / CARD.flops_per_s(q.dtype))
+    return flops, nbytes, nbytes / CARD.hbm_bytes_per_s * 1e3, ops_s * 1e3
+
+
+def _fma_ms(flops: float) -> float:
+    """The float32 flash bound on the FP32-FMA peak (the bound PERF.md's
+    rows before the 3xTF32 kernels were priced at)."""
+    return flops / CARD.f32_flops_per_s * 1e3
 
 
 def _off_path(dtype: str, hd: int) -> bool:
-    """A flash launch that no main path makes: float32, or bf16 at a head
-    dim no config uses (16, 32)."""
-    return dtype == "float32" or hd in (16, 32)
+    """A flash launch that no main path makes: float32 at a head dim
+    other than 128 (3s serves and trains Qwen3-0.6B in float32 at 128),
+    or bf16 at a head dim no config uses (16, 32)."""
+    return hd != 128 if dtype == "float32" else hd in (16, 32)
 
 
 def _time_off_path(torch, kind, q, k, v, causal, clock_hz, into, bwd=None):
@@ -1025,41 +1040,47 @@ def _time_off_path(torch, kind, q, k, v, causal, clock_hz, into, bwd=None):
             lib_o, (qg, kg, vg), doc, retain_graph=True), 3, clock_hz)
         del lib_o, doc, qg, kg, vg
     del qc, kc, vc
-    _, _, b_ms, o_ms = _flash_cost(kind, q, k, causal)
+    flops, _, b_ms, o_ms = _flash_cost(kind, q, k, causal)
     group = f"{str(q.dtype).split('.')[-1]} hd {q.shape[-1]}"
     row = into.setdefault(kind, {}).setdefault(group, {
         "cases": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-        "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": 0.0})
+        "bytes_ms": 0.0, "ops_ms": 0.0, "fma_ms": 0.0, "library_ms": 0.0})
     row["cases"] += 1
     for key, val in (("ms", k_ms), ("plain_ms", p_ms),
                      ("bound_ms", max(b_ms, o_ms)), ("bytes_ms", b_ms),
-                     ("ops_ms", o_ms), ("library_ms", lib_ms)):
+                     ("ops_ms", o_ms), ("fma_ms", _fma_ms(flops)),
+                     ("library_ms", lib_ms)):
         row[key] += val
 
 
 def _print_off_path(off: dict) -> None:
     for kind, groups in off.items():
         for group, r in groups.items():
+            fma = (f"; on the FP32-FMA peak {r['fma_ms']:.3f} ms"
+                   if group.startswith("float32") else "")
             print(f"[kernels] off the main path, {kind} {group}: "
                   f"{r['cases']} phase-2 launches, kernel {r['ms']:.3f} ms, "
                   f"bound {r['bound_ms']:.3f} ms ("
                   f"{'bytes' if r['bytes_ms'] >= r['ops_ms'] else 'operations'}"
-                  f"), plain {r['plain_ms']:.3f} ms, library "
+                  f"{fma}), plain {r['plain_ms']:.3f} ms, library "
                   f"{r['library_ms']:.3f} ms")
 
 
-def phase_flash_kernels(torch, clock_hz, off) -> float:
+def phase_flash_kernels(torch, clock_hz, off, shares) -> float:
     """The flash kernel against its plain version in both dtypes, and on
     `SERVE_FLASH_CASES` also the lse forward (its output equal to the
     serving kernel's, the lse within 1e-4); returns the largest absolute
-    difference. Each off-path launch (`_off_path`) is also timed beside
-    its bound and the library call into ``off`` (`_time_off_path`)."""
+    difference and keeps the largest share of the tolerance per dtype in
+    ``shares["flash_attention"]``. Each off-path launch (`_off_path`) is
+    also timed beside its bound and the library call into ``off``
+    (`_time_off_path`)."""
     from repro_torch.kernels.flashattn import (flash_attention_fwd_kernel,
                                                flash_attention_fwd_plain,
                                                flash_attention_kernel)
 
     gen = torch.Generator(device="cuda").manual_seed(103)
-    worst, most, n_cases, n_lse = 0.0, 0.0, 0, 0
+    worst, n_cases, n_lse = 0.0, 0, 0
+    most = dict.fromkeys(FLASH_TOL, 0.0)
     for name, tol in FLASH_TOL.items():
         dt = getattr(torch, name)
         for case in FLASH_CASES + SERVE_FLASH_CASES:
@@ -1084,7 +1105,7 @@ def phase_flash_kernels(torch, clock_hz, off) -> float:
                 share = max(share, _close(f"{label} lse", lse, lse_want,
                                           1e-4)[1])
                 n_lse += 1
-            worst, most = max(worst, err), max(most, share)
+            worst, most[name] = max(worst, err), max(most[name], share)
             n_cases += 1
     torch.cuda.synchronize()
     print(f"[kernels] flash attention: {n_cases} cases within the "
@@ -1094,7 +1115,8 @@ def phase_flash_kernels(torch, clock_hz, off) -> float:
           f"head dims 80, 64, 112 and 128 with Sq != Sk) also through the "
           f"lse forward (its output equal, the lse within 1e-4); largest "
           f"max abs err {worst:.3g}, largest share of the tolerance "
-          f"{most:.3g}")
+          + ", ".join(f"{n} {v:.3g}" for n, v in most.items()))
+    shares["flash_attention"] = most
     return worst
 
 
@@ -1149,17 +1171,19 @@ def _close_all(label, got, want, tol):
     return worst, most
 
 
-def phase_train_kernels(torch, clock_hz, off) -> dict:
+def phase_train_kernels(torch, clock_hz, off, shares) -> dict:
     """The lse-emitting forward and the backward against their plain
     versions in both dtypes (the lse to 1e-4 of its RMS plus each
     element), and the sign pack / unpack bit for bit; returns the largest
-    absolute difference per kernel. Each off-path backward launch
-    (`_off_path`) is also timed into ``off`` (`_time_off_path`)."""
+    absolute difference per kernel and keeps the largest share of the
+    tolerance per dtype in ``shares["training"]``. Each off-path backward
+    launch (`_off_path`) is also timed into ``off``
+    (`_time_off_path`)."""
     from repro_torch.kernels import flashattn, ref, signpack
 
     gen = torch.Generator(device="cuda").manual_seed(107)
     worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
-    most, n_cases = 0.0, 0
+    most, n_cases = dict.fromkeys(FLASH_TOL, 0.0), 0
     for name, tol in FLASH_TOL.items():
         dt = getattr(torch, name)
         for B, Sq, Sk, H, KV, hd, causal, bq, bk in TRAIN_FLASH_CASES:
@@ -1201,7 +1225,7 @@ def phase_train_kernels(torch, clock_hz, off) -> dict:
                 worst["flash_attention_fwd"], err_o, err_l)
             worst["flash_attention_bwd"] = max(
                 worst["flash_attention_bwd"], err_b)
-            most = max(most, share_o, share_l, share_b)
+            most[name] = max(most[name], share_o, share_l, share_b)
             n_cases += 1
     # sign pack / unpack: the special lanes (+-0, +-inf, NaNs with and
     # without the sign bit) at the front of every row
@@ -1229,11 +1253,13 @@ def phase_train_kernels(torch, clock_hz, off) -> dict:
     print(f"[kernels] training flash attention: {n_cases} cases of the "
           f"lse forward (its output equal to the serving kernel's) and the "
           f"backward (bit-identical over two runs) within the tolerance of "
-          f"the plain versions (largest "
-          f"share {most:.3g}; max abs err forward "
+          f"the plain versions (largest share "
+          + ", ".join(f"{n} {v:.3g}" for n, v in most.items())
+          + f"; max abs err forward "
           f"{worst['flash_attention_fwd']:.3g}, backward "
           f"{worst['flash_attention_bwd']:.3g}); sign pack / unpack: "
           f"{n_sign} cases bit-identical")
+    shares["training"] = most
     return dict(worst, pack_signs=0.0, unpack_signs=0.0)
 
 
@@ -1337,10 +1363,11 @@ class Recorder:
     wrappers themselves (and their launch counters) are untouched. Calls
     are kept only while ``stage`` names a stage of a main-path run (not
     None), so the checks after each run record nothing, and, while
-    ``only`` is a set, only calls of the kinds it names. A VM launch with
-    fault masks keeps the masks' `FaultDraw` in their place, and only
-    while ``faulty`` is set: the largest such launch (batch x commands x
-    words) and the first with a batch of one."""
+    ``only`` is a set, only calls of the kinds it names, and while
+    ``limit`` is set, at most that many of a kind in one stage. A VM
+    launch with fault masks keeps the masks' `FaultDraw` in their place,
+    and only while ``faulty`` is set: the largest such launch (batch x
+    commands x words) and the first with a batch of one."""
 
     def __init__(self):
         import repro_torch.core.errors as errors
@@ -1350,6 +1377,7 @@ class Recorder:
         self.calls = []
         self.stage = None
         self.only = None
+        self.limit = None
         self.faulty = False
         self._key = self._draw = None
         self._largest = self._single = None
@@ -1434,6 +1462,10 @@ class Recorder:
         setattr(mod, fn, rec)
 
     def _keep(self, kind: str, args, kw) -> None:
+        if self.limit is not None and sum(
+                c[0] == kind and c[3] == self.stage
+                for c in self.calls) >= self.limit:
+            return
         if self.stage is not None and (self.only is None
                                        or kind in self.only):
             # detached: a kept training activation must not keep its
@@ -2059,9 +2091,10 @@ def _max_rel(got, want) -> float:
 
 def _device_ms_by_kind(prof, backward: bool = False):
     """(device ms by kind, device events) of a profiled run: the flash
-    forward kernel, with ``backward`` the flash backward kernels, cuBLAS
-    GEMMs, everything else (elementwise passes, reductions, copies); the
-    events count kernels and copies."""
+    forward kernel, with ``backward`` the flash backward kernels, the
+    float32 flash kernels' pre-pass (where it ran), cuBLAS GEMMs,
+    everything else (elementwise passes, reductions, copies); the events
+    count kernels and copies."""
     from torch.autograd import DeviceType
 
     out = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
@@ -2073,9 +2106,11 @@ def _device_ms_by_kind(prof, backward: bool = False):
             continue
         n_events += e.count
         name = e.key
-        if "flash_fwd_sm90_kernel" in name or "flash_mma_kernel" in name \
-                or "flash_simt_kernel" in name:
+        if "flash_fwd_" in name or "flash_mma_kernel" in name:
             kind = "flash_attention"
+        elif "tf32_split_kernel" in name:
+            kind = "flash_tf32_split"
+            out.setdefault(kind, 0.0)
         elif backward and "flash_bwd_" in name:
             kind = "flash_attention_bwd"
         elif "gemm" in name.lower() or "xmma" in name \
@@ -2550,6 +2585,287 @@ def phase_train(torch, rec):
           f"local signum step on every element but the {n_signless} whose "
           f"u is +-0 or NaN")
     return launches, info
+
+
+# ---------------------------------------------------------------------------
+# phase 3s: Qwen3-0.6B in float32
+# ---------------------------------------------------------------------------
+
+#: phase 3s: Qwen3-0.6B at its published widths and depth with ``dtype``
+#: float32, served on 3e's traffic and trained at 3f's sequence and global
+#: batch in the fewest microbatches that fit: two of 4 (the phase prints
+#: the step's peak; float32 takes some 12 GiB a sequence of activations
+#: and logits beside 11 GiB of weights, gradients and AdamW's moments, so
+#: one microbatch of 8 would need about 110 GiB); AdamW on 3l-3n's
+#: schedule, whose first step runs at rate 0 and so leaves the initial
+#: weights
+F32_ACCUM = 2
+#: the CPU tests' float32 model tolerance (tests/test_torch_models.py):
+#: the prefill logits within this share of their largest magnitude, the
+#: first loss and every gradient leaf's RMS difference within it of the
+#: plain attention's (both sides float32: only the sums' order differs)
+F32_TOL = 1e-4
+#: launches of each kind that phase 4 replays: each run's flash launches
+#: share one shape
+F32_REPLAYS = 2
+
+
+def phase_f32(torch, rec):
+    """Qwen3-0.6B in float32 on the card through the user's entry points:
+    (a) ``generate`` on 3e's traffic, its greedy ids equal to those of
+    the same model with the plain attention swapped in and its prefill
+    logits within `F32_TOL` of theirs; (b) ``make_train_step`` at 3f's
+    shape, the first loss and every gradient leaf within `F32_TOL` of the
+    plain attention's. Each run's exact flash launches, cold and warm
+    walls, tok/s, peak memory and a profiled run's device ms by kind with
+    its idle share are printed; `F32_REPLAYS` launches of each kind are
+    kept for phase 4."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES, flashattn
+    from repro_torch.models import build
+    from repro_torch.models.layers import INIT_STD
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.serve import generate
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+
+    # (a) serving
+    bundle = build(cfg)
+    gen = torch.Generator(device=bundle.device).manual_seed(LM_SEED)
+    params = bundle.init(gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    check(all(p.dtype == torch.float32 for p in params.parameters())
+          and bundle.device.type == "cuda",
+          f"{cfg.name} is not in float32 on the card")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (LM_BATCH, LM_PROMPT), generator=gen,
+                                     device=bundle.device)}
+    seen = {}
+
+    def prefill(p, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = bundle.prefill(p, b)
+        torch.cuda.synchronize()
+        seen["prefill_s"] = time.perf_counter() - t
+        seen["logits"] = logits
+        return logits, cache
+
+    served = dataclasses.replace(bundle, prefill=prefill)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    rec.stage, rec.only, rec.limit = "f32 lm prefill", set(LM_KERNELS), \
+        F32_REPLAYS
+    t0 = time.perf_counter()
+    toks = generate(served, params, batch, LM_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    rec.stage = rec.only = rec.limit = None
+    serve_launches = dict(LAUNCHES)
+    serve_peak = torch.cuda.max_memory_allocated()
+    t_prefill, kernel_logits = seen["prefill_s"], seen.pop("logits")
+    check({k: v for k, v in serve_launches.items() if v}
+          == {"flash_attention": cfg.n_layers},
+          f"generate launched {serve_launches}, not one flash forward per "
+          f"prefill layer ({cfg.n_layers})")
+    check(bool(torch.isfinite(kernel_logits).all()),
+          "a float32 prefill logit is not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(served, params, batch, LM_NEW)
+    torch.cuda.synchronize()
+    t_gen_warm = time.perf_counter() - t0
+    t_prefill_warm = seen["prefill_s"]
+    with torch.profiler.profile(activities=activities) as prof:
+        bundle.prefill(params, batch)
+        torch.cuda.synchronize()
+    serve_device, serve_events = _device_ms_by_kind(prof)
+    del prof
+    # the same generate with the plain attention swapped in
+    saved = flashattn.flash_attention_kernel
+    flashattn.flash_attention_kernel = \
+        lambda q, k, v, causal=True, block_q=512, block_k=512: _hm(
+            flashattn.flash_attention_plain(_hm(q), _hm(k), _hm(v), causal,
+                                            block_q, block_k))
+    try:
+        toks_plain = generate(served, params, batch, LM_NEW)
+    finally:
+        flashattn.flash_attention_kernel = saved
+    err_logits = _max_rel(kernel_logits, seen.pop("logits"))
+    check(err_logits <= F32_TOL, f"float32 prefill logits, kernel vs plain "
+          f"attention: {err_logits:.3g} of the largest (> {F32_TOL})")
+    n_same = int((toks == toks_plain).sum())
+    check(n_same == toks.numel(), f"float32 greedy ids: {n_same} of "
+          f"{toks.numel()} equal the plain attention's")
+    del params, kernel_logits, toks, toks_plain
+    torch.cuda.empty_cache()
+    serve = {"params": n_params, "generate_s": t_gen,
+             "warm_generate_s": t_gen_warm, "prefill_s": t_prefill,
+             "warm_prefill_s": t_prefill_warm,
+             "prefill_tok_per_s": LM_BATCH * LM_PROMPT / t_prefill_warm,
+             "tok_per_s": LM_BATCH * LM_NEW / t_gen_warm,
+             "peak_device_bytes": serve_peak, "err_plain_logits": err_logits,
+             "device_ms": serve_device, "device_events": serve_events,
+             "launches": serve_launches}
+
+    # (b) training
+    bundle = build(cfg, remat="block")
+    params = bundle.init(torch.Generator(device=bundle.device)
+                         .manual_seed(TRAIN_SEED))
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                        seed=TRAIN_SEED).batch(0)
+    opt = adamw(warmup_cosine(*TRAIN_FAMILY_LR))
+    state = opt.init(params)
+    calls = []
+
+    def loss(p, b):
+        # phase 4 replays launches of the first microbatch only
+        calls.append(None)
+        if len(calls) > 1:
+            rec.stage = None
+        return bundle.loss(p, b)
+
+    step_fn = make_train_step(dataclasses.replace(bundle, loss=loss), opt,
+                              grad_accum=F32_ACCUM)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    rec.stage, rec.only, rec.limit = "f32 train step", set(TRAIN_KERNELS), \
+        F32_REPLAYS
+    t0 = time.perf_counter()
+    params, state, metrics = step_fn(params, state, 0, batch)
+    losses = [float(metrics["loss"])]
+    t_cold = time.perf_counter() - t0
+    rec.stage = rec.only = rec.limit = None
+    train_launches = dict(LAUNCHES)
+    cold_peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * F32_ACCUM,
+            "flash_attention_bwd": cfg.n_layers * F32_ACCUM}
+    check({k: v for k, v in train_launches.items() if v} == want,
+          f"the float32 step launched {train_launches}, not {want}: per "
+          f"layer and microbatch the lse forward twice (the forward and the "
+          f"checkpointed block's recompute) and the backward once")
+    ln_v = float(np.log(cfg.padded_vocab))
+    want_loss = ln_v + INIT_STD ** 2 * cfg.d_model / 2
+    check(np.isfinite(losses[0])
+          and abs(losses[0] - want_loss) < 0.1 * want_loss,
+          f"float32 first loss {losses[0]:.4f} is not within 10% of "
+          f"{want_loss:.4f}")
+    # the first step (at rate 0: the initial weights) against the plain
+    # attention swapped in
+    loss_k, _, grads_k = loss_and_grads(bundle, params, batch, F32_ACCUM)
+    saved = (flashattn.flash_attention_fwd_kernel,
+             flashattn.flash_attention_bwd_kernel)
+    flashattn.flash_attention_fwd_kernel, \
+        flashattn.flash_attention_bwd_kernel = _plain_attention(flashattn)
+    try:
+        loss_p, _, grads_p = loss_and_grads(bundle, params, batch,
+                                            F32_ACCUM)
+    finally:
+        flashattn.flash_attention_fwd_kernel, \
+            flashattn.flash_attention_bwd_kernel = saved
+    err_loss = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    err_grad = {n: _rel_rms(grads_k[n], grads_p[n]) for n in grads_p}
+    worst_leaf = max(err_grad, key=err_grad.get)
+    del grads_k, grads_p
+    check(err_loss <= F32_TOL, f"float32 loss, kernels vs plain attention: "
+          f"{err_loss:.3g} relative (> {F32_TOL})")
+    check(err_grad[worst_leaf] <= F32_TOL, f"float32 gradient {worst_leaf}, "
+          f"kernels vs plain attention: RMS difference "
+          f"{err_grad[worst_leaf]:.3g} of its RMS (> {F32_TOL})")
+    torch.cuda.reset_peak_memory_stats()     # the steps' peak, not the check's
+    warm = []
+    for i in (1, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, i, batch)
+        losses.append(float(metrics["loss"]))
+        warm.append(time.perf_counter() - t0)
+    train_peak = max(cold_peak, torch.cuda.max_memory_allocated())
+    check(all(np.isfinite(losses)), f"float32 losses {losses}")
+    # the device's split of one more warm step, device events only (as
+    # 3l-3n's)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, _ = step_fn(params, state, 3, batch)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    train_device, train_events = _device_ms_by_kind(prof, backward=True)
+    del prof, params, state, opt, step_fn
+    torch.cuda.empty_cache()
+    t_warm = float(np.mean(warm))
+    train = {"tokens_per_step": tokens, "microbatches": F32_ACCUM,
+             "cold_s": t_cold, "warm_s": t_warm, "warm_steps_s": warm,
+             "tok_per_s": tokens / t_warm, "losses": losses,
+             "peak_device_bytes": train_peak, "err_plain_loss": err_loss,
+             "err_plain_grad": err_grad[worst_leaf],
+             "err_plain_grad_leaf": worst_leaf, "profiled_step_s": t_prof,
+             "device_ms": train_device, "device_events": train_events,
+             "launches": train_launches}
+
+    print(f"[3s] {cfg.name} in float32 at its published widths: "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab "
+          f"{cfg.padded_vocab} padded, {n_params / 1e9:.3f} B parameters "
+          f"({4 * n_params / 2**30:.2f} GiB)")
+    print(f"[3s] (a) generate, {LM_BATCH} prompts of {LM_PROMPT} ids, "
+          f"{LM_NEW} new, greedy: flash launches {serve_launches} (one a "
+          f"prefill layer); cold {t_gen:.3f} s wall (prefill "
+          f"{t_prefill * 1e3:.1f} ms), warm {t_gen_warm:.3f} s (prefill "
+          f"{t_prefill_warm * 1e3:.1f} ms, "
+          f"{serve['prefill_tok_per_s']:.0f} prompt tok/s), "
+          f"{serve['tok_per_s']:.1f} generated tok/s; peak device memory "
+          f"{serve_peak / 2**30:.2f} GiB")
+    busy = sum(serve_device.values())
+    print(f"[3s] (a) warm prefill under the profiler: device "
+          + (f"{busy:.2f} ms over {serve_events} kernels and copies ("
+             + ", ".join(f"{k} {v:.2f}" for k, v in serve_device.items())
+             + f"), idle {1 - busy / (t_prefill_warm * 1e3):.1%} of the "
+             f"warm prefill's wall" if busy else "time not measured (the "
+             "profiler saw no device events)"))
+    print(f"[3s] (a) kernel vs plain attention: prefill logits "
+          f"{err_logits:.3g} of the largest (bound {F32_TOL}); greedy ids "
+          f"{n_same} of {LM_BATCH * LM_NEW} equal")
+    print(f"[3s] (b) train step, AdamW, remat 'block', sequence "
+          f"{TRAIN_SEQ}, global batch {TRAIN_BATCH} in {F32_ACCUM} "
+          f"microbatches of {TRAIN_BATCH // F32_ACCUM} (reduced: global "
+          f"batch cut from train_4k's 256 to {TRAIN_BATCH} for time; depth "
+          f"and widths published): flash launches {train_launches} (per "
+          f"sequence of microbatch {2 * cfg.n_layers} lse forwards and "
+          f"{cfg.n_layers} backwards); cold {t_cold * 1e3:.1f} ms, warm "
+          f"{t_warm * 1e3:.1f} ms ("
+          + ", ".join(f"{w * 1e3:.1f}" for w in warm)
+          + f"), {tokens / t_warm:.0f} tok/s; peak device memory "
+          f"{train_peak / 2**30:.2f} GiB; losses "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    busy = sum(train_device.values())
+    print(f"[3s] (b) warm step under the profiler: {t_prof * 1e3:.1f} ms "
+          f"wall; device "
+          + (f"{busy:.1f} ms over {train_events} kernels and copies ("
+             + ", ".join(f"{k} {v:.1f}" for k, v in train_device.items())
+             + f"), idle {1 - busy / (t_prof * 1e3):.1%} of its wall "
+             f"(against the unprofiled warm step, "
+             f"{1 - busy / (t_warm * 1e3):.1%})" if busy else "time not "
+             "measured (the profiler saw no device events)"))
+    print(f"[3s] (b) kernels vs plain attention: loss {err_loss:.3g} "
+          f"relative, worst gradient leaf {worst_leaf} RMS difference "
+          f"{err_grad[worst_leaf]:.3g} of its RMS (bound {F32_TOL})")
+    launches = dict(serve_launches)
+    for n, c in train_launches.items():
+        launches[n] = launches.get(n, 0) + c
+    return launches, {"f32_serve": serve, "f32_train": train}
 
 
 # ---------------------------------------------------------------------------
@@ -4722,7 +5038,9 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         flops, nbytes, b_ms, o_ms = _flash_cost(kind, q, k, causal)
         shape = {"B": B, "H": H, "KV": k.shape[2], "Sq": Sq, "Sk": Sk,
                  "hd": hd, "causal": causal, "dtype": str(q.dtype),
-                 "flops": flops, "bytes": nbytes}
+                 "flops": flops, "bytes": nbytes,
+                 "fma_ms": _fma_ms(flops) if q.dtype == torch.float32
+                 else None}
     elif kind in ("flash_attention_fwd", "flash_attention_bwd"):
         name = kind
         q, k, v = args[:3]                  # the model's (B, S, heads, hd)
@@ -4770,7 +5088,9 @@ def _replay(torch, kind, args, kw, int_rate, clock_hz):
         flops, nbytes, b_ms, o_ms = _flash_cost(kind, q, k, causal)
         shape = {"B": B, "H": H, "KV": k.shape[2], "Sq": Sq, "Sk": Sk,
                  "hd": hd, "causal": causal, "dtype": str(q.dtype),
-                 "flops": flops, "bytes": nbytes}
+                 "flops": flops, "bytes": nbytes,
+                 "fma_ms": _fma_ms(flops) if q.dtype == torch.float32
+                 else None}
     elif kind in ("pack_signs", "unpack_signs"):
         name = kind
         if kind == "pack_signs":
@@ -5055,12 +5375,17 @@ def _hopper_head_dims(name: str) -> set:
 
 def _flash_routes(calls, hopper) -> dict:
     """Replayed flash launches by route: bf16 at a head dim in
-    ``hopper`` is the Hopper kernel at that head dim, every other launch
-    the first design."""
+    ``hopper`` is the Hopper kernel at that head dim, float32 the 3xTF32
+    Hopper kernel at its head dim, every other launch (bf16 forward at
+    16, 32) the first design."""
     routes = {}
     for c in calls:
-        route = (f"Hopper hd {c['hd']}" if c["dtype"] == "torch.bfloat16"
-                 and c["hd"] in hopper else "first design")
+        if c["dtype"] == "torch.float32":
+            route = f"Hopper 3xTF32 hd {c['hd']}"
+        elif c["hd"] in hopper:
+            route = f"Hopper hd {c['hd']}"
+        else:
+            route = "first design"
         routes.setdefault(route, []).append(c)
     return routes
 
@@ -5105,13 +5430,16 @@ def kernel_rows(numbers: Numbers, launches):
             ms = sum(c["ms"] for c in calls)
             bound = sum(max(c["bytes_ms"], c["ops_ms"]) for c in calls)
             lib = sum(c["library_ms"] for c in calls)
+            fma = (f" (3xTF32; on the FP32-FMA peak "
+                   f"{sum(c['fma_ms'] for c in calls) / n:.4f} ms)"
+                   if calls[0]["dtype"] == "torch.float32" else "")
             print(f"[numbers] {name} ({stage}) hd {hd}, Sq {sq}, Sk {sk}, "
                   f"H {h} / KV {kv}, "
                   f"{'causal' if causal else 'not causal'}: {n} "
                   f"launches, kernel {ms:.3f} ms, bound {bound:.3f} ms, "
                   f"plain {sum(c['plain_ms'] for c in calls):.3f} ms, "
                   f"library {lib:.3f} ms; per launch kernel {ms / n:.4f} "
-                  f"ms, bound {bound / n:.4f} ms ({ms / bound:.2f}x), "
+                  f"ms, bound {bound / n:.4f} ms{fma} ({ms / bound:.2f}x), "
                   f"{LIBRARY_CALLS[name]} {lib / n:.4f} ms "
                   f"({ms / lib:.2f}x)")
         for route, calls in _flash_routes(
@@ -5200,11 +5528,11 @@ def main() -> int:
         max_err = phase_kernels(torch, build_service(small, device="cuda"),
                                 small)
         sm90 = phase_sm90_report(_build)
-        off_path = {}
+        off_path, gate_shares = {}, {}
         float_err = {"flash_attention": phase_flash_kernels(
-            torch, max_mhz * 1e6, off_path)}
+            torch, max_mhz * 1e6, off_path, gate_shares)}
         float_err.update(phase_train_kernels(torch, max_mhz * 1e6,
-                                             off_path))
+                                             off_path, gate_shares))
         _print_off_path(off_path)
         phase_moe_ffn(torch)
         spec = spec3a = WorkloadSpec(n_tenants=4, n_weeks=3,
@@ -5233,6 +5561,11 @@ def main() -> int:
                           max_mhz * 1e6)
             rec.drop()
             later.append(phase_remat_dots(torch, later[-1][1]))
+            later.append(phase_f32(torch, rec))
+            # phase 4 for 3s before the MoE models take the card
+            phase_numbers(torch, rec.calls, numbers, int_rate,
+                          max_mhz * 1e6)
+            rec.drop()
             for spec in MOE_PHASES:
                 later.append(phase_moe(torch, rec, *spec))
             later.append(phase_paper(torch, rec))
@@ -5277,7 +5610,7 @@ def main() -> int:
             "card": card, "int32_ops_per_s": int_rate, "slice": slice_info,
             "ptxas_sm90": sm90,
             "kernel_ms_by_stage": numbers.stages,
-            "off_path_flash": off_path,
+            "off_path_flash": off_path, "flash_gate_shares": gate_shares,
             "kernels": rows, "launches": numbers.per_kernel}, indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels in bf16
-// (flashattn.cu: the forward, flashattn_bwd.cu: the backward, both at head
-// dims 64, 80, 112 and 128): TMA tensor maps built on the host,
+// (flashattn.cu: the forward at head dims 64, 80, 112 and 128,
+// flashattn_bwd.cu: the backward at every head dim; flash_tf32.cuh builds
+// the float32 kernels' on them): TMA tensor maps built on the host,
 // mbarriers, the bulk tensor copy, warpgroup register hand-over
 // (setmaxnreg) and wgmma with its shared-memory descriptors. Everything has
 // internal linkage: each source that includes this builds into its own
@@ -307,11 +308,42 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x N, float32) = A B, or += where `accumulate`, for N = 64, 80,
-// 112: A 64 x 16 bf16 from registers (each warp's 16 rows in the mma.sync
-// A fragment layout), B 16 x N bf16 from shared memory, N-major (the
-// transpose bit set). Columns 64 onwards (n80, n112) are read from the
-// other half, LBO bytes on.
+// d (64 x N, float32) = A B, or += where `accumulate`, for N = 16, 32,
+// 64, 80, 112: A 64 x 16 bf16 from registers (each warp's 16 rows in the
+// mma.sync A fragment layout), B 16 x N bf16 from shared memory, N-major
+// (the transpose bit set). Columns 64 onwards (n80, n112) are read from
+// the other half, LBO bytes on.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db, int accumulate) {
@@ -431,16 +463,21 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }
-// d (64 x HD, float32) += A B over one 16-deep k-step at head dim HD = 64,
-// 80, 112 or 128: A from registers, B N-major in shared memory (the
+// d (64 x HD, float32) += A B over one 16-deep k-step at head dim HD = 16,
+// 32, 64, 80, 112 or 128: A from registers, B N-major in shared memory (the
 // products whose output columns are the head dim: P V, dS K, P^T dO, dS^T
 // Q).
 template <int HD>
 __device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  static_assert(HD == 64 || HD == 80 || HD == 112 || HD == 128, "head dim");
-  if constexpr (HD == 64) {
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 80 || HD == 112 ||
+                HD == 128, "head dim");
+  if constexpr (HD == 16) {
+    wgmma_rs_n16(d, a, db, 1);
+  } else if constexpr (HD == 32) {
+    wgmma_rs_n32(d, a, db, 1);
+  } else if constexpr (HD == 64) {
     wgmma_rs_n64(d, a, db, 1);
   } else if constexpr (HD == 80) {
     wgmma_rs_n80(d, a, db, 1);

@@ -1,7 +1,6 @@
-// Tiles and mma.sync helpers shared by the flash-attention kernels
-// (flashattn.cu: the forward; flashattn_bwd.cu: the backward). Each source
-// that includes this builds into its own library, so everything here has
-// internal linkage.
+// Tiles and mma.sync helpers of the first design's bf16 flash forward at
+// head dims 16 and 32 (flashattn.cu::flash_mma_kernel), the one kernel
+// left on mma.sync. Everything here has internal linkage.
 #pragma once
 #include <cstdint>
 #include <cuda_bf16.h>

@@ -22,7 +22,10 @@
 // 2048, causal) is bound at 0.174 ms, SeamlessM4T's hd-64 launches (B =
 // 8, H = 16) at 0.035-0.070 ms, Kimi K2's (hd 112, 64 query heads over 8,
 // causal) at 0.487 ms served (B 8, S 2,048) and 0.243 ms trained (B 1, S
-// 4,096).
+// 4,096). In float32 (phase 3s of chip_smoke.py serves and trains
+// Qwen3-0.6B so) the least time for float32-grade products on the tensor
+// cores is three TF32 products at 494.7 TFLOP/s: 0.834 ms at the
+// serving prefill's shape (2.052 ms on the 67 TFLOP/s FP32-FMA peak).
 //
 // Design. Blocks run in no order, so the TPU's sequential key axis becomes
 // a loop inside the block: a CTA per (query tile, head, batch) walks the
@@ -32,7 +35,8 @@
 // Hopper-sized, not the TPU's 512 x 512; the wrapper's block_q / block_k
 // only shape the plain version. q, k, v and o are read and written in the
 // model's (B, S, heads, hd) layout through their strides (unit stride on
-// hd), so the wrapper makes no transposed copies. The GQA group maps query
+// hd), so the wrapper makes no transposed copies (float32 reads the split
+// copies of its pre-pass, below). The GQA group maps query
 // head h to key/value head h / (H / KV). Masked scores are -1e30 and the
 // denominator is clamped at 1e-30, as in the reference; keys past the
 // sequence's end are masked and query rows past the end are not stored.
@@ -84,12 +88,37 @@
 //   first design, flash_mma_kernel: four warps, 16 query rows each, on
 //   mma.sync.m16n8k16 with float32 accumulation; Q's fragments stay in
 //   registers, each 64-key tile is staged in shared memory (K row-major,
-//   V transposed), S = Q K^T in HD / 16 k-steps.
-//   float32, every head dim: flash_simt_kernel, scalar FP32 FMAs, 256
-//   threads, each owning a 4 x 4 block of the 64 x 64 score tile and a
-//   4 x (hd / 16) block of the accumulator.
+//   V transposed), S = Q K^T in HD / 16 k-steps. It beats the library
+//   there (0.035 against 0.040 ms over phase 2's four launches, PR 25)
+//   and is left as it is.
+//   float32, every head dim (Qwen3-0.6B in float32 at 128, phase 3s;
+//   test shapes at the others): flash_fwd_tf32_sm90_kernel<HD>, the
+//   structure of the bf16 kernel on 3xTF32 wgmma (flash_tf32.cuh): hi =
+//   tf32(x) and lo = tf32(x - hi), three products a_lo b_hi + a_hi b_lo +
+//   a_hi b_hi each. wgmma has no transpose bit for tf32, so both
+//   shared-memory operands are K-major: S = Q K^T reads Q and K as the
+//   model lays them out, and P V reads V^T ([hd][key]) from a copy that
+//   a pre-pass (tf32_split_kernel, one launch for q, k and v) writes
+//   into a workspace the wrapper allocates, split into hi and lo, keys
+//   in each group of 8 in the order the S accumulator's registers hold
+//   them, so that P's tf32 A fragments come from the accumulator without
+//   a shuffle; the same pass writes q's and k's hi / lo copies. A
+//   transpose in shared memory by the loading warps was the other
+//   choice; the pre-pass keeps the kernel a plain TMA ring and costs
+//   bytes only (each operand read once, its copies written once). The
+//   tiles are halved against bf16: hi and lo double a float32 tile, which
+//   is twice bf16's, so a CTA is one consumer warpgroup of 64 query rows
+//   and a producer warp (160 threads; every thread may keep 255
+//   registers, so setmaxnreg has nothing to hand over: ptxas gives the
+//   consumers 120-164), with 64-key K and V^T tiles in rings of their
+//   own (a K tile is free once S is computed, a V^T tile once P V is),
+//   two stages deep at hd 16-80 and one at 112 and 128, where Q, K and
+//   V^T take 192 KB. Each tile's P V is computed into fresh registers
+//   and added to O in float32 (fmaf with the rescale): the tensor
+//   cores' float32 sums do not round to nearest, and an accumulator that
+//   took every tile's products drifts with the length of the row.
 #include "flash_tiles.cuh"
-#include "flash_sm90.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -271,167 +300,6 @@ flash_mma_kernel(const Params p) {
       *reinterpret_cast<__nv_bfloat162*>(
           o + static_cast<long long>(qpos1) * p.o_strides[1] + d) =
           __floats2bfloat162_rn(acc[dt][2] * inv1, acc[dt][3] * inv1);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32: scalar FMAs
-// ---------------------------------------------------------------------------
-
-template <int HD>
-__global__ void __launch_bounds__(256)
-flash_simt_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);   // [kBQ][HD + 1]
-  float* sK = sQ + kBQ * (HD + 1);                  // [kBK][HD + 1]
-  float* sV = sK + kBK * (HD + 1);                  // [kBK][HD]
-  float* sP = sV + kBK * HD;                        // [kBQ][kBK + 1]
-  float* sM = sP + kBQ * (kBK + 1);                 // [kBQ] running max
-  float* sL = sM + kBQ;                             // [kBQ] denominator
-  float* sA = sL + kBQ;                             // [kBQ] rescale
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / p.group;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_strides[0] +
-                   h * p.q_strides[2];
-  const float* k = static_cast<const float*>(p.k) + b * p.k_strides[0] +
-                   kvh * p.k_strides[2];
-  const float* v = static_cast<const float*>(p.v) + b * p.v_strides[0] +
-                   kvh * p.v_strides[2];
-  float* o = static_cast<float*>(p.o) + b * p.o_strides[0] +
-             h * p.o_strides[2];
-
-  for (int i = tid; i < kBQ * HD; i += blockDim.x) {
-    const int r = i / HD, d = i % HD;
-    sQ[r * (HD + 1) + d] =
-        q0 + r < p.sq ? q[static_cast<long long>(q0 + r) * p.q_strides[1] + d]
-                      : 0.f;
-  }
-  if (tid < kBQ) {
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
-  }
-  float acc[4][HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_tiles = key_tiles(p, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();
-    for (int i = tid; i < kBK * HD; i += blockDim.x) {
-      const int r = i / HD, d = i % HD;
-      const bool in = k0 + r < p.sk;
-      const long long row = static_cast<long long>(k0 + r);
-      sK[r * (HD + 1) + d] = in ? k[row * p.k_strides[1] + d] : 0.f;
-      sV[r * HD + d] = in ? v[row * p.v_strides[1] + d] : 0.f;
-    }
-    __syncthreads();
-
-    // scores of rows ty + 16 i, keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    }
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * (HD + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * (HD + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qpos = q0 + ty + 16 * i, kpos = k0 + tx + 16 * j;
-        const bool valid = kpos < p.sk && (!p.causal || qpos >= kpos);
-        sP[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
-            valid ? s[i][j] * p.scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: four threads per row, 16 keys each
-    {
-      const int r = tid / 4, c0 = (tid % 4) * 16;
-      float* row = sP + r * (kBK + 1) + c0;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const float e = expf(row[c] - m_new);
-        row[c] = e;
-        sum += e;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (tid % 4 == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V for rows ty + 16 i, columns tx + 16 j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = sA[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) acc[i][j] *= alpha;
-    }
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * (kBK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) {
-        const float vv = sV[c * HD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-
-  if (p.lse != nullptr && tid < kBQ && q0 + tid < p.sq) {
-    p.lse[(static_cast<long long>(b) * p.heads + h) * p.sq + q0 + tid] =
-        sM[tid] + logf(fmaxf(sL[tid], 1e-30f));
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= p.sq) continue;
-    const float inv = 1.f / fmaxf(sL[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      o[static_cast<long long>(q0 + r) * p.o_strides[1] + tx + 16 * j] =
-          acc[i][j] * inv;
     }
   }
 }
@@ -708,6 +576,317 @@ cudaError_t launch_sm90(const Params& p, int batch, int kv_heads,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32, every head dim: 3xTF32 on wgmma, TMA ring (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kT32Threads = 160;     // consumer: warpgroup 0; producer: warp 4
+
+// The float32 forward's shape at head dim HD: one consumer warpgroup of 64
+// query rows, 64-key tiles. Q, K and V^T are each a hi and a lo tile:
+// Q and K ceil(HD / 32) boxes of 64 rows x 128 bytes, V^T (HD rows by 64
+// keys) two boxes of HD x 128 bytes. K and V^T have rings of their own
+// (a K tile is free once S is computed, a V^T tile once P V is), two deep
+// where shared memory holds it (hd 16-80) and one deep at 112 and 128,
+// where Q alone takes 64 KB: 192 KB at hd 128.
+template <int HD>
+struct FwdT32 {
+  static constexpr int kBoxes = (HD + 31) / 32;
+  static constexpr int kQ = 64 * 128 * kBoxes;          // one part of Q
+  static constexpr int kK = 64 * 128 * kBoxes;          // one part of K
+  static constexpr int kV = HD * 128 * 2;               // one part of V^T
+  static constexpr int kFixed = 1024 + 2 * kQ;
+  static constexpr int kStage = 2 * kK + 2 * kV;
+  static constexpr int kStages =
+      kFixed + 2 * kStage + 8 * 9 <= 232448 ? 2 : 1;
+  static constexpr int kBars = 1 + 4 * kStages;   // q; k, v full and empty
+  static constexpr int kSmem = kFixed + kStages * kStage + 8 * kBars;
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 80 || HD == 112 ||
+                HD == 128, "head dim");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+struct T32Params {
+  CUtensorMap q_map[2], k_map[2];   // hi, lo row copies: boxes of 64 rows
+  CUtensorMap v_map[2];             // hi, lo transposed copies of v
+  float* o;
+  float* lse;                       // (B, H, Sq) float32, or null
+  long long o_strides[3];
+  int sq, sk, heads, group, batch, n_q_tiles;
+  int causal;
+  float scale;                      // 1 / sqrt(hd)
+  float scale_log2;                 // scale * log2(e)
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kT32Threads, 1)
+flash_fwd_tf32_sm90_kernel(const __grid_constant__ T32Params p) {
+  using F = FwdT32<HD>;
+  constexpr int kStages = F::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sQ = smem;                                 // hi, lo
+  unsigned char* sK = sQ + 2 * F::kQ;                       // [stage] hi, lo
+  unsigned char* sV = sK + kStages * 2 * F::kK;             // [stage] hi, lo
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kStages * 2 * F::kV);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;                              // [stage]
+  uint64_t* k_empty = k_full + kStages;                     // [stage]
+  uint64_t* v_full = k_empty + kStages;                     // [stage]
+  uint64_t* v_empty = v_full + kStages;                     // [stage]
+
+  // the heaviest (last, when causal) query tiles first
+  const int bh = p.heads * p.batch;
+  const int qt = p.n_q_tiles - 1 - static_cast<int>(blockIdx.x) / bh;
+  const int h = static_cast<int>(blockIdx.x) % bh % p.heads;
+  const int b = static_cast<int>(blockIdx.x) % bh / p.heads;
+  const int q0 = qt * 64;
+  int n_tiles = (p.sk + 63) / 64;
+  if (p.causal) n_tiles = min(n_tiles, q0 / 64 + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4);      // one arrival per consumer warp
+      mbar_init(&v_empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: one thread keeps both rings full
+    if (threadIdx.x == 128) {
+      const int kvh = h / p.group;
+      mbar_arrive_expect_tx(q_full, 2 * F::kQ);
+      for (int part = 0; part < 2; ++part) {
+        for (int x = 0; x < F::kBoxes; ++x) {
+          tma_load(sQ + part * F::kQ + x * 64 * 128, &p.q_map[part], q_full,
+                   32 * x, q0, h, b);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        const uint32_t reuse = (j / kStages - 1) & 1;
+        if (j >= kStages) mbar_wait(&k_empty[s], reuse);
+        mbar_arrive_expect_tx(&k_full[s], 2 * F::kK);
+        for (int part = 0; part < 2; ++part) {
+          for (int x = 0; x < F::kBoxes; ++x) {
+            tma_load(sK + (2 * s + part) * F::kK + x * 64 * 128,
+                     &p.k_map[part], &k_full[s], 32 * x, 64 * j, kvh, b);
+          }
+        }
+        if (j >= kStages) mbar_wait(&v_empty[s], reuse);
+        mbar_arrive_expect_tx(&v_full[s], 2 * F::kV);
+        for (int part = 0; part < 2; ++part) {
+          for (int x = 0; x < 2; ++x) {
+            tma_load(sV + (2 * s + part) * F::kV + x * HD * 128,
+                     &p.v_map[part], &v_full[s], 64 * j + 32 * x, 0, kvh, b);
+          }
+        }
+      }
+    }
+  } else {
+    // consumer: the warpgroup owns query rows q0 .. q0 + 63
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 16 * warp + g;             // and row0 + 8
+    const uint64_t q_hi = desc_k(sQ), q_lo = desc_k(sQ + F::kQ);
+    const float c = p.scale_log2;
+
+    constexpr int kO = HD / 2;
+    float o[kO];
+#pragma unroll
+    for (int i = 0; i < kO; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;   // running max of the raw scores
+    float l0 = 0.f, l1 = 0.f;           // this thread's part of the sums
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const uint32_t parity = (j / kStages) & 1;
+      const unsigned char* k_tile = sK + 2 * s * F::kK;
+      const unsigned char* v_tile = sV + 2 * s * F::kV;
+      const int k0 = j * 64;
+
+      // S = Q K^T, 3xTF32 over the head dim's HD / 8 k-steps
+      float sc[32];
+      mbar_wait(&k_full[s], parity);
+      wgmma_fence();
+      ss3_product<HD, 64>(sc, opaque(q_hi), opaque(q_lo), 64,
+                          desc_k(k_tile), desc_k(k_tile + F::kK));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&k_empty[s]);
+
+      // the mask, only where the tile reaches past a row's position or
+      // the keys' end
+      if (k0 + 64 > p.sk || (p.causal && k0 + 63 > q0)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int qpos = row0 + ((i & 2) ? 8 : 0);
+          if (kpos >= p.sk || (p.causal && kpos > qpos)) sc[i] = kNegInf;
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < 32; i += 4) {
+        mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float alpha0 = exp2f((m0 - mx0) * c);
+      const float alpha1 = exp2f((m1 - mx1) * c);
+      m0 = mx0;
+      m1 = mx1;
+      // (a row with every key masked so far takes p = 0, not 2^(huge))
+      const float mc0 = mx0 == kNegInf ? 0.f : mx0 * c;
+      const float mc1 = mx1 == kNegInf ? 0.f : mx1 * c;
+
+      // p = 2^(s c - m c): float32 into the sums, split into P V
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; i += 4) {
+        sc[i] = exp2f(fmaf(sc[i], c, -mc0));
+        sc[i + 1] = exp2f(fmaf(sc[i + 1], c, -mc0));
+        sc[i + 2] = exp2f(fmaf(sc[i + 2], c, -mc1));
+        sc[i + 3] = exp2f(fmaf(sc[i + 3], c, -mc1));
+        sum0 += sc[i] + sc[i + 1];
+        sum1 += sc[i + 2] + sc[i + 3];
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+      uint32_t ph[32], pl[32];
+      acc_to_tf32_frags(sc, ph, pl);
+
+      // O = O alpha + P V: the tile's P V, 3xTF32, V^T read K-major from
+      // its transposed copy, then added in float32 (rs3_product)
+      float pv[kO];
+      mbar_wait(&v_full[s], parity);
+      wgmma_fence();
+      rs3_product<HD, 64>(pv, ph, pl, desc_k(v_tile),
+                          desc_k(v_tile + F::kV));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(pv);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&v_empty[s]);
+#pragma unroll
+      for (int i = 0; i < kO; i += 4) {
+        o[i] = fmaf(o[i], alpha0, pv[i]);
+        o[i + 1] = fmaf(o[i + 1], alpha0, pv[i + 1]);
+        o[i + 2] = fmaf(o[i + 2], alpha1, pv[i + 2]);
+        o[i + 3] = fmaf(o[i + 3], alpha1, pv[i + 3]);
+      }
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (p.lse != nullptr && t == 0) {
+      float* lse = p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
+      if (row0 < p.sq) lse[row0] = m0 * p.scale + logf(fmaxf(l0, 1e-30f));
+      if (row0 + 8 < p.sq) {
+        lse[row0 + 8] = m1 * p.scale + logf(fmaxf(l1, 1e-30f));
+      }
+    }
+    float* out = p.o + b * p.o_strides[0] + h * p.o_strides[2];
+#pragma unroll
+    for (int i = 0; i < kO; i += 4) {
+      const int d = 8 * (i / 4) + 2 * t;
+      if (row0 < p.sq) {
+        *reinterpret_cast<float2*>(
+            out + static_cast<long long>(row0) * p.o_strides[1] + d) =
+            make_float2(o[i] * inv0, o[i + 1] * inv0);
+      }
+      if (row0 + 8 < p.sq) {
+        *reinterpret_cast<float2*>(
+            out + static_cast<long long>(row0 + 8) * p.o_strides[1] + d) =
+            make_float2(o[i + 2] * inv1, o[i + 3] * inv1);
+      }
+    }
+  }
+}
+
+// The float32 workspace's floats: q's and k's row copies, v's transposed
+// copy, each hi then lo.
+long long tf32_fwd_floats(int batch, int sq, int sk, int heads, int kv_heads,
+                          int hd) {
+  return rows_floats(batch, sq, heads, hd) +
+         rows_floats(batch, sk, kv_heads, hd) +
+         cols_floats(batch, sk, kv_heads, hd);
+}
+
+// The float32 launch: the pre-pass writes the split copies into `ws`,
+// then a tensor map per copy and a CTA per (64-row query tile, head,
+// batch). A refused map or launch returns its error; nothing retries on
+// another kernel.
+template <int HD>
+cudaError_t launch_tf32(const Params& p, int batch, int kv_heads, float* ws,
+                        cudaStream_t stream) {
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  float* q_rows = ws;
+  float* k_rows = q_rows + rows_floats(batch, p.sq, p.heads, HD);
+  float* v_cols = k_rows + rows_floats(batch, p.sk, kv_heads, HD);
+  Split split(batch, HD);
+  split.add(p.q, p.q_strides, p.sq, p.heads, q_rows, nullptr);
+  split.add(p.k, p.k_strides, p.sk, kv_heads, k_rows, nullptr);
+  split.add(p.v, p.v_strides, p.sk, kv_heads, nullptr, v_cols);
+  cudaError_t err = split.launch(stream);
+  if (err != cudaSuccess) return err;
+  T32Params s;
+  const long long q_part = rows_floats(batch, p.sq, p.heads, HD) / 2;
+  const long long k_part = rows_floats(batch, p.sk, kv_heads, HD) / 2;
+  const long long v_part = cols_floats(batch, p.sk, kv_heads, HD) / 2;
+  bool mapped = true;
+  for (int part = 0; part < 2; ++part) {
+    mapped = mapped &&
+             make_rows_map(&s.q_map[part], q_rows + part * q_part, batch,
+                           p.sq, p.heads, HD, 64) &&
+             make_rows_map(&s.k_map[part], k_rows + part * k_part, batch,
+                           p.sk, kv_heads, HD, 64) &&
+             make_cols_map(&s.v_map[part], v_cols + part * v_part, batch,
+                           seq8(p.sk), kv_heads, HD);
+  }
+  if (!mapped) return cudaErrorInvalidValue;
+  s.o = static_cast<float*>(p.o);
+  s.lse = p.lse;
+  for (int i = 0; i < 3; ++i) s.o_strides[i] = p.o_strides[i];
+  s.sq = p.sq;
+  s.sk = p.sk;
+  s.heads = p.heads;
+  s.group = p.group;
+  s.batch = batch;
+  s.n_q_tiles = (p.sq + 63) / 64;
+  s.causal = p.causal;
+  s.scale = p.scale;
+  s.scale_log2 = p.scale * kLog2e;
+  err = cudaFuncSetAttribute(flash_fwd_tf32_sm90_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             FwdT32<HD>::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(s.n_q_tiles) * p.heads *
+                           batch;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_tf32_sm90_kernel<HD><<<static_cast<unsigned>(blocks),
+                                   kT32Threads, FwdT32<HD>::kSmem,
+                                   stream>>>(s);
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, int threads, size_t smem, const Params& p,
                    int batch, cudaStream_t stream) {
@@ -721,27 +900,33 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, const Params& p,
 }
 
 template <int HD>
-cudaError_t launch_hd(int dtype, const Params& p, int batch,
+cudaError_t launch_hd(int dtype, const Params& p, int batch, float* ws,
                       cudaStream_t stream) {
-  if (dtype == 1) {
-    // head dims 64, 80, 112, 128: the Hopper kernel; 16, 32 (test shapes):
-    // the mma.sync kernel
-    if constexpr (HD >= 64) {
-      return launch_sm90<HD>(p, batch, p.heads / p.group, stream);
-    } else {
-      const size_t smem = sizeof(__nv_bfloat16) *
-                          (kBK * (HD + 8) + HD * (kBK + 8));
-      return launch(flash_mma_kernel<HD>, kMmaThreads, smem, p, batch,
-                    stream);
-    }
+  if (dtype == 0) {
+    return launch_tf32<HD>(p, batch, p.heads / p.group, ws, stream);
   }
-  const size_t smem = sizeof(float) *
-                      (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD +
-                       kBQ * (kBK + 1) + 3 * kBQ);
-  return launch(flash_simt_kernel<HD>, 256, smem, p, batch, stream);
+  // head dims 64, 80, 112, 128: the Hopper kernel; 16, 32 (test shapes):
+  // the mma.sync kernel
+  if constexpr (HD >= 64) {
+    return launch_sm90<HD>(p, batch, p.heads / p.group, stream);
+  } else {
+    const size_t smem = sizeof(__nv_bfloat16) *
+                        (kBK * (HD + 8) + HD * (kBK + 8));
+    return launch(flash_mma_kernel<HD>, kMmaThreads, smem, p, batch, stream);
+  }
 }
 
 }  // namespace
+
+// The bytes of workspace flash_attention_launch needs: float32's split
+// copies of q, k and v; 0 for bfloat16.
+extern "C" long long flash_attention_workspace(int batch, int sq, int sk,
+                                               int heads, int kv_heads,
+                                               int head_dim, int dtype) {
+  return dtype == 0 ? 4 * tf32_fwd_floats(batch, sq, sk, heads, kv_heads,
+                                          head_dim)
+                    : 0;
+}
 
 // q: (B, Sq, H, hd), k / v: (B, Sk, KV, hd), o: (B, Sq, H, hd), each given
 // by its base pointer and (batch, sequence, head) strides in elements; hd
@@ -750,13 +935,15 @@ cudaError_t launch_hd(int dtype, const Params& p, int batch,
 // masked scores (the backward's saved statistic); a null lse runs exactly
 // the lse-free kernel. dtype: 0 float32, 1 bfloat16 (q, k, v and o alike). For
 // bfloat16 every pointer must be 16-byte aligned and every k / v / q
-// stride a multiple of 8 elements. Returns a cudaError_t.
+// stride a multiple of 8 elements. workspace: float32 only,
+// flash_attention_workspace's bytes, 16-byte aligned. Returns a
+// cudaError_t.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, float* lse,
     const long long* q_strides, const long long* k_strides,
     const long long* v_strides, const long long* o_strides, int batch,
     int sq, int sk, int heads, int kv_heads, int head_dim, int causal,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, void* workspace, void* stream) {
   if (batch < 1 || sq < 1 || sk < 1 || kv_heads < 1 || heads < 1 ||
       heads % kv_heads != 0 || heads > 65535 || batch > 65535 ||
       (dtype != 0 && dtype != 1)) {
@@ -781,15 +968,18 @@ extern "C" int flash_attention_launch(
   p.causal = causal;
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(workspace);
+  cudaError_t err;
   switch (head_dim) {
-    case 16: return static_cast<int>(launch_hd<16>(dtype, p, batch, s));
-    case 32: return static_cast<int>(launch_hd<32>(dtype, p, batch, s));
-    case 64: return static_cast<int>(launch_hd<64>(dtype, p, batch, s));
-    case 80: return static_cast<int>(launch_hd<80>(dtype, p, batch, s));
-    case 112: return static_cast<int>(launch_hd<112>(dtype, p, batch, s));
-    case 128: return static_cast<int>(launch_hd<128>(dtype, p, batch, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: err = launch_hd<16>(dtype, p, batch, ws, s); break;
+    case 32: err = launch_hd<32>(dtype, p, batch, ws, s); break;
+    case 64: err = launch_hd<64>(dtype, p, batch, ws, s); break;
+    case 80: err = launch_hd<80>(dtype, p, batch, ws, s); break;
+    case 112: err = launch_hd<112>(dtype, p, batch, ws, s); break;
+    case 128: err = launch_hd<128>(dtype, p, batch, ws, s); break;
+    default: err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -18,7 +18,10 @@
 // dk, dv = 0.20 GB, 0.060 ms at 3.35 TB/s. Zamba2's shared attention (hd
 // 80, B 2, 32 heads, causal 4,096) is bound at 0.434 ms, SeamlessM4T's
 // hd-64 launches (B 2, 16 heads) at 0.022-0.174 ms, Kimi K2's (hd 112, B
-// 1, 64 heads over 8, causal 4,096) at 0.608 ms.
+// 1, 64 heads over 8, causal 4,096) at 0.608 ms. In float32 (phase 3s of
+// chip_smoke.py trains Qwen3-0.6B so, B 4 a microbatch) three TF32
+// products at 494.7 TFLOP/s bound the launch at 4.168 ms (10.26 ms on the
+// 67 TFLOP/s FP32-FMA peak).
 //
 // Design. Blocks run in no order, so each output gets the CTA that owns
 // it and a loop takes the place of the TPU's sequential grid axis:
@@ -46,17 +49,18 @@
 // and dv, which keeps about 16 bits of p and ds. The launcher's switch on
 // the head dim and dtype picks the kernels; none falls back on another:
 //
-//   bf16, head dims 64, 80, 112 and 128 (every dense config the port
-//   trains at 128; SeamlessM4T at 64, Zamba2's shared attention at 80,
-//   Kimi K2 at 112): flash_bwd_dq_sm90_kernel<HD, true>, then
+//   bf16, every head dim (every dense config the port trains at 128;
+//   SeamlessM4T at 64, Zamba2's shared attention at 80, Kimi K2 at 112;
+//   16 and 32 are test shapes, off every main path, whose first design on
+//   mma.sync this replaced): flash_bwd_dq_sm90_kernel<HD, true>, then
 //   flash_bwd_dkv_sm90_kernel<HD, true>. Against the operation bound they
 //   keep the tensor cores fed: each CTA has two consumer warpgroups on
 //   wgmma and a producer that streams tiles by TMA (tensor maps over the
 //   model's layout, 128-byte swizzle) through a ring of full / empty
 //   mbarriers, and setmaxnreg gives the producer's registers to the
 //   consumers. A tile row is ceil(HD / 64) boxes of 64 columns: one at hd
-//   64, two at 80, 112 and 128; at 80 and 112 TMA fills the second box's
-//   columns past the head dim (80-127, 112-127) with zeros. The products
+//   16, 32 and 64, two at 80, 112 and 128; TMA fills the columns past the
+//   head dim (16-63, 32-63, 80-127, 112-127) with zeros. The products
 //   over the head dim (S, dP; S^T, dP^T) read both operands from shared
 //   memory, K-major, in HD / 16 k-steps (those from the fifth on read the
 //   second box: one at hd 80, three at 112); the products over keys or
@@ -73,12 +77,12 @@
 //   and 128 in two passes (dV, then dK), so that one accumulator of 56 or
 //   64 registers a thread is live beside S^T and dP^T; with both live
 //   ptxas spilled (at hd 112 272 bytes, and it serialized the wgmmas). At
-//   hd 64 and 80 in one pass: dK and dV (32 + 32 or 40 + 40 floats a
+//   hd 16-80 in one pass: dK and dV (32 + 32 or 40 + 40 floats a
 //   thread) stay live, S^T is computed once and Q, dO stream once; a tile
 //   runs S^T, p^T and its fragments, dV += P^T dO, dP^T, ds^T, dK += dS^T
 //   Q, each product waited for before the next. p is 2^(s scale log2(e) -
 //   lse log2(e)). The ring has three stages at hd 80, 112 and 128 and six
-//   at 64. The variants timed while choosing, each in turns in one call on
+//   at 16-64. The variants timed while choosing, each in turns in one call on
 //   an H100 80GB HBM3 at 700 W (ms a launch; only the chosen ones were
 //   kept): at hd 64, B 2, 16 heads, over 1,024 x 1,024 / causal 4,096 /
 //   4,096 x 1,024 keys, a ring of six 0.150 / 0.893 / 0.519, of eight
@@ -95,17 +99,41 @@
 //   threads, one producer warp and no setmaxnreg (the consumers then
 //   report 127-164 registers): no faster, and sharing a batch still spills
 //   or serializes.
-//   bf16, head dims 16 and 32 (test shapes, off every main path): the
-//   first design, flash_bwd_dq_mma_kernel and flash_bwd_dkv_mma_kernel:
-//   four warps on mma.sync.m16n8k16 with float32 accumulation, 64 x 64
-//   tiles staged in shared memory (row-major where they are an A operand
-//   or the B operand of a product over hd, transposed where they are the
-//   B operand of a product over keys or queries), the same hi + lo split.
-//   float32, every head dim: scalar FP32 FMAs, 256 threads, each owning a
-//   4 x 4 block of the 64 x 64 score tile and a 4 x (hd / 16) block of its
-//   accumulators.
-#include "flash_tiles.cuh"
-#include "flash_sm90.cuh"
+//   float32, every head dim (Qwen3-0.6B in float32 at 128, phase 3s;
+//   test shapes at the others): flash_bwd_dq_tf32_sm90_kernel<HD>, then
+//   flash_bwd_dkv_tf32_sm90_kernel<HD>, with every product as three TF32
+//   products on wgmma (flash_tf32.cuh), so the float32 backward stays
+//   float32-grade throughout, as the plain version is. wgmma has no
+//   transpose bit for tf32, so both shared-memory operands are K-major:
+//   the products over the head dim (S, dP; S^T, dP^T) read their
+//   operands as laid out, and the products over keys or queries read K^T
+//   (dQ += dS K), dO^T (dV += P^T dO) and Q^T (dK += dS^T Q) from
+//   transposed copies. A pre-pass (tf32_split_kernel, one launch) writes
+//   every copy once per launch into a workspace the wrapper allocates:
+//   the hi / lo rows of q, k, v and do, the hi / lo transposes of k, q
+//   and do (rows of each aligned group of 8 in the order the
+//   accumulators' registers hold them, so that dS, P^T and dS^T become
+//   tf32 A fragments without a shuffle). Hi and lo double each tile
+//   against a float32 one, so each CTA is one consumer warpgroup owning
+//   64 rows and a producer warp (160 threads, up to 255 registers a
+//   thread, no setmaxnreg), the other side streaming in tiles of 32: dq
+//   holds Q and dO (128 KB at hd 128) and a stage of K, V and K^T; dk /
+//   dv holds K and V and a stage of Q, dO and one transposed tile, dO^T
+//   in a first pass (dV) and Q^T in a second (dK, S^T computed again),
+//   225 KB at hd 128; each ring (the rows, free once the products over
+//   the head dim are done; the transposed tile, free once its product
+//   is) has its own barriers, two stages deep at hd 16-64 and one at
+//   80-128. The group's sum stays in registers, as in bf16: no atomics,
+//   and two runs give the same bits. Each tile's dQ, dV or dK product is
+//   computed into fresh registers and added to the total in float32:
+//   the tensor cores' float32 sums do not round to nearest, and when
+//   each accumulator took every tile's products (some 12,000 for dk / dv
+//   at a GQA group of 8 over 4,096 queries) the float32 backward used
+//   0.65 of the card's gate against the plain version, and 0.058 with
+//   the tile totals (phase 2 of chip_smoke.py on an H100 80GB HBM3 at
+//   700 W); Qwen3-0.6B's gradients in float32 moved by 3.0e-4 and 8.0e-6
+//   of a leaf's RMS.
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -131,614 +159,33 @@ struct BwdParams {
   float scale;
 };
 
-// The number of key tiles the q tile starting at q0 reads.
-__device__ __forceinline__ int bwd_key_tiles(const BwdParams& p, int q0) {
-  int n = (p.sk + kBK - 1) / kBK;
-  if (p.causal) {
-    const int last = (q0 + kBQ - 1) / kBK + 1;
-    n = last < n ? last : n;
-  }
-  return n;
-}
-
-// The first q tile that reaches the key tile starting at k0 (tiles of
-// equal size, positions aligned at 0).
-__device__ __forceinline__ int bwd_first_q_tile(const BwdParams& p, int k0) {
-  return p.causal ? k0 / kBQ : 0;
-}
-
-__device__ __forceinline__ bool bwd_valid(const BwdParams& p, int qpos,
-                                          int kpos) {
-  return qpos < p.sq && kpos < p.sk && (!p.causal || qpos >= kpos);
-}
-
 // ---------------------------------------------------------------------------
-// bf16: mma.sync
-// ---------------------------------------------------------------------------
-
-// acc[nt] += A B over one 64 x 64 tile product with a depth of HD: A rows
-// [16 warp, 16 warp + 16) of the row-major sA[64][HD + 8]; B[k][n] read
-// from the row-major sB[n][k] = sB[64][HD + 8].
-template <int HD>
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[kBK / 8][4],
-                                                 const __nv_bfloat16* sA,
-                                                 const __nv_bfloat16* sB,
-                                                 int warp, int g, int t) {
-  const __nv_bfloat16* a_lo = sA + (warp * 16 + g) * (HD + 8) + 2 * t;
-  const __nv_bfloat16* a_hi = a_lo + 8 * (HD + 8);
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const uint32_t a[4] = {lds32(a_lo + ks * 16), lds32(a_hi + ks * 16),
-                           lds32(a_lo + ks * 16 + 8),
-                           lds32(a_hi + ks * 16 + 8)};
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-      const __nv_bfloat16* br = sB + (nt * 8 + g) * (HD + 8) + 2 * t;
-      mma_bf16(acc[nt], a, lds32(br + ks * 16), lds32(br + ks * 16 + 8));
-    }
-  }
-}
-
-// acc[dt] += A M over a depth of 64: A's bf16 fragments af (the packed C
-// fragments of a 16 x 64 tile), M[k][n] read from the transposed
-// sMt[n][k] = sMt[HD][kBK + 8].
-template <int HD>
-__device__ __forceinline__ void mma_frags_by_cols(
-    float (&acc)[HD / 8][4], const uint32_t (&af)[kBK / 8][2],
-    const __nv_bfloat16* sMt, int g, int t) {
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const __nv_bfloat16* mr = sMt + (dt * 8 + g) * (kBK + 8) + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {af[2 * kk][0], af[2 * kk][1],
-                             af[2 * kk + 1][0], af[2 * kk + 1][1]};
-      mma_bf16(acc[dt], a, lds32(mr + kk * 16), lds32(mr + kk * 16 + 8));
-    }
-  }
-}
-
-// The bf16 A fragments of a warp's 16 x 64 float32 C fragments, split
-// into hi = bf16(x) and lo = bf16(x - hi).
-__device__ __forceinline__ void split_frags(const float (&x)[kBK / 8][4],
-                                            uint32_t (&hi)[kBK / 8][2],
-                                            uint32_t (&lo)[kBK / 8][2]) {
-#pragma unroll
-  for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const __nv_bfloat162 h =
-          __floats2bfloat162_rn(x[nt][2 * j], x[nt][2 * j + 1]);
-      const float2 hf = __bfloat1622float2(h);
-      hi[nt][j] = *reinterpret_cast<const uint32_t*>(&h);
-      lo[nt][j] = pack_bf16(x[nt][2 * j] - hf.x, x[nt][2 * j + 1] - hf.y);
-    }
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* x,
-                                           long long row_stride,
-                                           const float (&acc)[HD / 8][4],
-                                           int row0, int rows, int t) {
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-    const int d = dt * 8 + 2 * t;
-    if (row0 < rows) {
-      *reinterpret_cast<__nv_bfloat162*>(
-          x + static_cast<long long>(row0) * row_stride + d) =
-          __floats2bfloat162_rn(acc[dt][0], acc[dt][1]);
-    }
-    if (row0 + 8 < rows) {
-      *reinterpret_cast<__nv_bfloat162*>(
-          x + static_cast<long long>(row0 + 8) * row_stride + d) =
-          __floats2bfloat162_rn(acc[dt][2], acc[dt][3]);
-    }
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + kBQ * (HD + 8);       // [kBQ][HD + 8]
-  __nv_bfloat16* sK = sdO + kBQ * (HD + 8);       // [kBK][HD + 8]
-  __nv_bfloat16* sV = sK + kBK * (HD + 8);        // [kBK][HD + 8]
-  __nv_bfloat16* sKt = sV + kBK * (HD + 8);       // [HD][kBK + 8]
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / p.group;
-
-  const auto* q = static_cast<const __nv_bfloat16*>(p.q) +
-                  b * p.q_strides[0] + h * p.q_strides[2];
-  const auto* dout = static_cast<const __nv_bfloat16*>(p.dout) +
-                     b * p.do_strides[0] + h * p.do_strides[2];
-  const auto* k = static_cast<const __nv_bfloat16*>(p.k) +
-                  b * p.k_strides[0] + kvh * p.k_strides[2];
-  const auto* v = static_cast<const __nv_bfloat16*>(p.v) +
-                  b * p.v_strides[0] + kvh * p.v_strides[2];
-  auto* dq = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_strides[0] +
-             h * p.dq_strides[2];
-
-  stage_tile<HD, false>(sQ, q, p.q_strides[1], q0, p.sq);
-  stage_tile<HD, false>(sdO, dout, p.do_strides[1], q0, p.sq);
-
-  // rows g and g + 8 of this warp's 16, with their lse and delta
-  const int qpos0 = q0 + warp * 16 + g;
-  const int qpos1 = qpos0 + 8;
-  const long long row_base = (static_cast<long long>(b) * p.heads + h) * p.sq;
-  const float lse0 = qpos0 < p.sq ? p.lse[row_base + qpos0] : 0.f;
-  const float lse1 = qpos1 < p.sq ? p.lse[row_base + qpos1] : 0.f;
-  const float dl0 = qpos0 < p.sq ? p.delta[row_base + qpos0] : 0.f;
-  const float dl1 = qpos1 < p.sq ? p.delta[row_base + qpos1] : 0.f;
-
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
-  }
-
-  const int n_tiles = bwd_key_tiles(p, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                  // every warp is done with the last tile
-    stage_tile<HD, false>(sK, k, p.k_strides[1], k0, p.sk);
-    stage_tile<HD, false>(sV, v, p.v_strides[1], k0, p.sk);
-    stage_tile<HD, true>(sKt, k, p.k_strides[1], k0, p.sk);
-    __syncthreads();
-
-    float s[kBK / 8][4], dp[kBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-    }
-    mma_rows_by_rows<HD>(s, sQ, sK, warp, g, t);     // q k^T
-    mma_rows_by_rows<HD>(dp, sdO, sV, warp, g, t);   // do v^T
-
-    // ds = p (dp - delta) scale, in place of s
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + nt * 8 + 2 * t + (i & 1);
-        const int qpos = i < 2 ? qpos0 : qpos1;
-        const float pr = bwd_valid(p, qpos, kpos)
-            ? expf(s[nt][i] * p.scale - (i < 2 ? lse0 : lse1)) : 0.f;
-        s[nt][i] = pr * (dp[nt][i] - (i < 2 ? dl0 : dl1)) * p.scale;
-      }
-    }
-    uint32_t ds_hi[kBK / 8][2], ds_lo[kBK / 8][2];
-    split_frags(s, ds_hi, ds_lo);
-    mma_frags_by_cols<HD>(acc, ds_hi, sKt, g, t);    // dq += ds k
-    mma_frags_by_cols<HD>(acc, ds_lo, sKt, g, t);
-  }
-  store_rows<HD>(dq, p.dq_strides[1], acc, qpos0, p.sq, t);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kBK * (HD + 8);        // [kBK][HD + 8]
-  __nv_bfloat16* sQ = sV + kBK * (HD + 8);        // [kBQ][HD + 8]
-  __nv_bfloat16* sdO = sQ + kBQ * (HD + 8);       // [kBQ][HD + 8]
-  __nv_bfloat16* sQt = sdO + kBQ * (HD + 8);      // [HD][kBQ + 8]
-  __nv_bfloat16* sdOt = sQt + HD * (kBQ + 8);     // [HD][kBQ + 8]
-  float* sL = reinterpret_cast<float*>(sdOt + HD * (kBQ + 8));  // [kBQ]
-  float* sD = sL + kBQ;                                          // [kBQ]
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int k0 = blockIdx.x * kBK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const auto* k = static_cast<const __nv_bfloat16*>(p.k) +
-                  b * p.k_strides[0] + kvh * p.k_strides[2];
-  const auto* v = static_cast<const __nv_bfloat16*>(p.v) +
-                  b * p.v_strides[0] + kvh * p.v_strides[2];
-  auto* dk = static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_strides[0] +
-             kvh * p.dk_strides[2];
-  auto* dv = static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_strides[0] +
-             kvh * p.dv_strides[2];
-
-  stage_tile<HD, false>(sK, k, p.k_strides[1], k0, p.sk);
-  stage_tile<HD, false>(sV, v, p.v_strides[1], k0, p.sk);
-
-  // keys g and g + 8 of this warp's 16
-  const int kpos0 = k0 + warp * 16 + g;
-  const int kpos1 = kpos0 + 8;
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[dt][i] = dv_acc[dt][i] = 0.f;
-  }
-
-  const int n_q_tiles = (p.sq + kBQ - 1) / kBQ;
-  for (int gi = 0; gi < p.group; ++gi) {
-    const int h = kvh * p.group + gi;
-    const auto* q = static_cast<const __nv_bfloat16*>(p.q) +
-                    b * p.q_strides[0] + h * p.q_strides[2];
-    const auto* dout = static_cast<const __nv_bfloat16*>(p.dout) +
-                       b * p.do_strides[0] + h * p.do_strides[2];
-    const long long row_base =
-        (static_cast<long long>(b) * p.heads + h) * p.sq;
-    for (int qt = bwd_first_q_tile(p, k0); qt < n_q_tiles; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();                // every warp is done with the last tile
-      stage_tile<HD, false>(sQ, q, p.q_strides[1], q0, p.sq);
-      stage_tile<HD, false>(sdO, dout, p.do_strides[1], q0, p.sq);
-      stage_tile<HD, true>(sQt, q, p.q_strides[1], q0, p.sq);
-      stage_tile<HD, true>(sdOt, dout, p.do_strides[1], q0, p.sq);
-      if (threadIdx.x < kBQ) {
-        const int qpos = q0 + threadIdx.x;
-        sL[threadIdx.x] = qpos < p.sq ? p.lse[row_base + qpos] : 0.f;
-        sD[threadIdx.x] = qpos < p.sq ? p.delta[row_base + qpos] : 0.f;
-      }
-      __syncthreads();
-
-      // s^T = k q^T: rows are this warp's keys, columns the tile's queries
-      float st[kBQ / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[nt][i] = 0.f;
-      }
-      mma_rows_by_rows<HD>(st, sK, sQ, warp, g, t);
-      // p^T in place of s^T (float32), then dv += p^T do
-#pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = nt * 8 + 2 * t + (i & 1);
-          const int kpos = i < 2 ? kpos0 : kpos1;
-          st[nt][i] = bwd_valid(p, q0 + col, kpos)
-              ? expf(st[nt][i] * p.scale - sL[col]) : 0.f;
-        }
-      }
-      {
-        uint32_t p_hi[kBQ / 8][2], p_lo[kBQ / 8][2];
-        split_frags(st, p_hi, p_lo);
-        mma_frags_by_cols<HD>(dv_acc, p_hi, sdOt, g, t);
-        mma_frags_by_cols<HD>(dv_acc, p_lo, sdOt, g, t);
-      }
-
-      // dp^T = v do^T, then ds^T = p^T (dp^T - delta) scale
-      float dpt[kBQ / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dpt[nt][i] = 0.f;
-      }
-      mma_rows_by_rows<HD>(dpt, sV, sdO, warp, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kBQ / 8; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = nt * 8 + 2 * t + (i & 1);
-          st[nt][i] = st[nt][i] * (dpt[nt][i] - sD[col]) * p.scale;
-        }
-      }
-      uint32_t ds_hi[kBQ / 8][2], ds_lo[kBQ / 8][2];
-      split_frags(st, ds_hi, ds_lo);
-      mma_frags_by_cols<HD>(dk_acc, ds_hi, sQt, g, t);  // dk += ds^T q
-      mma_frags_by_cols<HD>(dk_acc, ds_lo, sQt, g, t);
-    }
-  }
-  store_rows<HD>(dk, p.dk_strides[1], dk_acc, kpos0, p.sk, t);
-  store_rows<HD>(dv, p.dv_strides[1], dv_acc, kpos0, p.sk, t);
-}
-
-// ---------------------------------------------------------------------------
-// float32: scalar FMAs
-// ---------------------------------------------------------------------------
-
-// Rows [r0, r0 + 64) of one head of x into dst[64][HD + 1]; rows past
-// `rows` are zero.
-template <int HD>
-__device__ __forceinline__ void stage_f32(float* dst, const float* x,
-                                          long long row_stride, int r0,
-                                          int rows) {
-  for (int i = threadIdx.x; i < kBK * HD; i += blockDim.x) {
-    const int r = i / HD, d = i % HD;
-    dst[r * (HD + 1) + d] =
-        r0 + r < rows ? x[static_cast<long long>(r0 + r) * row_stride + d]
-                      : 0.f;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(256)
-flash_bwd_dq_simt_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);   // [kBQ][HD + 1]
-  float* sdO = sQ + kBQ * (HD + 1);                 // [kBQ][HD + 1]
-  float* sK = sdO + kBQ * (HD + 1);                 // [kBK][HD + 1]
-  float* sV = sK + kBK * (HD + 1);                  // [kBK][HD + 1]
-  float* sS = sV + kBK * (HD + 1);                  // [kBQ][kBK + 1] ds
-  float* sL = sS + kBQ * (kBK + 1);                 // [kBQ] lse
-  float* sD = sL + kBQ;                             // [kBQ] delta
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / p.group;
-
-  const float* q = static_cast<const float*>(p.q) + b * p.q_strides[0] +
-                   h * p.q_strides[2];
-  const float* dout = static_cast<const float*>(p.dout) +
-                      b * p.do_strides[0] + h * p.do_strides[2];
-  const float* k = static_cast<const float*>(p.k) + b * p.k_strides[0] +
-                   kvh * p.k_strides[2];
-  const float* v = static_cast<const float*>(p.v) + b * p.v_strides[0] +
-                   kvh * p.v_strides[2];
-  float* dq = static_cast<float*>(p.dq) + b * p.dq_strides[0] +
-              h * p.dq_strides[2];
-
-  stage_f32<HD>(sQ, q, p.q_strides[1], q0, p.sq);
-  stage_f32<HD>(sdO, dout, p.do_strides[1], q0, p.sq);
-  if (tid < kBQ) {
-    const long long row = (static_cast<long long>(b) * p.heads + h) * p.sq +
-                          q0 + tid;
-    sL[tid] = q0 + tid < p.sq ? p.lse[row] : 0.f;
-    sD[tid] = q0 + tid < p.sq ? p.delta[row] : 0.f;
-  }
-  float acc[4][HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_tiles = bwd_key_tiles(p, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();
-    stage_f32<HD>(sK, k, p.k_strides[1], k0, p.sk);
-    stage_f32<HD>(sV, v, p.v_strides[1], k0, p.sk);
-    __syncthreads();
-
-    // s and dp of rows ty + 16 i, keys tx + 16 j
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    }
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(ty + 16 * i) * (HD + 1) + d];
-        ov[i] = sdO[(ty + 16 * i) * (HD + 1) + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tx + 16 * j) * (HD + 1) + d];
-        vv[j] = sV[(tx + 16 * j) * (HD + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float pr = bwd_valid(p, q0 + r, k0 + c)
-            ? expf(s[i][j] * p.scale - sL[r]) : 0.f;
-        sS[r * (kBK + 1) + c] = pr * (dp[i][j] - sD[r]) * p.scale;
-      }
-    }
-    __syncthreads();
-
-    // dq += ds k for rows ty + 16 i, columns tx + 16 j
-    for (int c = 0; c < kBK; ++c) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sS[(ty + 16 * i) * (kBK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) {
-        const float kk = sK[c * (HD + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kk, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= p.sq) continue;
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      dq[static_cast<long long>(q0 + r) * p.dq_strides[1] + tx + 16 * j] =
-          acc[i][j];
-    }
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(256)
-flash_bwd_dkv_simt_kernel(const BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);   // [kBK][HD + 1]
-  float* sV = sK + kBK * (HD + 1);                  // [kBK][HD + 1]
-  float* sQ = sV + kBK * (HD + 1);                  // [kBQ][HD + 1]
-  float* sdO = sQ + kBQ * (HD + 1);                 // [kBQ][HD + 1]
-  float* sP = sdO + kBQ * (HD + 1);                 // [kBK][kBQ + 1] p^T
-  float* sS = sP + kBK * (kBQ + 1);                 // [kBK][kBQ + 1] ds^T
-  float* sL = sS + kBK * (kBQ + 1);                 // [kBQ] lse
-  float* sD = sL + kBQ;                             // [kBQ] delta
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int k0 = blockIdx.x * kBK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-
-  const float* k = static_cast<const float*>(p.k) + b * p.k_strides[0] +
-                   kvh * p.k_strides[2];
-  const float* v = static_cast<const float*>(p.v) + b * p.v_strides[0] +
-                   kvh * p.v_strides[2];
-  float* dk = static_cast<float*>(p.dk) + b * p.dk_strides[0] +
-              kvh * p.dk_strides[2];
-  float* dv = static_cast<float*>(p.dv) + b * p.dv_strides[0] +
-              kvh * p.dv_strides[2];
-
-  stage_f32<HD>(sK, k, p.k_strides[1], k0, p.sk);
-  stage_f32<HD>(sV, v, p.v_strides[1], k0, p.sk);
-  // keys ty + 16 i, columns tx + 16 j
-  float dk_acc[4][HD / 16], dv_acc[4][HD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  }
-
-  const int n_q_tiles = (p.sq + kBQ - 1) / kBQ;
-  for (int gi = 0; gi < p.group; ++gi) {
-    const int h = kvh * p.group + gi;
-    const float* q = static_cast<const float*>(p.q) + b * p.q_strides[0] +
-                     h * p.q_strides[2];
-    const float* dout = static_cast<const float*>(p.dout) +
-                        b * p.do_strides[0] + h * p.do_strides[2];
-    const long long row_base =
-        (static_cast<long long>(b) * p.heads + h) * p.sq;
-    for (int qt = bwd_first_q_tile(p, k0); qt < n_q_tiles; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();
-      stage_f32<HD>(sQ, q, p.q_strides[1], q0, p.sq);
-      stage_f32<HD>(sdO, dout, p.do_strides[1], q0, p.sq);
-      if (tid < kBQ) {
-        const int qpos = q0 + tid;
-        sL[tid] = qpos < p.sq ? p.lse[row_base + qpos] : 0.f;
-        sD[tid] = qpos < p.sq ? p.delta[row_base + qpos] : 0.f;
-      }
-      __syncthreads();
-
-      // s^T and dp^T of keys ty + 16 i, queries tx + 16 j
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-      }
-      for (int d = 0; d < HD; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = sK[(ty + 16 * i) * (HD + 1) + d];
-          vv[i] = sV[(ty + 16 * i) * (HD + 1) + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = sQ[(tx + 16 * j) * (HD + 1) + d];
-          ov[j] = sdO[(tx + 16 * j) * (HD + 1) + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-            dpt[i][j] = fmaf(vv[i], ov[j], dpt[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          const float pr = bwd_valid(p, q0 + c, k0 + r)
-              ? expf(st[i][j] * p.scale - sL[c]) : 0.f;
-          sP[r * (kBQ + 1) + c] = pr;
-          sS[r * (kBQ + 1) + c] = pr * (dpt[i][j] - sD[c]) * p.scale;
-        }
-      }
-      __syncthreads();
-
-      // dv += p^T do, dk += ds^T q for keys ty + 16 i, columns tx + 16 j
-      for (int c = 0; c < kBQ; ++c) {
-        float pv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = sP[(ty + 16 * i) * (kBQ + 1) + c];
-          sv[i] = sS[(ty + 16 * i) * (kBQ + 1) + c];
-        }
-#pragma unroll
-        for (int j = 0; j < HD / 16; ++j) {
-          const float ov = sdO[c * (HD + 1) + tx + 16 * j];
-          const float qv = sQ[c * (HD + 1) + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][j] = fmaf(pv[i], ov, dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(sv[i], qv, dk_acc[i][j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (k0 + r >= p.sk) continue;
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      const long long row = static_cast<long long>(k0 + r);
-      dk[row * p.dk_strides[1] + tx + 16 * j] = dk_acc[i][j];
-      dv[row * p.dv_strides[1] + tx + 16 * j] = dv_acc[i][j];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16, head dims 64, 80, 112, 128: TMA ring + wgmma (sm_90a)
+// bf16, every head dim: TMA ring + wgmma (sm_90a)
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 384;     // consumers: warpgroups 0, 1; producer: 2
 
 // The backward's shape at head dim HD: a tile row is ceil(HD / 64) halves
-// of 64 columns (128 bytes a row each; at hd 80 and 112 TMA zero-fills the
-// second's columns past the head dim); a warpgroup's 64 x HD accumulator
-// is HD / 2 floats a thread. At hd 64 and 80 the dk / dv kernel makes one
-// pass (dK and dV live together), at 112 and 128 two (one pass spilled).
+// of 64 columns (128 bytes a row each; at hd 16, 32, 80 and 112 TMA
+// zero-fills the columns past the head dim); a warpgroup's 64 x HD
+// accumulator is HD / 2 floats a thread. At hd 16-80 the dk / dv kernel
+// makes one pass (dK and dV live together), at 112 and 128 two (one pass
+// spilled).
 // The ring is as deep as was measured fastest (times in the header).
 template <int HD>
 struct Bwd {
   static constexpr int kHalves = (HD + 63) / 64;
   static constexpr int kRows128 = 128 * 128 * kHalves;  // bytes of 128 rows
   static constexpr int kRows64 = 64 * 128 * kHalves;    // bytes of 64 rows
-  static constexpr int kStages = HD == 64 ? 6 : 3;
+  static constexpr int kStages = HD <= 64 ? 6 : 3;
   static constexpr bool kOnePass = HD < 112;
   static constexpr int kAcc = HD / 2;
   static constexpr int kBars = 1 + 2 * kStages;  // loaded once; full, empty
   static constexpr int kDqSmem =
       1024 + 2 * kRows128 + 2 * kStages * kRows64 + 8 * kBars;
   static constexpr int kDkvSmem = kDqSmem + 2 * kStages * 64 * 4;
-  static_assert(HD == 64 || HD == 80 || HD == 112 || HD == 128, "head dim");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 80 || HD == 112 ||
+                HD == 128, "head dim");
   static_assert(kDkvSmem <= 232448, "shared memory");
 };
 
@@ -1210,13 +657,14 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ DkvParams p) {
 
 template <typename Kernel, typename P>
 cudaError_t launch_sm90(Kernel kernel, int smem, long long blocks,
-                        const P& p, cudaStream_t stream) {
+                        const P& p, cudaStream_t stream,
+                        int threads = kBwdThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (blocks > 0) {
-    kernel<<<static_cast<unsigned>(blocks), kBwdThreads, smem, stream>>>(p);
+    kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -1233,7 +681,7 @@ cudaError_t launch_sm90_pair(const DqParams& dq, long long dq_blocks,
                      Bwd<HD>::kDkvSmem, dkv_blocks, dkv, stream);
 }
 
-// The bf16 launch at head dims 64, 80, 112 and 128: a tensor map per operand
+// The bf16 launch at every head dim: a tensor map per operand
 // and tile height, then the dq kernel and the dk / dv kernel on `stream`.
 // A refused map or launch returns its error; nothing retries on another
 // kernel. `split` = false (p and ds rounded once) exists at 128 only.
@@ -1294,50 +742,544 @@ cudaError_t launch_bwd_sm90(const BwdParams& p, int batch, int kv_heads,
   return launch_sm90_pair<HD, true>(dq, dq_blocks, dkv, dkv_blocks, stream);
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid,
-                   const BwdParams& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// ---------------------------------------------------------------------------
+// float32, every head dim: 3xTF32 on wgmma, TMA ring (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kT32Threads = 160;     // consumer: warpgroup 0; producer: warp 4
+
+// The float32 backward's shape at head dim HD. Every operand is a hi and a
+// lo tile (flash_tf32.cuh): a row tile is ceil(HD / 32) boxes of 32
+// columns, a transposed tile (HD rows by 32 rows of the sequence) one box
+// of HD x 128 bytes. One consumer warpgroup owns 64 rows (queries in dq,
+// keys in dk / dv) and streams tiles of 32 of the other side. dq: Q and dO
+// once; a stage holds K, V and K^T, with a ring for K and V (free once S
+// and dP are computed) and one for K^T (free once dQ += dS K is). dk /
+// dv: K and V once; a stage holds Q, dO (with their lse and delta rows)
+// and one transposed tile, dO^T in the first pass (dV += P^T dO) and Q^T
+// in the second (dK += dS^T Q), so that four row tiles and one transposed
+// one fit: 225 KB at hd 128. Two stages where they fit (hd 16-64).
+template <int HD>
+struct BwdT32 {
+  static constexpr int kBoxes = (HD + 31) / 32;
+  static constexpr int kRows64 = 64 * 128 * kBoxes;     // one part, 64 rows
+  static constexpr int kRows32 = 32 * 128 * kBoxes;     // one part, 32 rows
+  static constexpr int kCols32 = HD * 128;              // one transposed part
+  static constexpr int kFixed = 1024 + 4 * kRows64;
+  static constexpr int kStage = 4 * kRows32 + 2 * kCols32;
+  static constexpr int kRowsBytes = 2 * 32 * 4;         // lse, delta rows
+  static constexpr int kStages =
+      kFixed + 2 * (kStage + kRowsBytes) + 8 * 9 <= 232448 ? 2 : 1;
+  static constexpr int kBars = 1 + 4 * kStages;
+  static constexpr int kDqSmem = kFixed + kStages * kStage + 8 * kBars;
+  static constexpr int kDkvSmem = kDqSmem + kStages * kRowsBytes;
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 80 || HD == 112 ||
+                HD == 128, "head dim");
+  static_assert(kDkvSmem <= 232448, "shared memory");
+};
+
+struct T32DqParams {
+  CUtensorMap q_map[2], do_map[2];  // hi, lo row copies: boxes of 64 rows
+  CUtensorMap k_map[2], v_map[2];   // boxes of 32 rows
+  CUtensorMap kt_map[2];            // k's transposed copies
+  const float* lse;                 // (B, H, Sq)
+  const float* delta;               // (B, H, Sq)
+  float* dq;
+  long long dq_strides[3];
+  int sq, sk, heads, group, batch, n_q_tiles;
+  int causal;
+  float scale, scale_log2;
+};
+
+struct T32DkvParams {
+  CUtensorMap k_map[2], v_map[2];   // boxes of 64 rows
+  CUtensorMap q_map[2], do_map[2];  // boxes of 32 rows
+  CUtensorMap qt_map[2], dot_map[2];  // q's and do's transposed copies
+  const float* lse;
+  const float* delta;
+  float* dk;
+  float* dv;
+  long long dk_strides[3];
+  long long dv_strides[3];
+  int sq, sk, heads, group, batch, kv_heads;
+  int causal;
+  float scale, scale_log2;
+};
+
+// The `Boxes` 32-column boxes of hi and lo row tiles of `rows` rows
+// (parts `part_bytes` apart) into dst.
+template <int Boxes>
+__device__ __forceinline__ void tma_split_rows(unsigned char* dst,
+                                               const CUtensorMap* maps,
+                                               uint64_t* bar, int rows,
+                                               int part_bytes, int row,
+                                               int head, int batch) {
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+#pragma unroll
+    for (int x = 0; x < Boxes; ++x) {
+      tma_load(dst + part * part_bytes + x * rows * 128, &maps[part], bar,
+               32 * x, row, head, batch);
+    }
+  }
+}
+
+// Store a warpgroup's 64 x HD float32 accumulator as rows row0 (and
+// row0 + 8) of x, those below `rows` only.
+template <int HD>
+__device__ __forceinline__ void store_acc_f32(float* x, long long row_stride,
+                                              const float (&acc)[HD / 2],
+                                              int row0, int rows, int t) {
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 4) {
+    const int d = 8 * (i / 4) + 2 * t;
+    if (row0 < rows) {
+      *reinterpret_cast<float2*>(
+          x + static_cast<long long>(row0) * row_stride + d) =
+          make_float2(acc[i], acc[i + 1]);
+    }
+    if (row0 + 8 < rows) {
+      *reinterpret_cast<float2*>(
+          x + static_cast<long long>(row0 + 8) * row_stride + d) =
+          make_float2(acc[i + 2], acc[i + 3]);
+    }
+  }
+}
+
+// dq: a CTA per (64-row query tile, head, batch), the heaviest (last,
+// when causal) first. Q and dO are loaded once; K, V and K^T tiles of 32
+// keys stream up to the diagonal. S = Q K^T and dP = dO V^T from shared
+// memory, dS = P (dP - delta) scale in registers, dQ += dS K with K^T
+// from its transposed copy; every product 3xTF32.
+template <int HD>
+__global__ void __launch_bounds__(kT32Threads, 1)
+flash_bwd_dq_tf32_sm90_kernel(const __grid_constant__ T32DqParams p) {
+  using T = BwdT32<HD>;
+  constexpr int kSt = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sQ = smem;                             // hi, lo
+  unsigned char* sdO = sQ + 2 * T::kRows64;             // hi, lo
+  unsigned char* sKV = sdO + 2 * T::kRows64;            // [stage] K, V
+  unsigned char* sKt = sKV + kSt * 4 * T::kRows32;      // [stage] hi, lo
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKt + kSt * 2 * T::kCols32);
+  uint64_t* q_full = bars;
+  uint64_t* kv_full = bars + 1;                         // [stage]
+  uint64_t* kv_empty = kv_full + kSt;                   // [stage]
+  uint64_t* kt_full = kv_empty + kSt;                   // [stage]
+  uint64_t* kt_empty = kt_full + kSt;                   // [stage]
+
+  const int bh = p.heads * p.batch;
+  const int qt = p.n_q_tiles - 1 - static_cast<int>(blockIdx.x) / bh;
+  const int h = static_cast<int>(blockIdx.x) % bh % p.heads;
+  const int b = static_cast<int>(blockIdx.x) % bh / p.heads;
+  const int q0 = qt * 64;
+  int n_tiles = (p.sk + 31) / 32;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + 63) / 32 + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kt_full[s], 1);
+      mbar_init(&kv_empty[s], 4);     // one arrival per consumer warp
+      mbar_init(&kt_empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x == 128) {
+      const int kvh = h / p.group;
+      mbar_arrive_expect_tx(q_full, 4 * T::kRows64);
+      tma_split_rows<T::kBoxes>(sQ, p.q_map, q_full, 64, T::kRows64, q0, h,
+                                b);
+      tma_split_rows<T::kBoxes>(sdO, p.do_map, q_full, 64, T::kRows64, q0,
+                                h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kSt;
+        const uint32_t reuse = (j / kSt - 1) & 1;
+        unsigned char* kv = sKV + s * 4 * T::kRows32;
+        if (j >= kSt) mbar_wait(&kv_empty[s], reuse);
+        mbar_arrive_expect_tx(&kv_full[s], 4 * T::kRows32);
+        tma_split_rows<T::kBoxes>(kv, p.k_map, &kv_full[s], 32, T::kRows32,
+                                  32 * j, kvh, b);
+        tma_split_rows<T::kBoxes>(kv + 2 * T::kRows32, p.v_map, &kv_full[s],
+                                  32, T::kRows32, 32 * j, kvh, b);
+        if (j >= kSt) mbar_wait(&kt_empty[s], reuse);
+        mbar_arrive_expect_tx(&kt_full[s], 2 * T::kCols32);
+        for (int part = 0; part < 2; ++part) {
+          tma_load(sKt + (2 * s + part) * T::kCols32, &p.kt_map[part],
+                   &kt_full[s], 32 * j, 0, kvh, b);
+        }
+      }
+    }
+  } else {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + 16 * warp + g;              // and row0 + 8
+    const long long row_base =
+        (static_cast<long long>(b) * p.heads + h) * p.sq;
+    const float l0 = row0 < p.sq ? p.lse[row_base + row0] * kLog2e : 0.f;
+    const float l1 =
+        row0 + 8 < p.sq ? p.lse[row_base + row0 + 8] * kLog2e : 0.f;
+    const float d0 = row0 < p.sq ? p.delta[row_base + row0] : 0.f;
+    const float d1 = row0 + 8 < p.sq ? p.delta[row_base + row0 + 8] : 0.f;
+    const uint64_t q_hi = desc_k(sQ), q_lo = desc_k(sQ + T::kRows64);
+    const uint64_t do_hi = desc_k(sdO), do_lo = desc_k(sdO + T::kRows64);
+    const float c = p.scale_log2;
+
+    float dq[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kSt;
+      const uint32_t parity = (j / kSt) & 1;
+      const int k0 = j * 32;
+      const unsigned char* kv = sKV + s * 4 * T::kRows32;
+      const unsigned char* kt = sKt + 2 * s * T::kCols32;
+      float sc[16], dp[16];
+      mbar_wait(&kv_full[s], parity);
+      wgmma_fence();
+      ss3_product<HD, 32>(sc, opaque(q_hi), opaque(q_lo), 64, desc_k(kv),
+                          desc_k(kv + T::kRows32));
+      ss3_product<HD, 32>(dp, opaque(do_hi), opaque(do_lo), 64,
+                          desc_k(kv + 2 * T::kRows32),
+                          desc_k(kv + 3 * T::kRows32));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty[s]);
+
+      // ds = p (dp - delta) scale with p = 2^(s c - lse log2 e), 0 where
+      // masked, in place of s
+      const bool mask = k0 + 32 > p.sk || (p.causal && k0 + 31 > q0);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const bool lower = (i & 2) != 0;
+        float pr = exp2f(fmaf(sc[i], c, -(lower ? l1 : l0)));
+        if (mask) {
+          const int kpos = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int qpos = row0 + (lower ? 8 : 0);
+          if (kpos >= p.sk || (p.causal && kpos > qpos)) pr = 0.f;
+        }
+        sc[i] = pr * (dp[i] - (lower ? d1 : d0)) * p.scale;
+      }
+      uint32_t hi[16], lo[16];
+      acc_to_tf32_frags(sc, hi, lo);
+      // dQ += dS K: K^T read K-major from its transposed copy, the tile's
+      // product added in float32 (rs3_product)
+      float part[HD / 2];
+      mbar_wait(&kt_full[s], parity);
+      wgmma_fence();
+      rs3_product<HD, 32>(part, hi, lo, desc_k(kt),
+                          desc_k(kt + T::kCols32));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kt_empty[s]);
+      add_into(dq, part);
+    }
+    store_acc_f32<HD>(p.dq + b * p.dq_strides[0] + h * p.dq_strides[2],
+                      p.dq_strides[1], dq, row0, p.sq, t);
+  }
+}
+
+// dk / dv: a CTA per (64-key tile, key/value head, batch), the heaviest
+// (first, when causal) first. K and V are loaded once; the tiles of 32
+// query rows of every head in the GQA group, from the diagonal on, stream
+// twice: the first pass accumulates dV += P^T dO (S^T = K Q^T, p^T; dO^T
+// from its transposed copy), the second dK += dS^T Q (S^T and dP^T = V
+// dO^T again, ds^T; Q^T from its transposed copy). The group's sum stays
+// in registers: no atomics, and the result is deterministic.
+template <int HD>
+__global__ void __launch_bounds__(kT32Threads, 1)
+flash_bwd_dkv_tf32_sm90_kernel(const __grid_constant__ T32DkvParams p) {
+  using T = BwdT32<HD>;
+  constexpr int kSt = T::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* sK = smem;                             // hi, lo
+  unsigned char* sV = sK + 2 * T::kRows64;              // hi, lo
+  unsigned char* sQ = sV + 2 * T::kRows64;              // [stage] Q, dO, T
+  float* sL = reinterpret_cast<float*>(sQ + kSt * T::kStage);  // [stage][32]
+  float* sD = sL + kSt * 32;                            // [stage][32]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sD + kSt * 32);
+  uint64_t* kv_full = bars;
+  uint64_t* ab_full = bars + 1;                         // [stage]
+  uint64_t* ab_empty = ab_full + kSt;                   // [stage]
+  uint64_t* c_full = ab_empty + kSt;                    // [stage]
+  uint64_t* c_empty = c_full + kSt;                     // [stage]
+
+  const int bkv = p.kv_heads * p.batch;
+  const int k0 = static_cast<int>(blockIdx.x) / bkv * 64;
+  const int kvh = static_cast<int>(blockIdx.x) % bkv % p.kv_heads;
+  const int b = static_cast<int>(blockIdx.x) % bkv / p.kv_heads;
+  const int n_q = (p.sq + 31) / 32;
+  const int first = p.causal ? min(k0 / 32, n_q) : 0;
+  const int per_head = n_q - first;
+  const int n_iter = p.group * per_head;                // tiles a pass
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(&ab_full[s], 32);     // the producer warp's lanes
+      mbar_init(&c_full[s], 1);
+      mbar_init(&ab_empty[s], 4);     // one arrival per consumer warp
+      mbar_init(&c_empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // one warp: TMA, lse and delta rows
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 4 * T::kRows64);
+      tma_split_rows<T::kBoxes>(sK, p.k_map, kv_full, 64, T::kRows64, k0,
+                                kvh, b);
+      tma_split_rows<T::kBoxes>(sV, p.v_map, kv_full, 64, T::kRows64, k0,
+                                kvh, b);
+    }
+    for (int i = 0; i < 2 * n_iter; ++i) {
+      const int pass = i < n_iter ? 0 : 1;
+      const int j = i - pass * n_iter;
+      const int h = kvh * p.group + j / per_head;
+      const int q0 = (first + j % per_head) * 32;
+      const int s = i % kSt;
+      const uint32_t reuse = (i / kSt - 1) & 1;
+      unsigned char* stage = sQ + s * T::kStage;
+      if (i >= kSt) mbar_wait(&ab_empty[s], reuse);
+      const long long row_base =
+          (static_cast<long long>(b) * p.heads + h) * p.sq;
+      const int qpos = q0 + lane;
+      // rows past the end: lse = +inf, so p = 0
+      sL[s * 32 + lane] = qpos < p.sq ? p.lse[row_base + qpos] * kLog2e
+                                      : __int_as_float(0x7f800000);
+      sD[s * 32 + lane] = qpos < p.sq ? p.delta[row_base + qpos] : 0.f;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&ab_full[s], (2 + 2 * pass) * T::kRows32);
+        tma_split_rows<T::kBoxes>(stage, p.q_map, &ab_full[s], 32,
+                                  T::kRows32, q0, h, b);
+        if (pass == 1) {
+          tma_split_rows<T::kBoxes>(stage + 2 * T::kRows32, p.do_map,
+                                    &ab_full[s], 32, T::kRows32, q0, h, b);
+        }
+        if (i >= kSt) mbar_wait(&c_empty[s], reuse);
+        mbar_arrive_expect_tx(&c_full[s], 2 * T::kCols32);
+        const CUtensorMap* maps = pass == 0 ? p.dot_map : p.qt_map;
+        for (int part = 0; part < 2; ++part) {
+          tma_load(stage + 4 * T::kRows32 + part * T::kCols32, &maps[part],
+                   &c_full[s], q0, 0, h, b);
+        }
+      } else {
+        mbar_arrive(&ab_full[s]);
+      }
+    }
+  } else {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int key0 = k0 + 16 * warp + g;              // and key0 + 8
+    const uint64_t k_hi = desc_k(sK), k_lo = desc_k(sK + T::kRows64);
+    const uint64_t v_hi = desc_k(sV), v_lo = desc_k(sV + T::kRows64);
+    const float c = p.scale_log2;
+
+    mbar_wait(kv_full, 0);
+    // unrolled, so that each pass is compiled on its own: dP^T exists in
+    // the second only
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {            // 0: dV, 1: dK
+      float acc[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+      for (int j = 0; j < n_iter; ++j) {
+        const int i = pass * n_iter + j;              // position in the ring
+        const int s = i % kSt;
+        const uint32_t parity = (i / kSt) & 1;
+        const int q0 = (first + j % per_head) * 32;
+        const unsigned char* stage = sQ + s * T::kStage;
+        const float* lrow = sL + s * 32;
+        const float* drow = sD + s * 32;
+        float st[16], dpt[16];
+        mbar_wait(&ab_full[s], parity);
+        wgmma_fence();
+        ss3_product<HD, 32>(st, opaque(k_hi), opaque(k_lo), 64,
+                            desc_k(stage), desc_k(stage + T::kRows32));
+        if (pass == 1) {
+          ss3_product<HD, 32>(dpt, opaque(v_hi), opaque(v_lo), 64,
+                              desc_k(stage + 2 * T::kRows32),
+                              desc_k(stage + 3 * T::kRows32));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        if (pass == 1) fence_regs(dpt);
+        // p^T = 2^(s^T c - lse log2 e), 0 above the diagonal; in the
+        // second pass ds^T = p^T (dp^T - delta) scale, in place
+        const bool mask = p.causal && q0 < k0 + 63;
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          const int col = 8 * (x / 4) + 2 * t + (x & 1);
+          const int key = key0 + ((x & 2) ? 8 : 0);
+          float pr = exp2f(fmaf(st[x], c, -lrow[col]));
+          if (mask && key > q0 + col) pr = 0.f;
+          st[x] = pass == 0 ? pr : pr * (dpt[x] - drow[col]) * p.scale;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ab_empty[s]);
+        uint32_t hi[16], lo[16];
+        acc_to_tf32_frags(st, hi, lo);
+        // acc += P^T dO (pass 0) or dS^T Q (pass 1), the transposed copy
+        // read K-major, the tile's product added in float32 (rs3_product)
+        const unsigned char* tt = stage + 4 * T::kRows32;
+        float part[HD / 2];
+        mbar_wait(&c_full[s], parity);
+        wgmma_fence();
+        rs3_product<HD, 32>(part, hi, lo, desc_k(tt),
+                            desc_k(tt + T::kCols32));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&c_empty[s]);
+        add_into(acc, part);
+      }
+      float* out = pass == 0 ? p.dv : p.dk;
+      const long long* strides = pass == 0 ? p.dv_strides : p.dk_strides;
+      store_acc_f32<HD>(out + b * strides[0] + kvh * strides[2], strides[1],
+                        acc, key0, p.sk, t);
+    }
+  }
+}
+
+// The float32 workspace's floats: the row copies of q, k, v and do (hi,
+// lo) and the transposed copies of q, k and do.
+long long tf32_bwd_floats(int batch, int sq, int sk, int heads, int kv_heads,
+                          int hd) {
+  return 2 * (rows_floats(batch, sq, heads, hd) +
+              cols_floats(batch, sq, heads, hd) +
+              rows_floats(batch, sk, kv_heads, hd)) +
+         cols_floats(batch, sk, kv_heads, hd);
+}
+
+// The float32 launch: the pre-pass writes the split copies into `ws`,
+// then a tensor map per copy and tile height, the dq kernel and the dk /
+// dv kernel on `stream`. A refused map or launch returns its error;
+// nothing retries on another kernel.
+template <int HD>
+cudaError_t launch_bwd_tf32(const BwdParams& p, int batch, int kv_heads,
+                            float* ws, cudaStream_t stream) {
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  const long long qr = rows_floats(batch, p.sq, p.heads, HD);
+  const long long qc = cols_floats(batch, p.sq, p.heads, HD);
+  const long long kr = rows_floats(batch, p.sk, kv_heads, HD);
+  const long long kc = cols_floats(batch, p.sk, kv_heads, HD);
+  float* q_rows = ws;
+  float* q_cols = q_rows + qr;
+  float* k_rows = q_cols + qc;
+  float* k_cols = k_rows + kr;
+  float* v_rows = k_cols + kc;
+  float* do_rows = v_rows + kr;
+  float* do_cols = do_rows + qr;
+  Split split(batch, HD);
+  split.add(p.q, p.q_strides, p.sq, p.heads, q_rows, q_cols);
+  split.add(p.k, p.k_strides, p.sk, kv_heads, k_rows, k_cols);
+  split.add(p.v, p.v_strides, p.sk, kv_heads, v_rows, nullptr);
+  split.add(p.dout, p.do_strides, p.sq, p.heads, do_rows, do_cols);
+  cudaError_t err = split.launch(stream);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+  T32DqParams dq;
+  T32DkvParams dkv;
+  bool mapped = true;
+  for (int part = 0; part < 2; ++part) {
+    const long long r = part * qr / 2, c = part * qc / 2;
+    const long long r2 = part * kr / 2, c2 = part * kc / 2;
+    mapped = mapped &&
+             make_rows_map(&dq.q_map[part], q_rows + r, batch, p.sq,
+                           p.heads, HD, 64) &&
+             make_rows_map(&dq.do_map[part], do_rows + r, batch, p.sq,
+                           p.heads, HD, 64) &&
+             make_rows_map(&dq.k_map[part], k_rows + r2, batch, p.sk,
+                           kv_heads, HD, 32) &&
+             make_rows_map(&dq.v_map[part], v_rows + r2, batch, p.sk,
+                           kv_heads, HD, 32) &&
+             make_cols_map(&dq.kt_map[part], k_cols + c2, batch,
+                           seq8(p.sk), kv_heads, HD) &&
+             make_rows_map(&dkv.k_map[part], k_rows + r2, batch, p.sk,
+                           kv_heads, HD, 64) &&
+             make_rows_map(&dkv.v_map[part], v_rows + r2, batch, p.sk,
+                           kv_heads, HD, 64) &&
+             make_rows_map(&dkv.q_map[part], q_rows + r, batch, p.sq,
+                           p.heads, HD, 32) &&
+             make_rows_map(&dkv.do_map[part], do_rows + r, batch, p.sq,
+                           p.heads, HD, 32) &&
+             make_cols_map(&dkv.qt_map[part], q_cols + c, batch,
+                           seq8(p.sq), p.heads, HD) &&
+             make_cols_map(&dkv.dot_map[part], do_cols + c, batch,
+                           seq8(p.sq), p.heads, HD);
+  }
+  if (!mapped) return cudaErrorInvalidValue;
+  const float scale_log2 = p.scale * kLog2e;
+  dq.lse = dkv.lse = p.lse;
+  dq.delta = dkv.delta = p.delta;
+  dq.dq = static_cast<float*>(p.dq);
+  dkv.dk = static_cast<float*>(p.dk);
+  dkv.dv = static_cast<float*>(p.dv);
+  for (int i = 0; i < 3; ++i) {
+    dq.dq_strides[i] = p.dq_strides[i];
+    dkv.dk_strides[i] = p.dk_strides[i];
+    dkv.dv_strides[i] = p.dv_strides[i];
+  }
+  dq.sq = dkv.sq = p.sq;
+  dq.sk = dkv.sk = p.sk;
+  dq.heads = dkv.heads = p.heads;
+  dq.group = dkv.group = p.group;
+  dq.batch = dkv.batch = batch;
+  dq.causal = dkv.causal = p.causal;
+  dq.scale = dkv.scale = p.scale;
+  dq.scale_log2 = dkv.scale_log2 = scale_log2;
+  dq.n_q_tiles = (p.sq + 63) / 64;
+  dkv.kv_heads = kv_heads;
+  const long long dq_blocks =
+      static_cast<long long>(dq.n_q_tiles) * p.heads * batch;
+  const long long dkv_blocks =
+      static_cast<long long>((p.sk + 63) / 64) * kv_heads * batch;
+  err = launch_sm90(flash_bwd_dq_tf32_sm90_kernel<HD>, BwdT32<HD>::kDqSmem,
+                    dq_blocks, dq, stream, kT32Threads);
+  if (err != cudaSuccess) return err;
+  return launch_sm90(flash_bwd_dkv_tf32_sm90_kernel<HD>,
+                     BwdT32<HD>::kDkvSmem, dkv_blocks, dkv, stream,
+                     kT32Threads);
 }
 
 template <int HD>
 cudaError_t launch_hd(int dtype, const BwdParams& p, int batch,
-                      int kv_heads, bool split, cudaStream_t stream) {
-  const dim3 dq_grid((p.sq + kBQ - 1) / kBQ, p.heads, batch);
-  const dim3 dkv_grid((p.sk + kBK - 1) / kBK, kv_heads, batch);
-  cudaError_t err;
-  if (dtype == 1) {
-    // head dims 64, 80, 112, 128: the Hopper kernels; 16, 32 (test
-    // shapes): the mma.sync kernels
-    if constexpr (HD >= 64) {
-      return launch_bwd_sm90<HD>(p, batch, kv_heads, split, stream);
-    } else {
-      const size_t rows = sizeof(__nv_bfloat16) * kBK * (HD + 8);
-      const size_t cols = sizeof(__nv_bfloat16) * HD * (kBK + 8);
-      err = launch(flash_bwd_dq_mma_kernel<HD>, kMmaThreads,
-                   4 * rows + cols, dq_grid, p, stream);
-      if (err != cudaSuccess) return err;
-      return launch(flash_bwd_dkv_mma_kernel<HD>, kMmaThreads,
-                    4 * rows + 2 * cols + 2 * kBQ * sizeof(float), dkv_grid,
-                    p, stream);
-    }
+                      int kv_heads, bool split, float* ws,
+                      cudaStream_t stream) {
+  if (dtype == 0) {
+    return launch_bwd_tf32<HD>(p, batch, kv_heads, ws, stream);
   }
-  const size_t rows = sizeof(float) * kBK * (HD + 1);
-  const size_t tile = sizeof(float) * kBQ * (kBK + 1);
-  err = launch(flash_bwd_dq_simt_kernel<HD>, 256,
-               4 * rows + tile + 2 * kBQ * sizeof(float), dq_grid, p, stream);
-  if (err != cudaSuccess) return err;
-  return launch(flash_bwd_dkv_simt_kernel<HD>, 256,
-                4 * rows + 2 * tile + 2 * kBQ * sizeof(float), dkv_grid, p,
-                stream);
+  return launch_bwd_sm90<HD>(p, batch, kv_heads, split, stream);
 }
 
 }  // namespace
+
+// The bytes of workspace flash_attention_bwd_launch needs: float32's split
+// copies of q, k, v and dout; 0 for bfloat16.
+extern "C" long long flash_attention_bwd_workspace(int batch, int sq, int sk,
+                                                   int heads, int kv_heads,
+                                                   int head_dim, int dtype) {
+  return dtype == 0 ? 4 * tf32_bwd_floats(batch, sq, sk, heads, kv_heads,
+                                          head_dim)
+                    : 0;
+}
 
 // q: (B, Sq, H, hd), k / v: (B, Sk, KV, hd), dout: (B, Sq, H, hd), dq:
 // (B, Sq, H, hd), dk / dv: (B, Sk, KV, hd), each given by its base pointer
@@ -1348,8 +1290,9 @@ cudaError_t launch_hd(int dtype, const BwdParams& p, int batch,
 // elements (dq / dk / dv: of 2). split: bf16 at head dim 128 only, 1 to
 // enter p and ds as hi + lo bf16 parts (what the port runs), 0 to round
 // each once (to measure what the split costs); the other kernels always
-// split. Launches the dq kernel, then the dk / dv kernel, on `stream`.
-// Returns a cudaError_t.
+// split. workspace: float32 only, flash_attention_bwd_workspace's bytes,
+// 16-byte aligned. Launches the dq kernel, then the dk / dv kernel, on
+// `stream`. Returns a cudaError_t.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, void* dk, void* dv,
@@ -1358,7 +1301,7 @@ extern "C" int flash_attention_bwd_launch(
     const long long* dq_strides, const long long* dk_strides,
     const long long* dv_strides, int batch, int sq, int sk, int heads,
     int kv_heads, int head_dim, int causal, float scale, int dtype,
-    int split, void* stream) {
+    int split, void* workspace, void* stream) {
   if (batch < 1 || sq < 1 || sk < 1 || kv_heads < 1 || heads < 1 ||
       heads % kv_heads != 0 || heads > 65535 || batch > 65535 ||
       (dtype != 0 && dtype != 1)) {
@@ -1392,14 +1335,15 @@ extern "C" int flash_attention_bwd_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int kv = kv_heads;
   const bool sp = split != 0;
+  float* ws = static_cast<float*>(workspace);
   cudaError_t err;
   switch (head_dim) {
-    case 16: err = launch_hd<16>(dtype, p, batch, kv, sp, s); break;
-    case 32: err = launch_hd<32>(dtype, p, batch, kv, sp, s); break;
-    case 64: err = launch_hd<64>(dtype, p, batch, kv, sp, s); break;
-    case 80: err = launch_hd<80>(dtype, p, batch, kv, sp, s); break;
-    case 112: err = launch_hd<112>(dtype, p, batch, kv, sp, s); break;
-    case 128: err = launch_hd<128>(dtype, p, batch, kv, sp, s); break;
+    case 16: err = launch_hd<16>(dtype, p, batch, kv, sp, ws, s); break;
+    case 32: err = launch_hd<32>(dtype, p, batch, kv, sp, ws, s); break;
+    case 64: err = launch_hd<64>(dtype, p, batch, kv, sp, ws, s); break;
+    case 80: err = launch_hd<80>(dtype, p, batch, kv, sp, ws, s); break;
+    case 112: err = launch_hd<112>(dtype, p, batch, kv, sp, ws, s); break;
+    case 128: err = launch_hd<128>(dtype, p, batch, kv, sp, ws, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

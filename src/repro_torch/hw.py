@@ -39,6 +39,11 @@ class Card:
     int32_lanes_per_sm: int
     #: shared-memory bytes one SM moves a clock
     smem_bytes_per_clk: int
+    #: TF32 FLOP/s on the tensor cores (0: no published figure); the
+    #: float32 flash kernels price their three TF32 products against it,
+    #: while `flops_per_s("float32")` stays the FMA peak every other
+    #: float32 product runs at
+    tf32_flops_per_s: float = 0.0
 
     def flops_per_s(self, dtype: Union[str, torch.dtype]) -> float:
         """The dense peak for operands of ``dtype`` ("bfloat16" or
@@ -53,8 +58,9 @@ class Card:
 
 
 #: NVIDIA H100 SXM5 80 GB. NVIDIA H100 Tensor Core GPU data sheet (SXM
-#: column, dense): 989 TFLOP/s bf16, 67 TFLOP/s float32, 3.35 TB/s HBM3,
-#: NVLink 900 GB/s (450 GB/s each way). NVIDIA Hopper architecture white
+#: column, dense): 989 TFLOP/s bf16, 67 TFLOP/s float32, 494.7 TFLOP/s TF32
+#: (half the sheet's 989.4 with sparsity), 3.35 TB/s HBM3, NVLink 900 GB/s
+#: (450 GB/s each way). NVIDIA Hopper architecture white
 #: paper: four SM partitions of 16 int32 lanes; 32 shared-memory banks of
 #: 4 bytes a clock.
 H100_SXM = Card(
@@ -65,6 +71,7 @@ H100_SXM = Card(
     nvlink_bytes_per_s=450e9,
     int32_lanes_per_sm=64,
     smem_bytes_per_clk=128,
+    tf32_flops_per_s=494.7e12,
 )
 
 #: rows by the name `torch.cuda.get_device_properties` reports

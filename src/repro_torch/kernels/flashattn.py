@@ -14,12 +14,18 @@ Port of the Pallas `repro.kernels.flashattn` kernels:
   atomics; in bf16, p and ds enter the products as hi + lo bf16 parts).
 
 The C launchers pick the kernel by head dim and dtype. In bf16 the
-forward and the backward run the Hopper kernels (TMA ring, wgmma,
-setmaxnreg; ``csrc/flash_sm90.cuh``) at head dims 64 (SeamlessM4T), 80
-(Zamba2's shared attention), 112 (Kimi K2) and 128 (every dense config
-served and trained), and the first design on ``mma.sync`` at 16 and 32
-(test shapes, off every main path). Float32 runs scalar FMAs. A kernel
-that fails to build or launch raises; nothing falls back on another.
+forward runs the Hopper kernel (TMA ring, wgmma, setmaxnreg;
+``csrc/flash_sm90.cuh``) at head dims 64 (SeamlessM4T), 80 (Zamba2's
+shared attention), 112 (Kimi K2) and 128 (every dense config served and
+trained), and the first design on ``mma.sync`` at 16 and 32 (test shapes,
+off every main path); the backward runs the Hopper kernels at every head
+dim. Float32 runs Hopper kernels of its own at every head dim
+(``csrc/flash_tf32.cuh``): each product as three TF32 products on wgmma
+(hi = tf32(x), lo = tf32(x - hi); a_lo b_hi + a_hi b_lo + a_hi b_hi in
+float32), after a pre-pass that writes each operand's hi / lo copies, and
+transposed ones for the products over rows, into a workspace the wrapper
+allocates. A kernel that fails to build or launch raises; nothing falls
+back on another.
 
 The kernel wrappers take the model's layout, q (B, Sq, H, hd) and k / v
 (B, Sk, KV, hd), and read it through its strides. For ``meta`` tensors,
@@ -56,10 +62,12 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attention_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         s = ctypes.POINTER(ctypes.c_longlong)
+        lib.flash_attention_workspace.restype = ctypes.c_longlong
+        lib.flash_attention_workspace.argtypes = [i] * 7
         lib.flash_attention_launch.restype = i
         lib.flash_attention_launch.argtypes = [
             p, p, p, p, p, s, s, s, s, i, i, i, i, i, i, i, ctypes.c_float,
-            i, p]
+            i, p, p]
     return lib
 
 
@@ -68,11 +76,24 @@ def _bwd_lib() -> ctypes.CDLL:
     if lib.flash_attention_bwd_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         s = ctypes.POINTER(ctypes.c_longlong)
+        lib.flash_attention_bwd_workspace.restype = ctypes.c_longlong
+        lib.flash_attention_bwd_workspace.argtypes = [i] * 7
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_bwd_launch.argtypes = [
             p, p, p, p, p, p, p, p, p, s, s, s, s, s, s, s, i, i, i, i, i,
-            i, i, ctypes.c_float, i, i, p]
+            i, i, ctypes.c_float, i, i, p, p]
     return lib
+
+
+def _workspace(size_fn, q: torch.Tensor, k: torch.Tensor):
+    """The launch's scratch (float32's split copies of the operands, see
+    ``csrc/flash_tf32.cuh``): a fresh byte buffer of the size the C
+    library asks for, or None (bf16 needs none)."""
+    B, Sq, H, hd = q.shape
+    nbytes = size_fn(B, Sq, k.shape[1], H, k.shape[2], hd,
+                     _DTYPE_CODE[q.dtype])
+    return (torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+            if nbytes else None)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -307,12 +328,13 @@ def _launch_fwd(q, k, v, causal: bool, lse) -> torch.Tensor:
     q, k, v = (_readable(x) for x in (q, k, v))
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lib = _lib()
+    ws = _workspace(lib.flash_attention_workspace, q, k)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_launch(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
             _build.ptr(lse), _strides(q), _strides(k), _strides(v),
             _strides(out), B, Sq, Sk, H, KV, hd, int(causal),
-            float(1.0 / np.sqrt(hd)), _DTYPE_CODE[q.dtype],
+            float(1.0 / np.sqrt(hd)), _DTYPE_CODE[q.dtype], _build.ptr(ws),
             _build.stream_of(q))
     _build.check(lib, rc, "flash_attention_launch")
     return out
@@ -431,6 +453,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, split: bool = True):
     dk = torch.empty((B, Sk, KV, hd), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     lib = _bwd_lib()
+    ws = _workspace(lib.flash_attention_bwd_workspace, q, k)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd_launch(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
@@ -439,6 +462,6 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, split: bool = True):
             _strides(v), _strides(do), _strides(dq), _strides(dk),
             _strides(dv), B, Sq, Sk, H, KV, hd, int(causal),
             float(1.0 / np.sqrt(hd)), _DTYPE_CODE[q.dtype], int(split),
-            _build.stream_of(q))
+            _build.ptr(ws), _build.stream_of(q))
     _build.check(lib, rc, "flash_attention_bwd_launch")
     return dq, dk, dv

@@ -948,8 +948,8 @@ def test_flash_bwd_kernel_at_head_dims_64_80_and_112_matches_plain(
         cuda, B, Sq, Sk, H, KV, causal, hd, dtype):
     """The backward at head dims 64, 80 and 112 (bf16: the Hopper kernels
     `flash_bwd_dq_sm90_kernel<HD, true>` and `flash_bwd_dkv_sm90_kernel<HD,
-    true>`; float32: scalar FMAs) within the gate of the plain backward,
-    and bit-identical over two runs."""
+    true>`; float32: their 3xTF32 counterparts) within the gate of the
+    plain backward, and bit-identical over two runs."""
     from repro_torch.kernels import flashattn as F
 
     q, k, v = _qkv(cuda, Sq + Sk + H + hd, dtype, B, Sq, Sk, H, KV, hd)
@@ -967,6 +967,86 @@ def test_flash_bwd_kernel_at_head_dims_64_80_and_112_matches_plain(
         assert got.shape == like.shape and got.dtype == dtype
         assert torch.equal(got, again)
         _assert_flash_close(got, _hm(w), FLASH_TOL[dtype])
+
+
+#: the Hopper route's edges: 100 keys under 130 queries (less than one
+#: key tile), 300 queries (ragged query tiles) over 1,000 and 100 keys,
+#: GQA groups of 2 and 8, B H = 144 and 160 query heads (over the card's
+#: 132 SMs), causal and not
+HOPPER_EDGES = [
+    (1, 130, 100, 16, 8, True),
+    (9, 300, 1000, 16, 8, False),
+    (2, 300, 300, 8, 4, True),
+    (5, 300, 100, 32, 16, False),
+    (1, 300, 1000, 64, 8, True),
+]
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.float32, 80),
+                                      (torch.float32, 112),
+                                      (torch.float32, 128),
+                                      (torch.bfloat16, 16),
+                                      (torch.bfloat16, 32)])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", HOPPER_EDGES)
+def test_flash_kernels_at_hopper_edges_match_plain(cuda, B, Sq, Sk, H, KV,
+                                                   causal, dtype, hd):
+    """The float32 3xTF32 kernels (forward, lse forward and backward) and
+    the bf16 Hopper backward at head dims 16 and 32 at the edges of their
+    tiles, within the gate of the plain versions, the lse within 1e-4 and
+    the backward bit-identical over two runs."""
+    from repro_torch.kernels import flashattn as F
+
+    q, k, v = _qkv(cuda, Sq + Sk + H + hd, dtype, B, Sq, Sk, H, KV, hd)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(Sq + 2), device=cuda).to(dtype)
+    before = dict(LAUNCHES)
+    out = F.flash_attention_kernel(q, k, v, causal)
+    o, lse = F.flash_attention_fwd_kernel(q, k, v, causal)
+    first = F.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+    second = F.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert {n: LAUNCHES[n] - before.get(n, 0) for n in (
+        "flash_attention", "flash_attention_fwd", "flash_attention_bwd")} \
+        == {"flash_attention": 1, "flash_attention_fwd": 1,
+            "flash_attention_bwd": 2}
+    want_o, want_lse = F.flash_attention_fwd_plain(_hm(q), _hm(k), _hm(v),
+                                                   causal)
+    assert torch.equal(out, o)
+    _assert_flash_close(o, _hm(want_o), FLASH_TOL[dtype])
+    _assert_flash_close(lse, want_lse, 1e-4)
+    want = F.flash_attention_bwd_plain(_hm(q), _hm(k), _hm(v), _hm(o), lse,
+                                       _hm(do), causal)
+    for got, again, w, like in zip(first, second, want, (q, k, v)):
+        assert got.shape == like.shape and got.dtype == dtype
+        assert torch.equal(got, again)
+        _assert_flash_close(got, _hm(w), FLASH_TOL[dtype])
+
+
+def test_float32_path_launches_the_tf32_kernels(cuda):
+    """In float32, `ops.flash_attention` with grad on counts one lse
+    forward and one backward on the wrappers' counters, and the card runs
+    the 3xTF32 kernels and their pre-pass, not the bf16 ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops as kops
+
+    q, k, v = (x.requires_grad_() for x in
+               _qkv(cuda, 19, torch.float32, 2, 200, 200, 8, 2, 128))
+    LAUNCHES.clear()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = kops.flash_attention(q, k, v)
+        out.pow(2).sum().backward()
+        torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"flash_attention_fwd": 1,
+                              "flash_attention_bwd": 1}
+    names = " ".join(e.key for e in prof.key_averages())
+    for kernel in ("flash_fwd_tf32_sm90_kernel", "tf32_split_kernel",
+                   "flash_bwd_dq_tf32_sm90_kernel",
+                   "flash_bwd_dkv_tf32_sm90_kernel"):
+        assert kernel in names, kernel
+    assert "flash_fwd_sm90_kernel" not in names
+    assert "flash_bwd_dq_sm90_kernel" not in names
 
 
 @pytest.mark.parametrize("arch", ["mamba2_1p3b", "zamba2_2p7b",
