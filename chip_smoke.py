@@ -2094,18 +2094,21 @@ def _device_ms_by_kind(prof, backward: bool = False):
     forward kernel, with ``backward`` the flash backward kernels, the
     float32 flash kernels' pre-pass (where it ran), cuBLAS GEMMs,
     everything else (elementwise passes, reductions, copies); the events
-    count kernels and copies."""
+    count kernels and copies. The device rows that mirror the program's
+    spans (profiler ranges, `repro_torch.obs`) are work, not device
+    activity, and are left out."""
     from torch.autograd import DeviceType
 
     out = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
     if backward:
         out["flash_attention_bwd"] = 0.0
     n_events = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
             continue
-        n_events += e.count
-        name = e.key
+        n_events += 1
+        name = e.name
         if "flash_fwd_" in name or "flash_mma_kernel" in name:
             kind = "flash_attention"
         elif "tf32_split_kernel" in name:
@@ -2118,7 +2121,7 @@ def _device_ms_by_kind(prof, backward: bool = False):
             kind = "gemm"
         else:
             kind = "other"
-        out[kind] += e.self_device_time_total / 1e3
+        out[kind] += e.time_range.elapsed_us() / 1e3
     return out, n_events
 
 

@@ -211,15 +211,15 @@ def execute_banked(program: Program, data: RowState, n_banks: int,
     Tensor rows (and ``mask``) keep their device; host arrays go to
     ``device`` (default ``"cuda"``).
 
-    Wall-span-traced when a tracing telemetry is installed process-wide
-    (`repro_torch.obs.set_telemetry`); the default no-op sink costs one
-    branch.
+    A wall-clock span when a tracing telemetry is installed process-wide
+    (`repro_torch.obs.set_telemetry`) or a profiler runs; otherwise one
+    flag test.
     """
     tel = get_telemetry()
-    if tel.tracing:
-        with tel.tracer.span("bankgroup.execute", n_banks=n_banks,
-                             n_aaps=program.n_aap, backend=backend,
-                             lowered=lowered):
+    if tel.spans_on():
+        with tel.span("bankgroup.execute", n_banks=n_banks,
+                      n_aaps=program.n_aap, backend=backend,
+                      lowered=lowered):
             return _execute_banked(program, data, n_banks, outputs,
                                    lowered, backend, reduce, mask, device)
     return _execute_banked(program, data, n_banks, outputs, lowered, backend,

@@ -212,16 +212,16 @@ class ChipCluster:
         `shard_words`; returns the requested output rows **still sharded**
         — call `unshard_words` only when a flat vector is actually needed.
 
-        Wall-span-traced when a tracing telemetry is installed
+        A wall-clock span when a tracing telemetry is installed
         process-wide (`repro_torch.obs.set_telemetry`; the scheduler
-        installs one per dispatch window).
+        installs one per batch) or a profiler runs.
         """
         tel = get_telemetry()
-        if tel.tracing:
-            with tel.tracer.span("cluster.run_lowered",
-                                 n_chips=self.n_chips, n_banks=self.n_banks,
-                                 n_cmds=lp.n_cmds,
-                                 backend=self._backend(backend, 0)):
+        if tel.spans_on():
+            with tel.span("cluster.run_lowered",
+                          n_chips=self.n_chips, n_banks=self.n_banks,
+                          n_cmds=lp.n_cmds,
+                          backend=self._backend(backend, 0)):
                 return self._run_lowered(lp, sharded, outputs, backend)
         return self._run_lowered(lp, sharded, outputs, backend)
 
@@ -256,14 +256,14 @@ class ChipCluster:
         reduction depth (``psum_hops``).
         """
         tel = get_telemetry()
-        if tel.tracing:
+        if tel.spans_on():
             hops = int(math.ceil(math.log2(self.n_chips))) \
                 if self.n_chips > 1 else 0
-            with tel.tracer.span("cluster.popcounts",
-                                 n_chips=self.n_chips, n_banks=self.n_banks,
-                                 n_cmds=lp.n_cmds,
-                                 backend=self._backend(backend, 0),
-                                 psum_hops=hops):
+            with tel.span("cluster.popcounts",
+                          n_chips=self.n_chips, n_banks=self.n_banks,
+                          n_cmds=lp.n_cmds,
+                          backend=self._backend(backend, 0),
+                          psum_hops=hops):
                 return self._popcounts(lp, sharded, outputs, mask_shards,
                                        backend)
         return self._popcounts(lp, sharded, outputs, mask_shards, backend)

@@ -162,15 +162,15 @@ def execute(program: Program, data: RowState, row_words: Optional[int] = None,
     Tensor rows keep their device; host arrays go to ``device`` (default
     ``"cuda"``, see `repro_torch._device.operand_device`).
 
-    Executions are wall-span-traced when a tracing `repro_torch.obs.Telemetry`
+    Executions are wall-clock spans when a tracing `repro_torch.obs.Telemetry`
     is installed process-wide (`set_telemetry`; the scheduler does so per
-    dispatch) — the default is the no-op sink, costing one attribute load.
+    batch) or a profiler runs — otherwise one flag test.
     """
     tel = get_telemetry()
-    if tel.tracing:
-        with tel.tracer.span("engine.execute", n_aaps=program.n_aap,
-                             n_banks=n_banks, n_chips=n_chips,
-                             backend=backend, lowered=lowered):
+    if tel.spans_on():
+        with tel.span("engine.execute", n_aaps=program.n_aap,
+                      n_banks=n_banks, n_chips=n_chips,
+                      backend=backend, lowered=lowered):
             return _execute(program, data, row_words, outputs, n_banks,
                             n_chips, lowered, backend, device)
     return _execute(program, data, row_words, outputs, n_banks, n_chips,

@@ -53,6 +53,7 @@ from repro_torch.core.addressing import D_WL, resolve
 from repro_torch.core.bitplane import WORD_DTYPE, as_words
 from repro_torch.core.commands import AAP, AP, Program
 from repro_torch.core.engine import BuddyError
+from repro_torch.obs.telemetry import get_telemetry
 
 # Fixed plane layout: the 8 B/C-group rows, then the write sink, then
 # D-group rows in first-reference order.
@@ -375,15 +376,28 @@ class VmCall:
 
     def run(self, vm_fn, reduce: Optional[str] = None) -> torch.Tensor:
         """``vm_fn`` (`kernels.vm.vm_megakernel` or `vm_plain`) on these
-        arguments: ``(B, n_out, W)`` rows, or ``(B, n_out)`` counts."""
+        arguments: ``(B, n_out, W)`` rows, or ``(B, n_out)`` counts.
+
+        Every VM launch passes here: with a metering telemetry published
+        (`obs.set_telemetry`) it counts ``vm_launches_total`` and
+        ``vm_bytes_total``, the stacked plane read plus what the launch
+        writes (the rows, or the counts of the fused popcount)."""
         if not self.lay.out_idx:
             shape = (self.plane.shape[0], 0) + (
                 () if reduce else (self.row_words,))
             return torch.zeros(shape, dtype=WORD_DTYPE,
                                device=self.plane.device)
-        return vm_fn(self.lay.table, self.plane, self.lay.out_idx,
-                     n_rows=self.lay.n_rows, first_row=self.first_row,
-                     errors=self.errors, reduce=reduce, mask=self.mask)
+        out = vm_fn(self.lay.table, self.plane, self.lay.out_idx,
+                    n_rows=self.lay.n_rows, first_row=self.first_row,
+                    errors=self.errors, reduce=reduce, mask=self.mask)
+        tel = get_telemetry()
+        if tel.metering:
+            m = tel.metrics
+            m.counter("vm_launches_total").inc()
+            m.counter("vm_bytes_total").inc(
+                self.plane.numel() * self.plane.element_size()
+                + out.numel() * out.element_size())
+        return out
 
 
 def _is_row_list(v) -> bool:

@@ -23,14 +23,26 @@ a no-op. Instrumentation sites must guard anything that allocates (kwargs
 dicts, f-strings) behind ``if tracer.tracing:`` so the disabled serving
 path stays allocation-free — the contract `benchmarks/obs_overhead.py`
 gates at < 3% overhead.
+
+**One clock with the device trace.** While a `torch.profiler` session
+records (``torch.autograd.profiler._is_profiler_enabled``, the flag the
+profiler sets on entry and clears on exit), every wall-clock span of the
+port also opens a `record_function` range of the same name, whether or
+not a tracer is on, so the spans sit in the profiler's own event stream
+beside the kernels they launch. `open_span` / `close_span` keep the open spans on a stack
+per thread (a collector callback or the autograd engine's thread opens
+its own); `Telemetry.span` / `begin` / `end` are the sites' entry points.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import pathlib
+import threading
 import time
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
+
+from torch.autograd import profiler as _autograd_profiler
 
 WALL_PID = 1
 MODEL_PID = 2
@@ -183,6 +195,66 @@ class _ReusableNullCM:
 
 _NULL_CM = _ReusableNullCM()
 NULL_TRACER = NullTracer()
+
+
+class _OpenSpans(threading.local):
+    """Each thread's open spans: ``(tracer or None, profiler range or
+    None)`` pairs, innermost last."""
+
+    def __init__(self):
+        self.stack: List[Tuple[Optional[Tracer], object]] = []
+
+
+_OPEN = _OpenSpans()
+
+
+def open_span(tracer: Optional[Tracer], name: str, args: Dict) -> int:
+    """Open span ``name``: a B event on ``tracer`` (None: no tracer
+    event) and, while a profiler records, a profiler range of the same
+    name. Returns the thread's span depth before it, for `close_span`."""
+    stack = _OPEN.stack
+    depth = len(stack)
+    rf = None
+    if _autograd_profiler._is_profiler_enabled:
+        rf = _autograd_profiler.record_function(name)
+        rf.__enter__()
+    if tracer is not None:
+        tracer.begin(name, **args)
+    stack.append((tracer, rf))
+    return depth
+
+
+def close_span(depth: Optional[int] = None) -> None:
+    """Close the innermost open span, or with ``depth`` every span
+    opened since `open_span` returned it (an exception may have skipped
+    inner ends)."""
+    stack = _OPEN.stack
+    stop = len(stack) - 1 if depth is None else depth
+    while len(stack) > stop:
+        tracer, rf = stack.pop()
+        if tracer is not None:
+            tracer.end()
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+
+class Span:
+    """A span site's context manager (`Telemetry.span` builds it only
+    when the span is recorded somewhere)."""
+
+    __slots__ = ("tracer", "name", "args", "depth")
+
+    def __init__(self, tracer: Optional[Tracer], name: str, args: Dict):
+        self.tracer, self.name, self.args = tracer, name, args
+        self.depth = 0
+
+    def __enter__(self):
+        self.depth = open_span(self.tracer, self.name, self.args)
+        return self
+
+    def __exit__(self, *exc):
+        close_span(self.depth)
+        return False
 
 
 def validate_chrome_trace(payload: Json) -> None:

@@ -654,31 +654,35 @@ class Planner:
              columns: Optional[Mapping[str, int]] = None,
              names: Optional[Container[str]] = None) -> BoundPlan:
         tel = self.telemetry
-        if not tel.tracing:
+        if not tel.spans_on():
             return self._plan(query, columns, names)
-        tr = tel.tracer
-        with tr.span("plan"):
-            return self._plan(query, columns, names, tr)
+        with tel.span("plan"):
+            return self._plan(query, columns, names, tel)
 
     def _plan(self, query: Union[str, Expr, ArithQuery],
               columns: Optional[Mapping[str, int]],
               names: Optional[Container[str]] = None,
-              tr=None) -> BoundPlan:
-        if tr is not None:
-            tr.begin("parse")
+              tel=None) -> BoundPlan:
+        """Parse, look up or compile, and bind; with ``tel`` (spans on)
+        each stage is a span, and when tracing the cache's answer an
+        instant event."""
+        if tel is not None:
+            tel.begin("parse")
         if isinstance(query, str):
             parsed: Union[Expr, ArithQuery] = parse_any(query, columns,
                                                         names)
         else:
             parsed = query
-        if tr is not None:
-            tr.end()
-            tr.begin("plan_cache")
+        if tel is not None:
+            tel.end()
+            tel.begin("plan_cache")
         if isinstance(parsed, ArithQuery):
             bp = self._plan_arith(parsed, columns or {})
-            if tr is not None:
-                tr.end()
-                tr.instant("cache_hit" if bp.cache_hit else "cache_miss")
+            if tel is not None:
+                tel.end()
+                if tel.tracing:
+                    tel.tracer.instant("cache_hit" if bp.cache_hit
+                                       else "cache_miss")
             return bp
         canon, bindings = canonicalize(parsed)
         plan, hit, perm = self.cache.lookup(canon)
@@ -686,13 +690,14 @@ class Planner:
         # query's perm[i]-th first-visit leaf (identity when the original
         # candidate won; a reordering/leaf-dropping map otherwise)
         bindings = [bindings[p] for p in perm]
-        if tr is not None:
-            tr.end()
-            tr.instant("cache_hit" if hit else "cache_miss")
-            tr.begin("bind", n_inputs=plan.n_inputs)
+        if tel is not None:
+            tel.end()
+            if tel.tracing:
+                tel.tracer.instant("cache_hit" if hit else "cache_miss")
+            tel.begin("bind", n_inputs=plan.n_inputs)
         bp = BoundPlan(plan=plan, bindings=bindings, cache_hit=hit)
-        if tr is not None:
-            tr.end()
+        if tel is not None:
+            tel.end()
         return bp
 
     def _plan_arith(self, aq: ArithQuery,

@@ -242,6 +242,8 @@ class Scheduler:
             self._m_cse = m.counter("cse_planes_total")
             self._m_lat = m.histogram("modeled_latency_ns")
             self._m_wall = m.histogram("batch_wall_us")
+            self._m_cse_s = m.counter("cse_pass_seconds_total")
+            self._m_place_s = m.counter("place_seconds_total")
         if self._mitigated and self.cluster is not None:
             raise ValueError(
                 "reliability injection modes run on the single-process VM "
@@ -534,23 +536,23 @@ class Scheduler:
         if not queries:
             return BatchReport([], 0.0, self.n_banks, 0)
         tel = self.telemetry
-        if not (tel.tracing or tel.metering):
+        live = tel.spans_on()
+        if not (live or tel.metering):
             return self._submit(queries, tel, preplanned, allow_cse)
         wall0 = time.perf_counter()
-        if tel.tracing:
-            tr = tel.tracer
-            # core layers (engine) have no handle on this scheduler;
-            # publish the sink for the dispatch window so their spans nest
-            # under this batch
-            prev = set_telemetry(tel)
-            tr.begin("batch", n_queries=len(queries))
-            try:
+        # core layers (engine, VM, Python's collector) have no handle on
+        # this scheduler; publish the sink for the batch so their spans
+        # nest under it and their counters land in its registry
+        prev = set_telemetry(tel)
+        try:
+            if live:
+                with tel.span("batch", n_queries=len(queries)):
+                    report = self._submit(queries, tel, preplanned,
+                                          allow_cse)
+            else:
                 report = self._submit(queries, tel, preplanned, allow_cse)
-            finally:
-                tr.end()
-                set_telemetry(prev)
-        else:
-            report = self._submit(queries, tel, preplanned, allow_cse)
+        finally:
+            set_telemetry(prev)
         if tel.metering:
             self._m_batches.inc()
             self._m_groups.inc(report.n_plan_groups)
@@ -563,6 +565,7 @@ class Scheduler:
                 preplanned: Optional[List[BoundPlan]] = None,
                 allow_cse: bool = True) -> BatchReport:
         tracing = tel.tracing
+        live = tel.spans_on()
         tr = tel.tracer
         if self.reliability is not None and self.reliability.mode == "ecc":
             # ecc mode opens every batch with a catalog integrity probe:
@@ -581,16 +584,20 @@ class Scheduler:
         orig_bound: List[BoundPlan] = []
         if preplanned is not None:
             orig_bound = list(preplanned)
-        elif tracing:
+        elif live:
             for i, q in enumerate(queries):
-                with tr.span("query", index=i, mode=q.mode):
+                with tel.span("query", index=i, mode=q.mode):
                     orig_bound.append(self.planner.plan(
                         q.query, columns=self.catalog.columns,
                         names=self.catalog))
         else:
             orig_bound = self.plan_queries(queries)
         if allow_cse:
-            bound, cse = self._apply_cse(queries, orig_bound)
+            t0 = time.perf_counter()
+            with tel.span("cse_pass"):
+                bound, cse = self._apply_cse(queries, orig_bound)
+            if tel.metering:
+                self._m_cse_s.inc(time.perf_counter() - t0)
         else:
             bound, cse = orig_bound, None
 
@@ -599,17 +606,17 @@ class Scheduler:
         cse_planes: Dict[str, torch.Tensor] = {}
         if cse is not None:
             for d in cse.defs:
-                if tracing:
-                    tr.begin("cse_group", plane=d.name, uses=d.uses,
-                             n_aaps=d.bound.plan.n_aaps)
-                    tr.begin("cse_dispatch")
+                if live:
+                    tel.begin("cse_group", plane=d.name, uses=d.uses,
+                              n_aaps=d.bound.plan.n_aaps)
+                    tel.begin("cse_dispatch")
                 stacked, _, _ = self._run_group([(0, d.bound)], True,
                                                 cse_planes,
                                                 need_counts=False)
                 cse_planes[d.name] = stacked[0, 0]   # stays on the device
-                if tracing:
-                    tr.end()    # cse_dispatch
-                    tr.end()    # cse_group
+                if live:
+                    tel.end()    # cse_dispatch
+                    tel.end()    # cse_group
             self.cse_planes_built += len(cse.defs)
             if tel.metering:
                 self._m_cse.inc(len(cse.defs))
@@ -626,15 +633,15 @@ class Scheduler:
         for members in groups.values():
             need_words = any(queries[idx].mode == MATERIALIZE
                              for idx, _ in members)
-            if tracing:
-                tr.begin("group", members=[idx for idx, _ in members],
-                         n_aaps=members[0][1].plan.n_aaps)
-                tr.begin("dispatch")
+            if live:
+                tel.begin("group", members=[idx for idx, _ in members],
+                          n_aaps=members[0][1].plan.n_aaps)
+                tel.begin("dispatch")
             stacked, scalars, replicas = dispatch(members, need_words,
                                                   cse_planes)
-            if tracing:
-                tr.end()
-                tr.begin("readout")
+            if live:
+                tel.end()
+                tel.begin("readout")
             plan = members[0][1].plan
             # boolean plans (single DST row) materialize as a flat word
             # vector; arithmetic plans as the (n_outputs, n_words) plane
@@ -647,9 +654,9 @@ class Scheduler:
                     words_by_idx[idx] = w[0] if is_boolean else w
                 count_by_idx[idx] = scalars[slot]
                 replicas_by_idx[idx] = replicas
-            if tracing:
-                tr.end()    # readout
-                tr.end()    # group
+            if live:
+                tel.end()    # readout
+                tel.end()    # group
 
         # 3. modeled timeline (`_place_batch`): shared planes first, then
         #    queries on least-loaded (chip, bank) slots; a consumer cannot
@@ -657,8 +664,12 @@ class Scheduler:
         #    is placed — charged — exactly once.
         n_chips = self.cluster.n_chips if self.cluster is not None else 1
         n_blocks = self._n_blocks
-        placements, makespan = self._place_batch(
-            bound, cse, replicas_by_idx, tr if tracing else None)
+        t0 = time.perf_counter()
+        with tel.span("place"):
+            placements, makespan = self._place_batch(
+                bound, cse, replicas_by_idx, tr if tracing else None)
+        if tel.metering:
+            self._m_place_s.inc(time.perf_counter() - t0)
         # defs are real AAPs/energy, but shared: charge them once, to the
         # first consuming query's accounting, so the batch energy total
         # stays the sum of per-result energies

@@ -613,8 +613,8 @@ class ServingLoop:
         wall0 = time.perf_counter()
         prev: Optional[_Inflight] = None
         min_now = 0.0
-        tr = self.telemetry.tracer
-        tracing = self.telemetry.tracing
+        tel = self.telemetry
+        live = tel.spans_on()
         try:
             while pending or self._n_queued or prev is not None:
                 est_free = (prev.est_free_ns if prev is not None
@@ -634,18 +634,18 @@ class ServingLoop:
                     can_defer = bool(pending) or prev is not None
                     batch = self._form_tick(now, can_defer)
                     if batch:
-                        if tracing:
-                            tr.begin("tick", tick=self._tick_seq,
-                                     n_queries=len(batch))
-                            tr.begin("tick_plan")
+                        if live:
+                            tel.begin("tick", tick=self._tick_seq,
+                                      n_queries=len(batch))
+                            tel.begin("tick_plan")
                         w0 = time.perf_counter()
                         # host stage of the double buffer: overlapped
                         # with `prev` still executing on the worker
                         bound = self.scheduler.plan_queries(
                             [it.query for it in batch])
                         plan_us = (time.perf_counter() - w0) * 1e6
-                        if tracing:
-                            tr.end()    # tick_plan
+                        if live:
+                            tel.end()    # tick_plan
                 if prev is not None:
                     self._finalize(prev)
                     prev = None
@@ -655,8 +655,8 @@ class ServingLoop:
                     if pool is None:
                         self._finalize(prev)
                         prev = None
-                    if tracing:
-                        tr.end()        # tick
+                    if live:
+                        tel.end()        # tick
                 elif cands and pending:
                     # nothing eligible at `now`: the next attempt must
                     # see new work, or it would spin on the same state

@@ -20,7 +20,11 @@ The counterpart of `repro.train.step`. Two variants:
   group.
 
 Both return ``train_step(params, opt_state, step, batch) -> (params,
-opt_state, metrics)``; the update writes the parameters in place.
+opt_state, metrics)``; the update writes the parameters in place. A step
+opens the spans ``step.grads``, ``step.clip`` and ``step.update``
+(`obs.Telemetry.span` on the published telemetry): profiler ranges while a
+`torch.profiler` session runs, tracer spans when a tracing telemetry is
+published, and otherwise one flag test each.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch.distributed as dist
 
 from repro_torch.data.pipeline import host_shard
 from repro_torch.dist.sharding import whole
+from repro_torch.obs.telemetry import get_telemetry
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 
 
@@ -108,10 +113,15 @@ def make_train_step(bundle, optimizer: Optimizer, grad_accum: int = 1,
     loss's "xent" / "aux"})."""
 
     def train_step(params, opt_state, step, batch):
-        loss, metrics, grads = loss_and_grads(bundle, params, batch,
-                                              grad_accum)
-        grads, gnorm = clip_by_global_norm(grads, clip)
-        params, opt_state = optimizer.update(grads, opt_state, params, step)
+        tel = get_telemetry()
+        with tel.span("step.grads"):
+            loss, metrics, grads = loss_and_grads(bundle, params, batch,
+                                                  grad_accum)
+        with tel.span("step.clip"):
+            grads, gnorm = clip_by_global_norm(grads, clip)
+        with tel.span("step.update"):
+            params, opt_state = optimizer.update(grads, opt_state, params,
+                                                 step)
         return params, opt_state, {k: whole(v) for k, v in dict(
             loss=loss, grad_norm=gnorm, **metrics).items()}
 
@@ -129,12 +139,18 @@ def make_train_step_compressed(bundle, optimizer: Optimizer,
     rank = dist.get_rank(group)
 
     def train_step(params, opt_state, step, batch):
+        tel = get_telemetry()
         local = _replicated_like(params, host_shard(batch, rank, D))
-        loss, _, grads = loss_and_grads(bundle, params, local, grad_accum)
+        with tel.span("step.grads"):
+            loss, _, grads = loss_and_grads(bundle, params, local,
+                                            grad_accum)
         # no all-reduce of the gradients: the 1-bit majority exchange
         # inside optimizer.update is the only one
-        grads, gnorm = clip_by_global_norm(grads, clip)
-        params, opt_state = optimizer.update(grads, opt_state, params, step)
+        with tel.span("step.clip"):
+            grads, gnorm = clip_by_global_norm(grads, clip)
+        with tel.span("step.update"):
+            params, opt_state = optimizer.update(grads, opt_state, params,
+                                                 step)
         loss = whole(loss).float().clone()
         gnorm = whole(gnorm)
         dist.all_reduce(loss, group=group)

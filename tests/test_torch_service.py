@@ -6,6 +6,8 @@ planes, AAP totals and modeled latencies are identical; modeled energy
 agrees within 1e-12 relative (the reference's own two energy bookkeeping
 paths differ in the last ulp). Also `explain()`, the serving loop's trace
 replay, the port's unbatched oracle, and its stats registry."""
+import gc
+
 import jax  # noqa: F401  (the reference package runs on JAX's CPU backend)
 import numpy as np
 import pytest
@@ -203,6 +205,26 @@ def test_stats_registry_matches_legacy():
         ref.stats()["total_energy_nj"], rel=REL)
 
 
+#: wall-clock spans the port records and the reference does not
+PORT_SPANS = ("cse_pass", "place", "gc")
+
+
+def _without_port_spans(events):
+    """The events' names without the port's own spans (their B events and
+    the E events that close them), and those spans' names."""
+    names, own, stack = [], [], []
+    for e in events:
+        if e["ph"] == "B":
+            stack.append(e["name"] in PORT_SPANS)
+            if stack[-1]:
+                own.append(e["name"])
+                continue
+        elif e["ph"] == "E" and stack.pop():
+            continue
+        names.append(e["name"])
+    return names, own
+
+
 def test_tracing_telemetry_matches_reference():
     rsvc = R.build_service(R.WorkloadSpec(**SPEC),
                            telemetry=RTelemetry(trace=True))
@@ -210,10 +232,19 @@ def test_tracing_telemetry_matches_reference():
                            telemetry=TTelemetry(trace=True))
     qs = ["t0/s0 & t0/s1", "t1/s0 & t1/s1", week_or(0, prefix="t2/")]
     rsvc.query_batch([R.Query(q) for q in qs])
-    tsvc.query_batch([T.Query(q) for q in qs])
+    thresholds = gc.get_threshold()
+    gc.set_threshold(50)     # so that the collector runs inside the batch
+    try:
+        tsvc.query_batch([T.Query(q) for q in qs])
+    finally:
+        gc.set_threshold(*thresholds)
     rt, tt = rsvc.export_chrome_trace(), tsvc.export_chrome_trace()
     validate_chrome_trace(tt)
-    names = [e["name"] for e in tt["traceEvents"]]
+    names, own = _without_port_spans(tt["traceEvents"])
+    # the port's own spans: the CSE pass and the modeled placement of the
+    # batch, and each pass of Python's collector inside it
+    assert own.count("cse_pass") == own.count("place") == 1
+    assert own.count("gc") >= 1 and set(own) == set(PORT_SPANS)
     assert sorted(names) == sorted(e["name"] for e in rt["traceEvents"])
     assert "queries_total 3" in tsvc.prometheus()
     assert "queries_total 3" in rsvc.prometheus()
