@@ -190,6 +190,10 @@ class Expr:
     args: Tuple["Expr", ...] = ()
     row: Optional[str] = None     # for op == 'row'
 
+    #: `expr_key`'s memo, set on first use. Not a field: equality,
+    #: hashing, `repr` and `dataclasses.replace` never see it.
+    _key = None
+
     # -- sugar --
     def __and__(self, o): return Expr("and", (self, o))
     def __or__(self, o): return Expr("or", (self, o))
@@ -211,11 +215,26 @@ class CompileResult:
     n_temp_rows: int
 
 
+#: keys `expr_key` built from scratch (memo misses), across the process
+expr_keys_built_total = 0
+
+
 def expr_key(e: Expr) -> Tuple:
-    """Structural identity of an expression node (hash-consing key)."""
-    if e.op == "row":
-        return ("row", e.row)
-    return (e.op,) + tuple(expr_key(a) for a in e.args)
+    """Structural identity of an expression node (hash-consing key).
+
+    Built once per node and kept on it: an `Expr` never changes, so its
+    key cannot go stale, and a parent's key reuses its children's.
+    """
+    k = e._key
+    if k is None:
+        global expr_keys_built_total
+        if e.op == "row":
+            k = ("row", e.row)
+        else:
+            k = (e.op,) + tuple(expr_key(a) for a in e.args)
+        object.__setattr__(e, "_key", k)
+        expr_keys_built_total += 1
+    return k
 
 
 # not(X) folds into X's dual primitive — one program instead of two.

@@ -42,8 +42,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 from repro_torch.core import energy as energy_model
 from repro_torch.core import timing as timing_model
 from repro_torch.core.commands import Program
-from repro_torch.core.compiler import (CHAIN_OPS, Expr, expr_key, expr_size,
-                                 flatten_chain, iter_subexprs, rebuild_chain)
+from repro_torch.core.compiler import (CHAIN_OPS, Expr, expr_key,
+                                       flatten_chain, iter_subexprs,
+                                       rebuild_chain)
 
 #: leaf-name prefix of batch-ephemeral shared planes. Starts with "$" so it
 #: can never collide with a catalog name (`catalog._NAME_RE` requires a
@@ -281,37 +282,21 @@ class QueryOptimizer:
 
 
 def bind_expr(canon: Expr, input_map: Dict[str, str]) -> Expr:
-    """Substitute canonical IN-leaves back to actual catalog rows."""
-    if canon.op == "row":
-        return Expr.of(input_map.get(canon.row, canon.row))
-    return Expr(canon.op, tuple(bind_expr(a, input_map) for a in canon.args))
+    """Substitute canonical IN-leaves back to actual catalog rows; a node
+    the DAG shares is bound once and stays shared."""
+    done: Dict[int, Expr] = {}      # id(node) -> its bound node
 
+    def go(e: Expr) -> Expr:
+        got = done.get(id(e))
+        if got is None:
+            if e.op == "row":
+                got = Expr.of(input_map.get(e.row, e.row))
+            else:
+                got = Expr(e.op, tuple(go(a) for a in e.args))
+            done[id(e)] = got
+        return got
 
-def _rewrite(e: Expr, picked: Dict[Tuple, str]) -> Expr:
-    """Top-down replacement of picked sub-DAGs by their plane leaves.
-
-    Outermost match wins — a picked region nested inside another picked
-    region survives only inside the outer region's definition.
-    """
-    name = picked.get(expr_key(e))
-    if name is not None:
-        return Expr.of(name)
-    if e.op == "row":
-        return e
-    return Expr(e.op, tuple(_rewrite(a, picked) for a in e.args))
-
-
-def _cse_leaves(e: Expr, acc: Optional[set] = None) -> set:
-    """The `$cse` plane names an expression references."""
-    if acc is None:
-        acc = set()
-    if e.op == "row":
-        if e.row.startswith(CSE_PREFIX):
-            acc.add(e.row)
-    else:
-        for a in e.args:
-            _cse_leaves(a, acc)
-    return acc
+    return go(canon)
 
 
 @dataclasses.dataclass
@@ -334,15 +319,78 @@ class CseBatch:
     optimized_aaps: int       # defs once + rewritten consumers
 
 
+class _BatchDag:
+    """A batch's expressions hash-consed: one small int per distinct
+    structure (equal ints exactly where `expr_key` is equal).
+
+    A node's signature is its row, or its op and its children's ints: a
+    flat tuple, so interning hashes a few small ints and never a nested
+    key. `node[i]` is the first node seen of structure i, `kids[i]` its
+    children's ints, and `below[i]` the bit set of the distinct interior
+    structures in its DAG, itself included (0 for a leaf): so
+    `expr_size(node[i]) == below[i].bit_count()`. Nodes are also indexed
+    by identity, which holds while the caller keeps the expressions.
+    """
+
+    def __init__(self):
+        self.node: List[Expr] = []
+        self.kids: List[Tuple[int, ...]] = []
+        self.below: List[int] = []
+        self._sig: Dict[object, int] = {}
+        self._of: Dict[int, int] = {}
+
+    def add(self, e: Expr) -> int:
+        """The structure of `e`, interning its DAG bottom-up."""
+        i = self._of.get(id(e))
+        if i is not None:
+            return i
+        if e.op == "row":
+            kids: Tuple[int, ...] = ()
+            sig: object = e.row
+        else:
+            kids = tuple(self.add(a) for a in e.args)
+            sig = (e.op,) + kids
+        i = self._sig.get(sig)
+        if i is None:
+            i = len(self.node)
+            self._sig[sig] = i
+            self.node.append(e)
+            self.kids.append(kids)
+            below = 0
+            if e.op != "row":
+                below = 1 << i
+                for c in kids:
+                    below |= self.below[c]
+            self.below.append(below)
+        self._of[id(e)] = i
+        return i
+
+    def interior(self, root: int) -> List[int]:
+        """The distinct interior structures of `root`'s DAG."""
+        out = []
+        seen = set()
+        stack = [root]
+        while stack:
+            i = stack.pop()
+            if i in seen or not self.below[i]:
+                continue
+            seen.add(i)
+            out.append(i)
+            stack.extend(self.kids[i])
+        return out
+
+
 def plan_group_cse(bound: Sequence[object],
                    exprs: Sequence[Optional[Expr]],
                    plan_fn: Callable[[Expr], object],
-                   ) -> Optional[CseBatch]:
+                   subexprs=None) -> Optional[CseBatch]:
     """Share sub-DAGs appearing in >= 2 of a batch's bound queries.
 
     `bound` are the batch's original BoundPlans, `exprs` the bound boolean
     DAGs over actual catalog rows (None = ineligible query: arithmetic,
     multi-output), `plan_fn` plans an Expr through the normal pipeline.
+    `subexprs`, a counter (`inc`), if given, gets the number of distinct
+    interior sub-DAGs the pass counted.
 
     Candidates are counted with per-query set semantics, picked outermost
     -first (largest saving), then iterated to a fixpoint dropping any pick
@@ -350,83 +398,111 @@ def plan_group_cse(bound: Sequence[object],
     abandoned wholesale unless the exact re-costed AAP total (defs once +
     rewritten consumers) is strictly below the unshared baseline — the
     optimizer never emits more AAPs than the current pipeline.
+
+    The pass walks each distinct sub-DAG a bounded number of times: the
+    batch is hash-consed once (`_BatchDag`), the fixpoint rounds work on
+    its ints, and only the final rewrite builds new nodes.
     """
-    count: Dict[Tuple, int] = {}
-    node_of: Dict[Tuple, Expr] = {}
-    n_eligible = 0
-    for e in exprs:
-        if e is None:
-            continue
-        n_eligible += 1
-        for n in iter_subexprs(e):
-            if n.op == "row":
-                continue
-            k = expr_key(n)
-            count[k] = count.get(k, 0) + 1
-            node_of.setdefault(k, n)
-    if n_eligible < 2:
+    dag = _BatchDag()
+    roots = [None if e is None else dag.add(e) for e in exprs]
+    count: Dict[int, int] = {}
+    for r in roots:
+        if r is not None:
+            for i in dag.interior(r):
+                count[i] = count.get(i, 0) + 1
+    if subexprs is not None:
+        subexprs.inc(len(count))
+    if sum(r is not None for r in roots) < 2:
         return None
-    cands = [k for k, c in count.items() if c >= 2]
+    cands = [i for i, c in count.items() if c >= 2]
     if not cands:
         return None
     # outermost-first pick order; names assigned once, deterministically
-    cands.sort(key=lambda k: (-expr_size(node_of[k]), repr(k)))
-    picked: Dict[Tuple, str] = {k: f"{CSE_PREFIX}{i}"
-                                for i, k in enumerate(cands)}
+    cands.sort(key=lambda i: (-dag.below[i].bit_count(),
+                              repr(expr_key(dag.node[i]))))
+    picked: Dict[int, str] = {i: f"{CSE_PREFIX}{n}"
+                              for n, i in enumerate(cands)}
 
-    uses: Dict[str, int] = {}
-    rewritten: List[Optional[Expr]] = []
-    bodies: Dict[Tuple, Expr] = {}
     while True:
-        rewritten = [(_rewrite(e, picked) if e is not None else None)
-                     for e in exprs]
-        bodies = {}
-        for k in picked:
-            node = node_of[k]
-            bodies[k] = (Expr(node.op,
-                              tuple(_rewrite(a, picked) for a in node.args))
-                         if node.op != "row" else node)
+        # planes[i]: the `$cse` planes the rewrite of structure i
+        # references; outermost match wins, so a pick nested inside
+        # another survives only inside the outer one's definition
+        planes: Dict[int, frozenset] = {}
+
+        def planes_of(i: int) -> frozenset:
+            got = planes.get(i)
+            if got is None:
+                name = picked.get(i)
+                got = (frozenset((name,)) if name is not None
+                       else planes_below(i))
+                planes[i] = got
+            return got
+
+        def planes_below(i: int) -> frozenset:
+            got = frozenset()
+            for c in dag.kids[i]:
+                got = got | planes_of(c)
+            return got
+
+        body_planes = {i: planes_below(i) for i in picked}
         uses = {name: 0 for name in picked.values()}
-        for e in rewritten:
-            if e is None:
-                continue
-            for name in _cse_leaves(e):
-                if name in uses:
+        for r in roots:
+            if r is not None:
+                for name in planes_of(r):
                     uses[name] += 1
-        for k, body in bodies.items():
-            for name in _cse_leaves(body):
-                if name in uses:
-                    uses[name] += 1
-        drop = [k for k, name in picked.items() if uses[name] < 2]
+        for names in body_planes.values():
+            for name in names:
+                uses[name] += 1
+        drop = [i for i, name in picked.items() if uses[name] < 2]
         if not drop:
             break
-        for k in drop:
-            del picked[k]
+        for i in drop:
+            del picked[i]
         if not picked:
             return None
 
+    # the final round's `planes_of` holds for the final picks
+    built: Dict[int, Expr] = {}
+
+    def rewrite(i: int) -> Expr:
+        got = built.get(i)
+        if got is None:
+            name = picked.get(i)
+            if name is not None:
+                got = Expr.of(name)
+            elif planes_of(i):
+                got = Expr(dag.node[i].op,
+                           tuple(rewrite(c) for c in dag.kids[i]))
+            else:
+                got = dag.node[i]
+            built[i] = got
+        return got
+
+    rewritten = [None if r is None else rewrite(r) for r in roots]
+    bodies = {i: Expr(dag.node[i].op, tuple(rewrite(c) for c in dag.kids[i]))
+              for i in picked}
+
     # topological order: a def lands after every plane it references
-    by_name = {picked[k]: k for k in picked}
-    order: List[Tuple] = []
-    state: Dict[Tuple, int] = {}
+    by_name = {name: i for i, name in picked.items()}
+    order: List[int] = []
+    state: Dict[int, int] = {}
 
-    def visit(k: Tuple):
-        if state.get(k) == 2:
+    def visit(i: int):
+        if state.get(i) == 2:
             return
-        assert state.get(k) != 1, "cyclic $cse dependency"
-        state[k] = 1
-        for name in sorted(_cse_leaves(bodies[k])):
-            if name in by_name:
-                visit(by_name[name])
-        state[k] = 2
-        order.append(k)
+        assert state.get(i) != 1, "cyclic $cse dependency"
+        state[i] = 1
+        for name in sorted(body_planes[i]):
+            visit(by_name[name])
+        state[i] = 2
+        order.append(i)
 
-    for k in sorted(picked, key=lambda k: picked[k]):
-        visit(k)
+    for i in sorted(picked, key=picked.get):
+        visit(i)
 
-    defs = [CseDef(name=picked[k], expr=bodies[k],
-                   bound=plan_fn(bodies[k]), uses=uses[picked[k]])
-            for k in order]
+    defs = [CseDef(name=picked[i], expr=bodies[i],
+                   bound=plan_fn(bodies[i]), uses=uses[picked[i]])
+            for i in order]
     new_bound: List[object] = []
     for orig, e, r in zip(bound, exprs, rewritten):
         if e is None or r is None or expr_key(r) == expr_key(e):

@@ -320,16 +320,23 @@ def canonicalize(expr: Expr) -> Tuple[Expr, List[str]]:
 
     `bindings[i]` is the catalog row that canonical input `IN{i}` stands
     for. Repeated leaves map to the same input, so structure is preserved
-    and the compiler's CSE still sees shared subexpressions.
+    and the compiler's CSE still sees shared subexpressions. A node the
+    DAG shares is renamed once, so the canonical DAG shares it too.
     """
     order: Dict[str, int] = {}
+    done: Dict[int, Expr] = {}      # id(node) -> its canonical node
 
     def go(e: Expr) -> Expr:
-        if e.op == "row":
-            if e.row not in order:
-                order[e.row] = len(order)
-            return Expr.of(f"{_IN_PREFIX}{order[e.row]}")
-        return Expr(e.op, tuple(go(a) for a in e.args))
+        got = done.get(id(e))
+        if got is None:
+            if e.op == "row":
+                if e.row not in order:
+                    order[e.row] = len(order)
+                got = Expr.of(f"{_IN_PREFIX}{order[e.row]}")
+            else:
+                got = Expr(e.op, tuple(go(a) for a in e.args))
+            done[id(e)] = got
+        return got
 
     canon = go(expr)
     return canon, list(order)

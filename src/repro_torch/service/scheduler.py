@@ -68,7 +68,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import arith_compiler, engine, lowering
+from repro_torch.core import arith_compiler, compiler, engine, lowering
 from repro_torch.core.bitplane import ROW_BITS, to_uint32
 from repro_torch.core.compiler import Expr, compile_expr_fused
 from repro_torch.core.timing import DDR3_1600, DramTiming
@@ -243,6 +243,9 @@ class Scheduler:
             self._m_lat = m.histogram("modeled_latency_ns")
             self._m_wall = m.histogram("batch_wall_us")
             self._m_cse_s = m.counter("cse_pass_seconds_total")
+            self._m_cse_nodes = m.counter("cse_subexprs_total")
+            self._m_keys = m.counter("expr_keys_built_total")
+            self._keys_built = compiler.expr_keys_built_total
             self._m_place_s = m.counter("place_seconds_total")
         if self._mitigated and self.cluster is not None:
             raise ValueError(
@@ -595,9 +598,15 @@ class Scheduler:
         if allow_cse:
             t0 = time.perf_counter()
             with tel.span("cse_pass"):
-                bound, cse = self._apply_cse(queries, orig_bound)
+                bound, cse = self._apply_cse(
+                    queries, orig_bound,
+                    self._m_cse_nodes if tel.metering else None)
             if tel.metering:
                 self._m_cse_s.inc(time.perf_counter() - t0)
+                # the process's key builds since the last publication
+                built = compiler.expr_keys_built_total
+                self._m_keys.inc(built - self._keys_built)
+                self._keys_built = built
         else:
             bound, cse = orig_bound, None
 
@@ -752,9 +761,10 @@ class Scheduler:
     # -- optimize: batch-level sharing + modeled placement -------------------
 
     def _apply_cse(self, queries: Sequence[Query],
-                   orig_bound: List[BoundPlan]
+                   orig_bound: List[BoundPlan], subexprs=None
                    ) -> Tuple[List[BoundPlan], Optional[CseBatch]]:
-        """The cross-query sharing pass, where this deployment allows it.
+        """The cross-query sharing pass, where this deployment allows it
+        (`subexprs`: `plan_group_cse`'s counter of the sub-DAGs counted).
 
         Single-process clean path only: sharded dispatch would have to
         ship planes between chips, mitigated dispatch repeats programs
@@ -776,7 +786,7 @@ class Scheduler:
             for bp in orig_bound
         ]
         cse = plan_group_cse(orig_bound, exprs,
-                             lambda e: self.planner._plan(e, None))
+                             lambda e: self.planner._plan(e, None), subexprs)
         if cse is None:
             return orig_bound, None
         return cse.bound, cse
