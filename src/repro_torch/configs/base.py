@@ -31,7 +31,8 @@ class ModelConfig:
     rope_theta: float = 500_000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    mlp_kind: str = "swiglu"    # swiglu | gelu
+    mlp_kind: str = "swiglu"    # swiglu | gelu | relu2 (down(relu(up x)^2))
+    use_rope: bool = True       # False: attention without position encoding
     # MoE
     n_experts: int = 0
     top_k: int = 0
@@ -40,14 +41,23 @@ class ModelConfig:
     n_dense_layers: int = 0     # leading dense layers (DeepSeek/Kimi style)
     dense_d_ff: int = 0         # d_ff of the dense (non-expert) layers
     capacity_factor: float = 1.25
+    router: str = "softmax"     # softmax | sigmoid (selected on score + bias)
+    routed_scale: float = 1.0   # the routed experts' weights times this
+    dropless: bool = False      # every routed slot computed, no capacity
+    shared_d_ff: int = 0        # shared experts' width (0: d_ff * n_shared)
     # SSM (Mamba2/SSD)
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
+    ssm_groups: int = 1         # B / C groups (each over n_ssm_heads / groups)
+    ssm_heads: int = 0          # heads of ssm_head_dim (0: d_inner / head)
     # hybrid (zamba-style shared attention block)
     attn_every: int = 0         # apply the shared attn block every k ssm layers
+    # pattern-driven hybrid (Nemotron-H): one character a block, "M" Mamba-2,
+    # "E" MoE, "*" attention; n_layers == len(block_pattern)
+    block_pattern: str = ""
     # enc-dec
     n_enc_layers: int = 0
     frontend: str = ""          # 'audio' | 'vision': modality stub (input_specs)
@@ -68,11 +78,18 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
+        if self.ssm_heads:
+            return self.ssm_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def expert_shared_d_ff(self) -> int:
+        """Width of the MoE's shared experts, taken as one MLP."""
+        return self.shared_d_ff or self.d_ff * self.n_shared_experts
 
     # ---- parameter counting (for 6*N*D model flops) -----------------------
     def param_count(self, active_only: bool = False) -> int:
@@ -84,12 +101,17 @@ class ModelConfig:
             return (3 if kind == "swiglu" else 2) * D * ff
 
         def moe_layer(active):
-            n_e = (self.top_k + self.n_shared_experts) if active else \
-                (self.n_experts + self.n_shared_experts)
-            return n_e * mlp_params(self.d_ff) + D * self.n_experts
+            n_e = self.top_k if active else self.n_experts
+            shared = mlp_params(self.expert_shared_d_ff) \
+                if self.n_shared_experts else 0
+            return n_e * mlp_params(self.d_ff) + shared + D * self.n_experts
 
         total = embed
-        if self.family in ("dense",):
+        if self.block_pattern:
+            per = {"M": self.ssm_layer_params(), "E": moe_layer(active_only),
+                   "*": attn}
+            total += sum(per[c] for c in self.block_pattern)
+        elif self.family in ("dense",):
             total += self.n_layers * (attn + mlp_params(self.d_ff))
         elif self.family == "moe":
             n_moe, n_dense = self.moe_layer_counts()
@@ -113,7 +135,7 @@ class ModelConfig:
         return total
 
     def ssm_layer_params(self) -> int:
-        D, Din, N = self.d_model, self.d_inner, self.ssm_state
+        D, Din, N = self.d_model, self.d_inner, self.ssm_state * self.ssm_groups
         H = self.n_ssm_heads
         in_proj = D * (2 * Din + 2 * N + H)  # z, x, B, C, dt
         conv = self.ssm_conv * (Din + 2 * N)
@@ -192,6 +214,10 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         changes.update(ssm_state=16, ssm_head_dim=32, ssm_chunk=16)
     if cfg.attn_every:
         changes.update(attn_every=2)
+    if cfg.block_pattern:
+        changes.update(block_pattern="MEM*E", n_layers=5, ssm_heads=8,
+                       ssm_groups=min(cfg.ssm_groups, 2),
+                       shared_d_ff=256 if cfg.shared_d_ff else 0)
     if cfg.n_enc_layers:
         changes.update(n_enc_layers=2)
     if cfg.cross_attn_every:

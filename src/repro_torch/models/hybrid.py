@@ -58,9 +58,10 @@ class Hybrid(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.family not in ("ssm", "hybrid"):
+        if cfg.family not in ("ssm", "hybrid") or cfg.block_pattern:
             raise ValueError(f"{cfg.name} is {cfg.family!r}, not an SSM or "
-                             "hybrid config")
+                             "hybrid config of Zamba2's kind (a block "
+                             "pattern builds `nemotron_h.NemotronH`)")
         self.embed = L.Embed(cfg, device)
         self.final_norm = L._param((cfg.d_model,), L.torch_dtype(cfg),
                                    device)

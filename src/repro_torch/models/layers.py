@@ -200,7 +200,7 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
-    if rope:
+    if rope and cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -331,7 +331,7 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
 
 class MLP(nn.Module):
     """SwiGLU: ``wi (D, 2, F)`` (gate and up fused on the output dim),
-    ``wo (F, D)``; GELU: ``wi (D, F)``, ``wo (F, D)``. ``F`` is ``d_ff``
+    ``wo (F, D)``; GELU and relu^2: ``wi (D, F)``, ``wo (F, D)``. ``F`` is ``d_ff``
     where given (the MoE family's dense layers and shared experts), else
     ``cfg.d_ff``."""
 
@@ -355,11 +355,19 @@ def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = project(x, p.wi)                 # einsum("bsd,dcf->bscf")
         gate, up = h[:, :, 0], h[:, :, 1]
         a = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+    elif cfg.mlp_kind == "relu2":
+        a = relu2(torch.einsum("bsd,df->bsf", x, p.wi))
     else:
         h = torch.einsum("bsd,df->bsf", x, p.wi)
         a = torch.nn.functional.gelu(h.float(),
                                      approximate="tanh").to(x.dtype)
     return torch.einsum("bsf,fd->bsd", a, p.wo)
+
+
+def relu2(h: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU in ``h``'s dtype (Nemotron-H's ``relu2``)."""
+    h = torch.relu(h)
+    return h * h
 
 
 # --------------------------------------------------------------------------

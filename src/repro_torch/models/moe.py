@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN with top-k routing and capacity-based dispatch.
+"""Mixture-of-Experts FFN with top-k routing and capacity-based or
+dropless dispatch.
 
 The counterpart of `repro.models.moe`, step for step. Dispatch is the
 sort-based (MegaBlocks/MaxText-style "dropping") formulation: tokens are
@@ -26,6 +27,28 @@ is its share of y, summed over the ranks (``Partial``). The reference's
 regions run under a disabled `axis_rules` context, as the reference's
 ``shard_map`` bodies do, and their buffers are sharded on the experts
 whatever the flag says.
+
+Three settings, each on its own, serve Nemotron-H's MoE. The router
+(``cfg.router == "sigmoid"``): the scores are ``sigmoid(x W_r)`` in
+float32, the ``top_k`` experts are *selected* on the score plus
+``e_bias`` (``e_score_correction_bias``) and *weighted* by the score
+alone, renormalised and times ``routed_scale``; there is no
+load-balancing loss (aux 0). Dropless dispatch (``cfg.dropless``) sorts
+the T * k slots by expert and computes exactly those rows, with no
+capacity and no padded ``(E, C, D)`` buffer: the expert products are
+`torch._grouped_mm` over the sorted rows on a Hopper card, one product
+per expert elsewhere; the combine sums each token's k weighted rows in
+float32. The experts (``cfg.mlp_kind``) are SwiGLU, or ``down(relu(up
+x)^2)`` (``"relu2"``, `layers.relu2`). A mesh runs the softmax router,
+capacity dispatch and SwiGLU experts only.
+
+Spans ``moe.route`` (router, top-k) and ``moe.experts`` (dispatch,
+products, combine) wrap every MoE layer outside a mesh, and
+``moe.shared`` the shared experts on any; while `obs.device` records,
+the counters ``moe_slots_total`` (T * k a call), ``moe_calls_total`` and
+``moe_busiest_over_mean_total`` (the busiest expert's slots over the
+mean, summed over calls on the device) run too. Outside a mesh the
+selected experts go to the ``moe.route`` tap (`obs.taps`).
 """
 from __future__ import annotations
 
@@ -41,6 +64,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import (axis_rules, constrain, mesh_sizes,
                                        placements_of, resolve_spec)
 from repro_torch.models import layers as L
+from repro_torch.obs import device as obs_device
+from repro_torch.obs import taps
+from repro_torch.obs.telemetry import get_telemetry
 
 # The reference's switch for its explicit dispatch-buffer constraints
 # (off by default; `launch.cells` sets it from the plan's
@@ -65,20 +91,23 @@ def _c(x, *names):
 
 
 class MoE(nn.Module):
-    """``router (D, E)`` float32, ``wi (E, D, 2, F)`` (gate and up fused),
-    ``wo (E, F, D)``, and with shared experts ``shared``, an `layers.MLP`
-    of ``d_ff * n_shared_experts``."""
+    """``router (D, E)`` float32, ``wi (E, D, 2, F)`` (gate and up fused;
+    relu^2 experts: ``(E, D, F)``), ``wo (E, F, D)``, with the sigmoid
+    router ``e_bias (E,)`` float32, and with shared experts ``shared``,
+    an `layers.MLP` of ``cfg.expert_shared_d_ff``."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
         dt = L.torch_dtype(cfg)
         self.router = L._param((D, E), torch.float32, device)
-        self.wi = L._param((E, D, 2, F), dt, device)
+        if cfg.router == "sigmoid":
+            self.e_bias = L._param((E,), torch.float32, device)
+        wi = (E, D, F) if cfg.mlp_kind == "relu2" else (E, D, 2, F)
+        self.wi = L._param(wi, dt, device)
         self.wo = L._param((E, F, D), dt, device)
         if cfg.n_shared_experts:
-            self.shared = L.MLP(cfg, device,
-                                d_ff=cfg.d_ff * cfg.n_shared_experts)
+            self.shared = L.MLP(cfg, device, d_ff=cfg.expert_shared_d_ff)
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator, cfg: ModelConfig) -> None:
@@ -87,6 +116,8 @@ class MoE(nn.Module):
         draw never holds more than one expert's weights."""
         out_std = L.INIT_STD / np.sqrt(2 * max(cfg.n_layers, 1))
         L.dense_init_(self.router, generator)
+        if hasattr(self, "e_bias"):
+            self.e_bias.zero_()
         for e in range(cfg.n_experts):
             L.dense_init_(self.wi[e], generator)
         for e in range(cfg.n_experts):
@@ -151,6 +182,20 @@ def route(router: torch.Tensor, xt: torch.Tensor, top_k: int
     return probs, gate, idx
 
 
+def route_sigmoid(router: torch.Tensor, bias: torch.Tensor,
+                  xt: torch.Tensor, top_k: int, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Nemotron-H's router: scores ``sigmoid(xt router)`` (T, E) in
+    float32; each token's ``top_k`` experts selected on ``scores + bias``,
+    largest first, and weighted by their scores renormalised to sum 1,
+    times ``scale``. Returns (scores, gates (T, k), ids (T, k))."""
+    scores = torch.sigmoid(xt.float() @ router)
+    idx = torch.topk(scores + bias, top_k, dim=-1).indices
+    gate = scores.gather(-1, idx)
+    gate = gate / (gate.sum(-1, keepdim=True) + 1e-20) * scale
+    return scores, gate, idx
+
+
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y: (B, S, D), aux_loss scalar)."""
@@ -160,17 +205,39 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
     T = B * S
     xt = x.reshape(T, D)
     if isinstance(x, DTensor):
+        if cfg.dropless or cfg.router != "softmax" or cfg.mlp_kind == "relu2":
+            raise NotImplementedError(f"{cfg.name}: the MoE on a mesh "
+                                      "routes by softmax with capacity")
         y, aux = _moe_on_mesh(p, xt, cfg, x.device_mesh)
         y = constrain(y, "batch", "embed_act").reshape(B, S, D)
     else:
         E, k = cfg.n_experts, cfg.top_k
-        C = expert_capacity(cfg, T)
-        probs, gate, idx = route(p.router, xt, k)
-        d = dispatch(idx, E, C)
-        aux = _aux(probs, d.counts, cfg)
-        y = _experts(xt, gate, d, p.wi, p.wo, cfg).reshape(B, S, D)
+        tel = get_telemetry()
+        with tel.span("moe.route"):
+            if cfg.router == "sigmoid":
+                probs, gate, idx = route_sigmoid(p.router, p.e_bias, xt, k,
+                                                 cfg.routed_scale)
+            else:
+                probs, gate, idx = route(p.router, xt, k)
+        taps.emit("moe.route", idx=idx)
+        with tel.span("moe.experts"):
+            if cfg.dropless:
+                y, counts = _experts_dropless(xt, gate, idx, p.wi, p.wo, cfg)
+            else:
+                d = dispatch(idx, E, expert_capacity(cfg, T))
+                counts = d.counts
+                y = _experts(xt, gate, d, p.wi, p.wo, cfg)
+            y = y.reshape(B, S, D)
+        aux = _aux(probs, counts, cfg) if cfg.router == "softmax" else \
+            torch.zeros((), dtype=torch.float32, device=x.device)
+        if obs_device.recording():
+            obs_device.count("moe_slots_total", T * k)
+            obs_device.count("moe_calls_total", 1)
+            obs_device.count("moe_busiest_over_mean_total",
+                             counts.max() * E / (T * k))
     if cfg.n_shared_experts:
-        y = y + L.mlp(p.shared, x, cfg)
+        with get_telemetry().span("moe.shared"):
+            y = y + L.mlp(p.shared, x, cfg)
     return y, aux
 
 
@@ -186,7 +253,7 @@ def _aux(probs: torch.Tensor, counts: torch.Tensor,
 def _experts(xt: torch.Tensor, gate: torch.Tensor, d: Dispatch,
              wi: torch.Tensor, wo: torch.Tensor, cfg: ModelConfig
              ) -> torch.Tensor:
-    """The capacity-based dispatch ``d``, the expert SwiGLU and the
+    """The capacity-based dispatch ``d``, the experts (`_ffn`) and the
     combine of tokens ``xt`` (T, D) with weights ``gate`` (T, k): y (T,
     D)."""
     T, D = xt.shape
@@ -198,8 +265,8 @@ def _experts(xt: torch.Tensor, gate: torch.Tensor, d: Dispatch,
     buf[d.sorted_e, d.dest_c] = xt[d.sort_i // k]
     buf = _c(buf[:, :C], "experts", None, None)
 
-    # ---- expert FFN (SwiGLU) -----------------------------------------
-    yb = _c(_swiglu(buf, wi, wo), "experts", None, None)
+    # ---- expert FFN ----------------------------------------------------
+    yb = _c(_ffn(buf, wi, wo, cfg.mlp_kind), "experts", None, None)
     yb = torch.cat([yb, yb.new_zeros((E, 1, D))], dim=1)
 
     # ---- combine -------------------------------------------------------
@@ -208,14 +275,70 @@ def _experts(xt: torch.Tensor, gate: torch.Tensor, d: Dispatch,
     return (y_flat * gate[..., None].to(yb.dtype)).sum(dim=1)
 
 
-def _swiglu(buf: torch.Tensor, wi: torch.Tensor,
-            wo: torch.Tensor) -> torch.Tensor:
-    """The experts' SwiGLU on their buffers (E, C, D) -> (E, C, D)."""
-    h = _c(torch.einsum("ecd,edgf->ecgf", buf, wi),
-           "experts", None, None, "mlp")
-    act = torch.nn.functional.silu(h[:, :, 0].float()).to(buf.dtype) \
-        * h[:, :, 1]
-    return torch.einsum("ecf,efd->ecd", act, wo)
+def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
+    """The experts' activation of their first product: relu^2 of ``h``
+    (..., F) (``kind`` "relu2"), else SwiGLU of ``h`` (..., 2, F) (gate,
+    up) -> (..., F)."""
+    if kind == "relu2":
+        return L.relu2(h)
+    return torch.nn.functional.silu(h[..., 0, :].float()).to(h.dtype) \
+        * h[..., 1, :]
+
+
+def _ffn(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+         kind: str) -> torch.Tensor:
+    """The experts (``kind``, `_act`) on their buffers (E, C, D) -> (E,
+    C, D)."""
+    spec = "ecd,edf->ecf" if kind == "relu2" else "ecd,edgf->ecgf"
+    h = _c(torch.einsum(spec, buf, wi),
+           "experts", *[None] * (wi.dim() - 2), "mlp")
+    return torch.einsum("ecf,efd->ecd", _act(h, kind), wo)
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor,
+               counts: torch.Tensor) -> torch.Tensor:
+    """Rows ``x`` (R, K) sorted by group, ``counts`` (G,) rows a group,
+    times each group's ``w[g]`` (G, K, N): (R, N). `torch._grouped_mm`
+    over the offsets on a Hopper card for bf16 operands whose rows are
+    whole 16-byte words (it reads the counts on the device); one product
+    per group otherwise, which reads the counts on the host."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16 \
+            and x.shape[1] % 8 == 0 and w.shape[2] % 8 == 0 \
+            and torch.cuda.get_device_capability(x.device) >= (9, 0):
+        offs = counts.cumsum(0).to(torch.int32)
+        return torch._grouped_mm(x, w, offs=offs)
+    parts = x.split(counts.tolist())
+    return torch.cat([a @ w[g] for g, a in enumerate(parts)])
+
+
+def _experts_dropless(xt: torch.Tensor, gate: torch.Tensor,
+                      idx: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+                      cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every routed slot of tokens ``xt`` (T, D), with weights ``gate``
+    and expert ids ``idx`` (T, k): the slots sorted by expert (stably),
+    the experts' rows (`_act`) through `grouped_mm`, and each token's k
+    rows weighted and summed in float32. Returns (y (T, D) in xt's dtype,
+    the slots of each expert (E,))."""
+    T, D = xt.shape
+    E, k = cfg.n_experts, idx.shape[1]
+    flat_e = idx.reshape(-1)
+    sort_i = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(E, dtype=torch.long, device=xt.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    xs = xt[sort_i // k]
+    h = grouped_mm(xs, wi.flatten(2), counts)
+    del xs
+    a = _act(h.unflatten(1, wi.shape[2:]), cfg.mlp_kind)
+    del h
+    ys = grouped_mm(a, wo, counts)
+    del a
+    inv = torch.empty_like(sort_i)
+    inv[sort_i] = torch.arange(sort_i.shape[0], device=xt.device)
+    inv = inv.reshape(T, k)
+    y = torch.zeros((T, D), dtype=torch.float32, device=xt.device)
+    for j in range(k):
+        y = y.addcmul(ys[inv[:, j]].float(), gate[:, j, None])
+    return y.to(xt.dtype), counts
 
 
 def _experts_share(xt: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor,
@@ -242,7 +365,7 @@ def _experts_share(xt: torch.Tensor, gate: torch.Tensor, idx: torch.Tensor,
     slot = sort_i[pos]
     src = slot // k
     buf = xt[src] * valid[..., None].to(xt.dtype)
-    yb = _swiglu(buf, wi, wo)
+    yb = _ffn(buf, wi, wo, cfg.mlp_kind)
     w = gate.reshape(-1)[slot] * valid
     return xt.new_zeros((T, D)).index_add_(
         0, src.reshape(-1), (yb * w[..., None].to(yb.dtype)).reshape(-1, D))

@@ -9,6 +9,7 @@
 The counterpart of `repro.models.registry`, with the same field names.
 ``params`` is the family's `nn.Module` on the bundle's device: a
 `transformer.Transformer` (dense, MoE), `hybrid.Hybrid` (SSM, hybrid),
+`nemotron_h.NemotronH` (a hybrid laid out by ``cfg.block_pattern``),
 `encdec.EncDec` or `vision.VLM`. The enc-dec and VLM prefills take the
 frontend's stub embeddings from the batch (``frames`` / ``patches``).
 Token tensors and frontend embeddings keep their device; host arrays
@@ -51,6 +52,7 @@ from repro_torch.data.pipeline import frontend_name
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
+from repro_torch.models import nemotron_h as NH
 from repro_torch.models import transformer as TF
 from repro_torch.models import vision as VI
 
@@ -117,6 +119,8 @@ def _batch(batch: Dict[str, Any], params,
 def _apply_fn(cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     """The family's training stack as `transformer.lm_loss`'s
     ``apply_fn``, bound to the batch's frontend embeddings."""
+    if cfg.block_pattern:
+        return NH.pattern_apply
     if cfg.family in ("ssm", "hybrid"):
         return HY.hybrid_apply
     if cfg.family == "encdec":
@@ -129,6 +133,13 @@ def _apply_fn(cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 def _family(cfg: ModelConfig, dev: torch.device):
     """(init, prefill, decode_step, cache_init) over the family's
     functions, each taking the bundle's arguments."""
+    if cfg.block_pattern:
+        return (lambda g: NH.pattern_init(g, cfg, dev),
+                lambda p, b: NH.pattern_prefill(
+                    p, _tokens(b["tokens"], p), cfg),
+                NH.pattern_decode_step,
+                lambda batch, max_len: NH.pattern_cache_init(
+                    cfg, batch, max_len, dev))
     if cfg.family in ("dense", "moe"):
         return (lambda g: TF.transformer_init(g, cfg, dev),
                 lambda p, b: TF.transformer_prefill(
@@ -187,7 +198,9 @@ _PARAM_SPECS: Dict[str, Dict[str, Any]] = {
     "mlp": _MLP_SPECS,
     "shared": _MLP_SPECS,          # the MoE's shared experts, an MLP
     "moe": {"router": ("fsdp", None),
-            "wi": ("experts", "fsdp", None, "mlp"),
+            "e_bias": (None,),
+            "wi": {4: ("experts", "fsdp", None, "mlp"),
+                   3: ("experts", "fsdp", "mlp")},
             "wo": ("experts", "mlp", "fsdp")},
     "ssm": {"in_proj": ("fsdp", "ssm_inner"),
             "conv_w": (None, "ssm_inner"),
@@ -233,6 +246,8 @@ def param_spec(name: str, ndim: int) -> Tuple[Optional[str], ...]:
 
 def _module(cfg: ModelConfig):
     """The family's model class."""
+    if cfg.block_pattern:
+        return NH.NemotronH
     if cfg.family in ("dense", "moe"):
         return TF.Transformer
     if cfg.family in ("ssm", "hybrid"):

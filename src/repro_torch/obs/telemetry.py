@@ -40,6 +40,7 @@ from typing import Optional
 
 from torch.autograd import profiler as _autograd_profiler
 
+from repro_torch.obs import device as _device
 from repro_torch.obs.metrics import NULL_METRICS, MetricsRegistry
 from repro_torch.obs.trace import (
     _NULL_CM,
@@ -67,15 +68,19 @@ class Telemetry:
     # -- spans ----------------------------------------------------------------
 
     def spans_on(self) -> bool:
-        """Whether a span opened now is recorded: tracing, or a profiler
-        session running. Sites whose span takes arguments test it first."""
-        return self.tracing or _autograd_profiler._is_profiler_enabled
+        """Whether a span opened now is recorded: tracing, a profiler
+        session running, or `obs.device` recording a window. Sites whose
+        span takes arguments test it first."""
+        return (self.tracing or _autograd_profiler._is_profiler_enabled
+                or _device.RECORDER is not None)
 
     def span(self, name: str, **args):
         """The span site helper: a context manager recording ``name`` as a
-        tracer span when tracing and as a profiler range while a profiler
-        runs; with neither, the shared no-op context manager."""
-        if not (self.tracing or _autograd_profiler._is_profiler_enabled):
+        tracer span when tracing, as a profiler range while a profiler
+        runs and as device edges while `obs.device` records; with none,
+        the shared no-op context manager."""
+        if not (self.tracing or _autograd_profiler._is_profiler_enabled
+                or _device.RECORDER is not None):
             return _NULL_CM
         return Span(self.tracer if self.tracing else None, name, args)
 

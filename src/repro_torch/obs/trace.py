@@ -32,6 +32,8 @@ not a tracer is on, so the spans sit in the profiler's own event stream
 beside the kernels they launch. `open_span` / `close_span` keep the open spans on a stack
 per thread (a collector callback or the autograd engine's thread opens
 its own); `Telemetry.span` / `begin` / `end` are the sites' entry points.
+While `obs.device` records a window, each span also marks its edges
+there (CUDA events), read once when the window ends.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ import time
 from typing import Dict, List, Optional, Tuple, Union
 
 from torch.autograd import profiler as _autograd_profiler
+
+from repro_torch.obs import device as _device
 
 WALL_PID = 1
 MODEL_PID = 2
@@ -199,10 +203,10 @@ NULL_TRACER = NullTracer()
 
 class _OpenSpans(threading.local):
     """Each thread's open spans: ``(tracer or None, profiler range or
-    None)`` pairs, innermost last."""
+    None, device edge or None)``, innermost last."""
 
     def __init__(self):
-        self.stack: List[Tuple[Optional[Tracer], object]] = []
+        self.stack: List[Tuple[Optional[Tracer], object, object]] = []
 
 
 _OPEN = _OpenSpans()
@@ -210,8 +214,9 @@ _OPEN = _OpenSpans()
 
 def open_span(tracer: Optional[Tracer], name: str, args: Dict) -> int:
     """Open span ``name``: a B event on ``tracer`` (None: no tracer
-    event) and, while a profiler records, a profiler range of the same
-    name. Returns the thread's span depth before it, for `close_span`."""
+    event), while a profiler records a profiler range of the same name,
+    and while `obs.device` records a window the span's first edge.
+    Returns the thread's span depth before it, for `close_span`."""
     stack = _OPEN.stack
     depth = len(stack)
     rf = None
@@ -220,7 +225,8 @@ def open_span(tracer: Optional[Tracer], name: str, args: Dict) -> int:
         rf.__enter__()
     if tracer is not None:
         tracer.begin(name, **args)
-    stack.append((tracer, rf))
+    rec = _device.RECORDER
+    stack.append((tracer, rf, None if rec is None else (rec, rec.open(name))))
     return depth
 
 
@@ -231,7 +237,9 @@ def close_span(depth: Optional[int] = None) -> None:
     stack = _OPEN.stack
     stop = len(stack) - 1 if depth is None else depth
     while len(stack) > stop:
-        tracer, rf = stack.pop()
+        tracer, rf, edge = stack.pop()
+        if edge is not None:
+            edge[0].close(edge[1])
         if tracer is not None:
             tracer.end()
         if rf is not None:
